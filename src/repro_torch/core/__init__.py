@@ -1,0 +1,14 @@
+"""The hybrid KNN self-join (paper Algorithm 1), ported to PyTorch.
+
+Public API: HybridConfig, HybridKNNJoin, JoinStats, KNNResult;
+brute_knn / self_join_brute (the GPU-JOINLINEAR baseline); the work-queue
+scheduler (AsyncEngineCall, QueueReport, WorkQueue, run_work_queue)."""
+from repro_torch.core.hybrid import HybridConfig, HybridKNNJoin, JoinStats, KNNResult
+from repro_torch.core.brute import brute_knn, self_join_brute
+from repro_torch.core.queue import AsyncEngineCall, QueueReport, WorkQueue, run_work_queue
+
+__all__ = [
+    "HybridConfig", "HybridKNNJoin", "JoinStats", "KNNResult",
+    "brute_knn", "self_join_brute",
+    "AsyncEngineCall", "QueueReport", "WorkQueue", "run_work_queue",
+]

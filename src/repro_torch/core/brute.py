@@ -1,0 +1,47 @@
+"""Brute-force KNN (the paper's GPU-JOINLINEAR baseline, §VI-D) and the
+exact fallback for the sparse engine's certification misses, in PyTorch.
+
+Port of ``repro/core/brute.py``.  On the card one ``knn_topk`` kernel call
+takes the whole corpus: the kernel splits the candidates across thread
+blocks and keeps each running top-k in registers.  On the CPU the plain
+version streams the corpus in fixed chunks merged into a running (Q, K)
+buffer, so memory stays O(Q·K + Q·chunk) whatever |D| is."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import dense_join as dense_lib
+from repro_torch.kernels.knn_topk import ops as topk_ops
+from repro_torch.utils import round_up
+
+
+def brute_knn(corpus: torch.Tensor, queries: torch.Tensor,
+              query_ids: torch.Tensor, *, k: int, corpus_chunk: int = 4096,
+              metric: str = "l2"):
+    """Exact K nearest neighbors of each query over the whole corpus.
+    Returns (dists (Q, k) ascending squared L2, ids (Q, k), −1-padded);
+    ``query_ids`` carries the self-exclusion (−1 = padding row).
+    ``corpus_chunk`` bounds the CPU path's memory only; a CUDA corpus goes
+    to the kernel in one call (ties still resolve in corpus order)."""
+    dense_lib.check_exact_l2(metric)
+    n_corpus = corpus.shape[0]
+    dev = corpus.device
+    ids = torch.arange(n_corpus, dtype=torch.int32, device=dev)
+    if corpus.is_cuda:
+        return topk_ops.knn_topk(queries, corpus, query_ids, ids, k=k)
+    chunk = min(corpus_chunk, round_up(n_corpus, 8))
+    run_d = torch.full((queries.shape[0], k), float("inf"), device=dev)
+    run_i = torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=dev)
+    for c0 in range(0, n_corpus, chunk):
+        nd, ni = topk_ops.knn_topk(
+            queries, corpus[c0:c0 + chunk], query_ids, ids[c0:c0 + chunk], k=k)
+        run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=k)
+    return run_d, run_i
+
+
+def self_join_brute(points: torch.Tensor, *, k: int, corpus_chunk: int = 4096,
+                    metric: str = "l2"):
+    """GPU-JOINLINEAR: the O(|D|²) self-join baseline."""
+    ids = torch.arange(points.shape[0], dtype=torch.int32, device=points.device)
+    return brute_knn(points, points, ids, k=k, corpus_chunk=corpus_chunk,
+                     metric=metric)

@@ -1,0 +1,186 @@
+// Shared device code of the port's top-k kernels (knn_stream.cu, knn_topk.cu).
+//
+// RunningTopK keeps one query's k smallest (distance, id) pairs in
+// registers, sorted ascending.  The buffer is KMAX long (a compile-time
+// ceiling, so every index into it is static and nothing spills to local
+// memory); only its first k <= KMAX entries are live and `worst` caches
+// entry k-1.  Insertion shifts only strictly larger entries, so equal
+// distances keep their arrival order: fed candidates in column order, the
+// buffer reproduces the Pallas merge's first-argmin tie rule over
+// [running buffer | new block] (kernels/knn_stream/kernel.py:_merge_topk).
+//
+// Query<DP> holds one thread's query row.  For DP > 0 the row lives in
+// registers, zero-padded to DP dims, and candidate rows are staged in
+// shared memory at a stride of DP floats (zero-padded too) and read as
+// float4 broadcasts: one shared load per four FMAs, so the fp32 pipe, not
+// the load unit, sets the pace.  The padding adds exact zeros to every sum.
+// DP == 0 is the generic path for wide rows: the query tile stays in
+// shared memory, transposed, and rows are staged at stride dim.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+template <int KMAX>
+struct RunningTopK {
+  float d[KMAX];
+  int i[KMAX];
+  float worst;
+  int k;
+
+  __device__ __forceinline__ void init(int k_live) {
+    k = k_live;
+#pragma unroll
+    for (int p = 0; p < KMAX; ++p) {
+      d[p] = CUDART_INF_F;
+      i[p] = -1;
+    }
+    worst = CUDART_INF_F;
+  }
+
+  __device__ __forceinline__ void push(float dist, int id) {
+    if (!(dist < worst)) return;
+#pragma unroll
+    for (int p = KMAX - 1; p > 0; --p) {
+      if (d[p - 1] > dist) {
+        d[p] = d[p - 1];
+        i[p] = i[p - 1];
+      } else if (d[p] > dist) {
+        d[p] = dist;
+        i[p] = id;
+      }
+    }
+    if (d[0] > dist) {
+      d[0] = dist;
+      i[0] = id;
+    }
+#pragma unroll
+    for (int p = 0; p < KMAX; ++p) {
+      if (p == k - 1) worst = d[p];
+    }
+  }
+
+  // Row `row` of (rows, k) outputs; ids are -1 wherever the distance is inf.
+  __device__ __forceinline__ void store(float* out_d, int* out_i,
+                                        long long row) const {
+#pragma unroll
+    for (int p = 0; p < KMAX; ++p) {
+      if (p < k) {
+        out_d[row * k + p] = d[p];
+        out_i[row * k + p] = isinf(d[p]) ? -1 : i[p];
+      }
+    }
+  }
+};
+
+template <int DP>
+struct Query {
+  float v[DP > 0 ? DP : 1];
+  const float* q_s;  // DP == 0: the transposed [dim][block_q] query tile
+  int t, block_q, dim;
+  float qq;
+
+  // `tile` is the block's (rows, dim) query rows; row t is this thread's.
+  // DP == 0 stages the tile in `smem` (dim * block_q floats) and syncs.
+  __device__ __forceinline__ void load(const float* tile, long long rows_valid,
+                                       int dim_, int block_q_, float* smem) {
+    t = threadIdx.x;
+    dim = dim_;
+    block_q = block_q_;
+    qq = 0.f;
+    if constexpr (DP > 0) {
+#pragma unroll
+      for (int d = 0; d < DP; ++d) {
+        v[d] = (d < dim && t < rows_valid) ? tile[(long long)t * dim + d] : 0.f;
+        qq = fmaf(v[d], v[d], qq);
+      }
+    } else {
+      for (int e = t; e < block_q * dim; e += blockDim.x) {
+        const int r = e / dim;
+        smem[(e - r * dim) * block_q + r] = r < rows_valid ? tile[e] : 0.f;
+      }
+      __syncthreads();
+      q_s = smem;
+      for (int d = 0; d < dim; ++d) {
+        const float x = q_s[d * block_q + t];
+        qq = fmaf(x, x, qq);
+      }
+    }
+  }
+
+  // Floats of shared memory the query needs (DP == 0 only).
+  static __host__ __device__ int smem_floats(int dim, int block_q) {
+    return DP > 0 ? 0 : dim * block_q;
+  }
+
+  // q.c for one staged row (`stride` floats, 16-byte aligned for DP > 0).
+  __device__ __forceinline__ float dot(const float* c) const {
+    float s = 0.f;
+    if constexpr (DP > 0) {
+      const float4* c4 = reinterpret_cast<const float4*>(c);
+#pragma unroll
+      for (int j = 0; j < DP / 4; ++j) {
+        const float4 x = c4[j];
+        s = fmaf(v[4 * j], x.x, s);
+        s = fmaf(v[4 * j + 1], x.y, s);
+        s = fmaf(v[4 * j + 2], x.z, s);
+        s = fmaf(v[4 * j + 3], x.w, s);
+      }
+    } else {
+      for (int d = 0; d < dim; ++d) s = fmaf(q_s[d * block_q + t], c[d], s);
+    }
+    return s;
+  }
+};
+
+// Stage n rows of `src` ((n, dim), row-major) into `dst` at stride `stride`
+// (zero-padding columns dim..stride-1 and rows n..n_alloc-1), then write
+// each row's squared norm into `norms`.  Ends with __syncthreads().
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n,
+                                           int n_alloc, int dim, int stride,
+                                           float* dst, float* norms) {
+  for (int e = threadIdx.x; e < n_alloc * stride; e += blockDim.x) {
+    const int r = e / stride;
+    const int d = e - r * stride;
+    dst[e] = (r < n && d < dim) ? src[(long long)r * dim + d] : 0.f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < n_alloc; r += blockDim.x) {
+    float s = 0.f;
+    for (int d = 0; d < dim; ++d) s = fmaf(dst[r * stride + d], dst[r * stride + d], s);
+    norms[r] = s;
+  }
+  __syncthreads();
+}
+
+// Smallest register-resident query width holding `dim`, or 0 (generic).
+static inline int query_pad(int dim) {
+  return dim <= 8 ? 8 : dim <= 16 ? 16 : dim <= 24 ? 24 : dim <= 32 ? 32 : 0;
+}
+
+// Run `__VA_ARGS__` with constexpr KMAX (smallest of 8/16/32 holding k) and
+// DP (query_pad(dim)) in scope.
+#define DISPATCH_DP(dp, ...)                                      \
+  do {                                                            \
+    switch (dp) {                                                 \
+      case 8: { constexpr int DP = 8; __VA_ARGS__; } break;       \
+      case 16: { constexpr int DP = 16; __VA_ARGS__; } break;     \
+      case 24: { constexpr int DP = 24; __VA_ARGS__; } break;     \
+      case 32: { constexpr int DP = 32; __VA_ARGS__; } break;     \
+      default: { constexpr int DP = 0; __VA_ARGS__; } break;      \
+    }                                                             \
+  } while (0)
+
+#define DISPATCH_KMAX_DP(k, dim, ...)                                     \
+  do {                                                                    \
+    if ((k) <= 8) {                                                       \
+      constexpr int KMAX = 8;                                             \
+      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+    } else if ((k) <= 16) {                                               \
+      constexpr int KMAX = 16;                                            \
+      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+    } else {                                                              \
+      constexpr int KMAX = 32;                                            \
+      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+    }                                                                     \
+  } while (0)

@@ -1,0 +1,105 @@
+"""Wrapper of the CUDA streaming top-k kernel (``csrc/knn_stream.cu``).
+
+One kernel serves both TPU entry points of
+``repro/kernels/knn_stream/kernel.py``: the scalar-prefetch block-table
+kernel (the dense engine's hot loop) and the contiguous padded kernel,
+which is the block-table kernel with one identity table shared by every
+tile (tile stride 0).  Each wrapper counts the launches it makes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_UNROLLED_K = 32
+
+prefetch_launches = 0
+padded_launches = 0
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p]
+)
+
+
+def _launch(queries, corpus, block_table, bt_stride, query_ids, cand_ids,
+            cid_stride, eps2, *, n_tiles, nblk, k, block_q, block_c):
+    req = _build.require
+    dev = queries.device
+    req(dev.type == "cuda", "knn_stream kernel needs CUDA tensors")
+    for name, t, dt in (("queries", queries, torch.float32),
+                        ("corpus", corpus, torch.float32),
+                        ("block_table", block_table, torch.int32),
+                        ("query_ids", query_ids, torch.int32),
+                        ("cand_ids", cand_ids, torch.int32)):
+        req(t.device == dev and t.dtype == dt and t.is_contiguous(),
+            f"knn_stream: {name} must be a contiguous {dt} tensor on {dev}")
+    req(1 <= k <= MAX_UNROLLED_K,
+        f"knn_stream kernel keeps k <= MAX_UNROLLED_K={MAX_UNROLLED_K} "
+        f"in registers, got k={k}")
+    req(block_q % 32 == 0 and 32 <= block_q <= 1024,
+        f"block_q must be a multiple of 32 in [32, 1024], got {block_q}")
+    dim = queries.shape[1]
+    req(corpus.shape[1] == dim and corpus.shape[0] % block_c == 0,
+        f"corpus {tuple(corpus.shape)} must be (C, {dim}) with C % {block_c} == 0")
+    req(queries.shape[0] == n_tiles * block_q, "queries must hold n_tiles·block_q rows")
+    smem = 4 * (block_c * max(dim, 32) + 2 * block_c + (dim * block_q if dim > 32 else 0))
+    req(smem <= _build.SMEM_LIMIT,
+        f"knn_stream: dim={dim} needs {smem} B of shared memory (> {_build.SMEM_LIMIT})")
+    eps = torch.as_tensor(eps2, dtype=torch.float32, device=dev).reshape(1)
+
+    rows = n_tiles * block_q
+    out_d = torch.empty((rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, k), dtype=torch.int32, device=dev)
+    found = torch.empty((rows,), dtype=torch.int32, device=dev)
+    fn = _build.function("knn_stream", "knn_stream_topk_launch", _ARGTYPES)
+    p = _build.ptr
+    err = fn(p(queries), p(corpus), p(block_table), bt_stride, p(query_ids),
+             p(cand_ids), cid_stride, p(eps), p(out_d), p(out_i), p(found),
+             n_tiles, nblk, dim, k, block_q, block_c, _build.stream())
+    _build.check(err, "knn_stream_topk_launch")
+    return out_d, out_i, found
+
+
+def knn_stream_topk_prefetch(queries, corpus, block_table, query_ids, cand_ids,
+                             eps2, *, k: int, block_q: int = 128,
+                             block_c: int = 128):
+    """Block-table streaming top-k (``knn_stream_topk_prefetch`` of the JAX
+    package): tile i scores the ``block_c``-row corpus blocks named by
+    ``block_table[i]`` against its ``block_q`` query rows.
+
+    queries (T·block_q, D) f32; corpus (C, D) f32, C % block_c == 0;
+    block_table (T, nblk) i32; query_ids (T·block_q,) i32 exclusion ids;
+    cand_ids (T, nblk·block_c) i32, −1 = row outside the tile's union;
+    eps2 a () f32 tensor on the card (or a float).
+    Returns (dists (T·block_q, k) f32, ids i32, found (T·block_q,) i32)."""
+    global prefetch_launches
+    n_tiles, nblk = block_table.shape
+    _build.require(tuple(cand_ids.shape) == (n_tiles, nblk * block_c),
+                   f"cand_ids {tuple(cand_ids.shape)} != ({n_tiles}, {nblk * block_c})")
+    out = _launch(queries, corpus, block_table, nblk, query_ids, cand_ids,
+                  nblk * block_c, eps2, n_tiles=n_tiles, nblk=nblk, k=k,
+                  block_q=block_q, block_c=block_c)
+    prefetch_launches += 1
+    return out
+
+
+def knn_stream_topk_padded(queries, candidates, query_ids, cand_ids, eps2, *,
+                           k: int, block_q: int = 128, block_c: int = 128):
+    """Contiguous streaming top-k (``knn_stream_topk_padded``): every query
+    tile scans all of ``candidates``.  Q % block_q == 0, C % block_c == 0."""
+    global padded_launches
+    n_c = candidates.shape[0]
+    _build.require(queries.shape[0] % block_q == 0 and n_c % block_c == 0,
+                   "knn_stream_topk_padded needs padded operands")
+    n_cb = n_c // block_c
+    table = torch.arange(n_cb, dtype=torch.int32, device=queries.device)
+    out = _launch(queries, candidates, table, 0, query_ids, cand_ids, 0, eps2,
+                  n_tiles=queries.shape[0] // block_q, nblk=n_cb, k=k,
+                  block_q=block_q, block_c=block_c)
+    padded_launches += 1
+    return out

@@ -1,0 +1,81 @@
+"""Dispatch for the streaming distance + top-k engine: the plain version
+for a CPU tensor, the CUDA kernel for a CUDA tensor.
+
+Oversized k (> ``MAX_UNROLLED_K``) reroutes ``knn_stream_topk`` to the
+plain version on either device, as the JAX ops do: the kernel keeps k in
+registers up to that ceiling.  The reroute is counted
+(``oversized_k_reroutes``) and logged once per process.
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from repro_torch.kernels.knn_stream import kernel as _kernel
+from repro_torch.kernels.knn_stream import ref as _ref
+from repro_torch.utils import round_up
+
+_log = logging.getLogger(__name__)
+
+oversized_k_reroutes = 0
+_oversized_k_warned = False
+
+
+def _reroute_oversized_k(k: int) -> None:
+    global oversized_k_reroutes, _oversized_k_warned
+    oversized_k_reroutes += 1
+    if not _oversized_k_warned:
+        _oversized_k_warned = True
+        _log.warning(
+            "knn_stream: k=%d exceeds MAX_UNROLLED_K=%d — routing to the "
+            "materialize-then-sort plain version (exact, but without the "
+            "streaming kernel's memory ceiling; later reroutes are silent)",
+            k, _kernel.MAX_UNROLLED_K,
+        )
+
+
+def _pad_rows(x: torch.Tensor, rows: int, value) -> torch.Tensor:
+    if x.shape[0] == rows:
+        return x.contiguous()
+    out = torch.full((rows,) + tuple(x.shape[1:]), value, dtype=x.dtype, device=x.device)
+    out[: x.shape[0]] = x
+    return out
+
+
+def knn_stream_topk(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
+                    block_q: int = 128, block_c: int = 128):
+    """One-pass ε-filtered top-k over arbitrary (unpadded) shapes.
+
+    Returns (dists (Q, k) ascending inf-padded, ids (Q, k) −1-padded,
+    found (Q,) i32 — in-range candidates, self/invalid excluded)."""
+    if not queries.is_cuda or k > _kernel.MAX_UNROLLED_K:
+        if queries.is_cuda:
+            _reroute_oversized_k(k)
+        return _ref.knn_stream_topk_ref(
+            queries, candidates, query_ids, cand_ids, eps2, k=k)
+    q_n = queries.shape[0]
+    qp = round_up(max(q_n, 1), block_q)
+    cp = round_up(max(candidates.shape[0], 1), block_c)
+    kd, ki, found = _kernel.knn_stream_topk_padded(
+        _pad_rows(queries.float(), qp, 0.0),
+        _pad_rows(candidates.float(), cp, 0.0),
+        _pad_rows(query_ids.to(torch.int32), qp, -1),
+        _pad_rows(cand_ids.to(torch.int32), cp, -1),
+        eps2, k=k, block_q=block_q, block_c=block_c,
+    )
+    return kd[:q_n], ki[:q_n], found[:q_n]
+
+
+def knn_stream_topk_prefetch(queries, corpus, block_table, query_ids, cand_ids,
+                             eps2, *, k: int, block_q: int = 128,
+                             block_c: int = 128):
+    """Block-table streaming top-k (operands pre-padded by the dense
+    engine — the block table fixes the shapes)."""
+    if not queries.is_cuda:
+        return _ref.knn_stream_topk_prefetch_ref(
+            queries, corpus, block_table, query_ids, cand_ids, eps2,
+            k=k, block_q=block_q, block_c=block_c)
+    return _kernel.knn_stream_topk_prefetch(
+        queries, corpus, block_table, query_ids, cand_ids, eps2,
+        k=k, block_q=block_q, block_c=block_c)
