@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--n POINTS]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   build  compile every CUDA kernel of ``src/repro_torch/csrc`` with nvcc
-         (sm_90a) into ``build/repro_torch/``;
+         (sm_90a) into ``build/repro_torch/``, one nvcc per source in
+         parallel;
   (b)    ``KNNIndex.build`` + self-join of the paper's SuSy-sized cloud
          (5,000,000 × 18 by default, ``pointclouds.load("susy")``) with
          ``HybridConfig(k=25, m=6, gamma=0.4, rho=0.2,
@@ -18,15 +19,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          call must add no engine bucket;
   (d)    the brute baseline (GPU-JOINLINEAR) on 4096 sampled queries over
          the full corpus, through the ``knn_topk`` kernel;
-  (a)    each kernel against its plain PyTorch version on the card, on the
-         inputs the main path gave it: max |Δd|, id / found / bin
+  (e)    the cell-tiled ``pallas`` backend at full width: a second index on
+         the same points with the fused index's ε pinned (same grid),
+         self-join (2048 rows against float64) and the R≠S batch twice;
+         the ``pairwise_sq_l2`` kernel must launch;
+  (g)    metrics: a cosine index over ``normalize_rows`` of the points and
+         an ip index over the raw points, each serving the R≠S batch, 2048
+         rows held against float64 in that metric (1 − cos; signed −q·c);
+         every ip query must end in the brute lane;
+  (h)    bf16: a fused index with ``distance_dtype="bf16"`` at K = 16
+         (the bf16 streaming kernel; exact after the fp32 rescore), then
+         one R≠S call at K = 25 (k + 8 > 32: the gathered fp32 route, the
+         ``knn_stream_topk_padded`` kernel);
+  (f)    ``dense_join`` with ``backend="pallas"`` against ``"fused"`` on the
+         first dense batch of the 5M index, and on 16,384 sparse-split
+         queries at budgets growing until at least half their tiles fit
+         in both engines: totals equal, overflow patterns nested, found /
+         failed / ids / distances equal up to ε² flips, distance ties and
+         the expansion form's rounding bound;
+  (a)    each kernel and variant against its plain PyTorch version on the
+         card, on the inputs its path gave it: max |Δd|, id / found / bin
          mismatches (each explained by an ε²- or bin-edge flip or a
          distance tie, recomputed in float64), kernel / plain / library
-         times from CUDA events, and the bound from bytes and FLOPs.
+         times from CUDA events, and the bound from bytes and FLOPs.  The
+         pairwise kernel is also held at FMA width (``pointclouds.load(
+         "fma")``, 518 dims, 5 d-chunks), where SHORTC must skip tiles.
 
-Kernel launch counters are set to 0 just before (b) and read just after
-(d).  The last lines are the card's name and power limit, one JSON line
-with every kernel's numbers, and ``{"ok": true, "device": {...}}``.
+Each path — (b)–(d), (e), (g), (h) — sets the kernel launch counters to 0
+just before it and reads them just after.  The last lines are the card's
+name and power limit, one JSON line with every kernel's numbers, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -47,6 +69,7 @@ FP32_FLOP_PER_S = 67e12
 FP32_U = 2.0 ** -24                 # unit roundoff of float32
 
 K = 25
+K_BF16 = 16                         # k + 8 ≤ 32: the bf16 streaming kernel runs
 ORACLE_ROWS = 2048
 FOREIGN_QUERIES = 65_536
 BRUTE_QUERIES = 4096
@@ -89,19 +112,30 @@ def bound(nbytes: float, flops: float):
     return (max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations")
 
 
-def oracle64(points, queries, query_ids, k: int, chunk: int = 262_144):
-    """Exact float64 k nearest (squared distances, ids) of ``queries``
-    over ``points`` on the card; ``query_ids`` (or None) are excluded."""
+def score64(q, c, metric: str):
+    """float64 scores of query rows ``q`` against rows ``c``: squared L2,
+    −q·c (ip) or 1 − q·c (cosine, rows already unit-normalized)."""
+    import torch
+    if metric == "ip":
+        return -(q @ c.T)
+    if metric == "cosine":
+        return 1.0 - q @ c.T
+    return torch.clamp((q * q).sum(1, keepdim=True) + (c * c).sum(1)[None, :]
+                       - 2.0 * q @ c.T, min=0.0)
+
+
+def oracle64(points, queries, query_ids, k: int, metric: str = "l2",
+             chunk: int = 262_144):
+    """Exact float64 k best (scores, ids) of ``queries`` over ``points`` on
+    the card; ``query_ids`` (or None) are excluded."""
     import torch
     q = queries.double()
-    qq = (q * q).sum(1, keepdim=True)
     best_d = best_i = None
     for c0 in range(0, points.shape[0], chunk):
-        c = points[c0:c0 + chunk].double()
-        d2 = torch.clamp(qq + (c * c).sum(1)[None, :] - 2.0 * q @ c.T, min=0.0)
+        d2 = score64(q, points[c0:c0 + chunk].double(), metric)
         if query_ids is not None:
             local = query_ids.long() - c0
-            hit = (local >= 0) & (local < c.shape[0])
+            hit = (local >= 0) & (local < d2.shape[1])
             d2[hit.nonzero()[:, 0], local[hit]] = float("inf")
         vd, vi = torch.topk(d2, k, dim=1, largest=False)
         vi = vi + c0
@@ -113,26 +147,36 @@ def oracle64(points, queries, query_ids, k: int, chunk: int = 262_144):
     return best_d, best_i
 
 
-def check_exact(points, queries, query_ids, got_d, got_i, what: str):
-    """Reported Euclidean distances and ids against the float64 oracle:
-    the returned set's float64 distances equal the true k smallest (up to
-    fp32 rounding of near-ties) and each reported distance is its id's."""
+def check_exact(points, queries, query_ids, got_d, got_i, what: str, metric: str = "l2"):
+    """Reported distances and ids against the float64 oracle: the returned
+    set's float64 scores equal the true k best (up to fp32 rounding of
+    near-ties) and each reported distance is its id's (Euclidean for l2,
+    1 − cos for cosine, −q·c for ip)."""
     import torch
     k = got_i.shape[1]
-    od2, _ = oracle64(points, queries, query_ids, k)
+    od2, _ = oracle64(points, queries, query_ids, k, metric)
     gi = torch.as_tensor(got_i, device=points.device).long()
     assert (gi >= 0).all(), f"{what}: missing neighbors"
     if query_ids is not None:
         assert not (gi == query_ids.long()[:, None]).any(), f"{what}: self pair returned"
-    diff = points[gi].double() - queries.double()[:, None, :]
-    rd2 = torch.sort((diff * diff).sum(-1), dim=1).values
+    q = queries.double()
+    c = points[gi].double()
+    if metric == "l2":
+        realized = ((c - q[:, None, :]) ** 2).sum(-1)
+        want_d = torch.sqrt(od2)
+    else:
+        dot = (c * q[:, None, :]).sum(-1)
+        realized = -dot if metric == "ip" else 1.0 - dot
+        want_d = od2
+    rd2 = torch.sort(realized, dim=1).values
+    scale = max(1.0, od2.abs().max().item())
     set_err = (rd2 - od2).abs().max().item()
     gd = torch.as_tensor(got_d, device=points.device).double()
-    dist_err = (gd - torch.sqrt(od2)).abs().max().item()
-    log(f"  {what}: {len(gi)} rows vs float64: max |d²(ids) − d²_oracle| "
+    dist_err = (gd - want_d).abs().max().item()
+    log(f"  {what}: {len(gi)} rows vs float64 ({metric}): max |score(ids) − score_oracle| "
         f"{set_err:.3e}, max |d − d_oracle| {dist_err:.3e}")
-    assert set_err <= 1e-5, f"{what}: returned ids are not the exact k nearest"
-    assert dist_err <= 1e-4, f"{what}: reported distances disagree with float64"
+    assert set_err <= 1e-5 * scale, f"{what}: returned ids are not the exact k best"
+    assert dist_err <= 1e-4 * scale, f"{what}: reported distances disagree with float64"
 
 
 def bin_edge_pairs(queries, points, bw, n_bins: int, chunk: int = 262_144):
@@ -168,18 +212,26 @@ def stats_line(res, n_q: int) -> str:
             f"queries/s={n_q / s.t_wall:.1f} n_engine_compiles={s.n_engine_compiles}")
 
 
-def hold_topk(what, pr, qpts, kd, ki, rd, ri, kf=None, rf=None, scored=None, eps2=None):
+def pair64(c, q, metric: str):
+    """float64 score of candidate rows ``c`` against query rows ``q``
+    (broadcast): squared L2, or −q·c under ip."""
+    c, q = c.double(), q.double()
+    return -(c * q).sum(-1) if metric == "ip" else ((c - q) ** 2).sum(-1)
+
+
+def hold_topk(what, pr, qpts, kd, ki, rd, ri, kf=None, rf=None, scored=None, eps2=None,
+              metric="l2"):
     """Hold a kernel's top-k against its plain version on the same inputs.
-    ``found`` flips must have a scored pair within 1e-4 of ε² in float64;
-    on the other rows the inf pattern must agree and every id mismatch
-    must be a distance tie in float64 (``pr[id]`` is candidate ``id``).
-    Returns (max |Δd|, id mismatches, found mismatches)."""
+    ``found`` flips must have a scored pair within 1e-4 of the ε² threshold
+    in float64; on the other rows the inf pattern must agree and every id
+    mismatch must be a score tie in float64 (``pr[id]`` is candidate
+    ``id``).  Returns (max |Δd|, id mismatches, found mismatches)."""
     import torch
     flips = ((kf != rf).nonzero()[:, 0] if kf is not None
              else torch.zeros((0,), dtype=torch.long, device=kd.device))
     flip_gap = tie_gap = 0.0
     for r in flips.tolist():
-        d2 = ((scored(r).double() - qpts[r].double()) ** 2).sum(1)
+        d2 = pair64(scored(r), qpts[r], metric)
         gap = (d2 - eps2.double()).abs().min().item()
         assert gap < 1e-4, f"{what}: row {r} found flip is {gap:.2e} off ε²"
         flip_gap = max(flip_gap, gap)
@@ -191,9 +243,8 @@ def hold_topk(what, pr, qpts, kd, ki, rd, ri, kf=None, rf=None, scored=None, eps
     bad = ((ki != ri) & ok[:, None]).nonzero()
     if len(bad):
         r, c = bad[:, 0], bad[:, 1]
-        q = qpts[r].double()
-        dk = ((pr[ki[r, c].long()].double() - q) ** 2).sum(1)
-        dr = ((pr[ri[r, c].long()].double() - q) ** 2).sum(1)
+        dk = pair64(pr[ki[r, c].long()], qpts[r], metric)
+        dr = pair64(pr[ri[r, c].long()], qpts[r], metric)
         tie_gap = (dk - dr).abs().max().item()
         assert tie_gap < 1e-5, f"{what}: an id mismatch is not a distance tie ({tie_gap:.2e})"
     log(f"[a] {what}: max|Δd|={err:.3e} id mismatches={len(bad)} (float64 "
@@ -203,11 +254,68 @@ def hold_topk(what, pr, qpts, kd, ki, rd, ri, kf=None, rf=None, scored=None, eps
     return err, len(bad), len(flips)
 
 
+
+
+def hold_pairwise(what, got, want, qpts, cpts, chunks_k, chunks_r, eps2, block_q, block_c):
+    """Hold the pairwise kernel's (T, Q, C) tiles against its plain version:
+    the tiles' SHORTC decisions (chunks accumulated) are identical; every
+    entry of a tile agrees within twice the expansion form's fp32 bound
+    (D+4)·u·(|q|+|c|)²; a skipped tile's entries exceed ε² on both sides.
+    Returns (max |Δ|, tiles skipped)."""
+    import torch
+    assert torch.equal(chunks_k, chunks_r), \
+        f"{what}: SHORTC skipped other tiles than the plain version"
+    dim = qpts.shape[-1]
+    qn = qpts.double().norm(dim=-1)
+    cn = cpts.double().norm(dim=-1)
+    allow = 2.0 * (dim + 4) * FP32_U * (qn[:, :, None] + cn[:, None, :]) ** 2
+    delta = (got.double() - want.double()).abs()
+    err = delta.max().item()
+    worst = (delta / allow).max().item()
+    n_chunks = -(-dim // 128)
+    t, nq, nc = got.shape
+    skipped = (chunks_k < n_chunks)
+    entry_skipped = skipped.repeat_interleave(block_q, 1).repeat_interleave(block_c, 2)
+    if eps2 is not None and skipped.any():
+        assert (got[entry_skipped] > eps2).all() and (want[entry_skipped] > eps2).all(), \
+            f"{what}: a skipped tile holds an entry within ε²"
+    log(f"[a] {what}: {tuple(got.shape)} max|Δ|={err:.3e} (largest Δ/allowance "
+        f"{worst:.3f}); tiles skipped by SHORTC {int(skipped.sum())} of {skipped.numel()}")
+    assert worst <= 1.0, f"{what}: distances disagree with the plain version"
+    return err, int(skipped.sum())
+
+
+def pairwise_bound(qpts, cpts, chunks, block_q, block_c, block_d=128):
+    """(ms, by) for one pairwise call: inputs read once and the tiles written
+    once; FLOPs of the chunks each tile actually accumulated."""
+    t, nq, dim = qpts.shape
+    nc = cpts.shape[1]
+    d_done = (chunks.double() * block_d).clamp(max=dim)
+    per_tile = (2.0 * block_q * block_c * d_done + 2.0 * (block_q + block_c) * d_done
+                + 3.0 * block_q * block_c * chunks.double())
+    nbytes = (qpts.numel() + cpts.numel() + t * nq * nc) * 4
+    return bound(nbytes, per_tile.sum().item())
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, lib_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+STREAM_CU = "src/repro_torch/csrc/knn_stream.cu"
+TOPK_CU = "src/repro_torch/csrc/knn_topk.cu"
+PAIRWISE_CU = "src/repro_torch/csrc/pairwise_l2.cu"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=5_000_000,
                     help="corpus size |D| (18 dims are never cut)")
     args = ap.parse_args(argv)
+
+    import dataclasses
+    import re
 
     import numpy as np
     import torch
@@ -221,6 +329,7 @@ def main(argv=None) -> int:
     from repro_torch.core import brute as brute_lib
     from repro_torch.core import dense_join as dense_lib
     from repro_torch.core import epsilon as eps_lib
+    from repro_torch.core import grid as grid_lib
     from repro_torch.core import splitter as split_lib
     from repro_torch.core.hybrid import _pad_ids
     from repro_torch.core.queue import WorkQueue
@@ -235,7 +344,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.knn_topk import kernel as topk_kernel
     from repro_torch.kernels.knn_topk import ops as topk_ops
     from repro_torch.kernels.knn_topk import ref as topk_ref
+    from repro_torch.kernels.pairwise_l2 import kernel as pair_kernel
+    from repro_torch.kernels.pairwise_l2 import ref as pair_ref
+    from repro_torch.retrieval import normalize_rows
     from repro_torch.runtime import KNNIndex
+    from repro_torch.runtime.knn_index import select_epsilon
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float64 oracle / yardsticks
     torch.backends.cudnn.allow_tf32 = False
@@ -244,15 +357,32 @@ def main(argv=None) -> int:
     log(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    def reset_counts():
+        for counter in (stream_kernel.launches, topk_kernel.launches, pair_kernel.launches):
+            counter.clear()
+        hist_kernel.launches = 0
+        stream_ops.oversized_k_reroutes = topk_ops.oversized_k_reroutes = 0
+
+    def read_counts(what):
+        counts = {**stream_kernel.launches, **topk_kernel.launches,
+                  **pair_kernel.launches, "distance_bin_histogram": hist_kernel.launches}
+        reroutes = {"knn_stream": stream_ops.oversized_k_reroutes,
+                    "knn_topk": topk_ops.oversized_k_reroutes}
+        log(json.dumps({"path": what, "launch_counters": counts,
+                        "oversized_k_reroutes": reroutes}))
+        assert not any(reroutes.values()), f"{what}: oversized-k reroutes {reroutes}"
+        return counts
+
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"[build] nvcc sm_90a, {len(logs)} sources in parallel: "
         f"{time.perf_counter() - t0:.1f}s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
+        log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}–"
+            f"{max(regs, default=0)}, largest spill store {max(spills, default=0)} B")
 
     # -- data -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -260,13 +390,17 @@ def main(argv=None) -> int:
     log(f"[data] susy {pts.shape} in {time.perf_counter() - t0:.1f}s")
     cfg = HybridConfig(k=K, m=6, gamma=0.4, rho=0.2, online_rebalance=False)
     rng = np.random.default_rng(1)
+    pts_d = torch.as_tensor(pts, device=dev)
+    rows = torch.as_tensor(rng.choice(len(pts), ORACLE_ROWS, replace=False), device=dev)
+    rows_np = rows.cpu().numpy()
+    foreign = pointclouds.load("susy", n_override=FOREIGN_QUERIES)
+    foreign = (foreign + rng.normal(0, 0.01, foreign.shape)).astype(np.float32)
+    fq = torch.as_tensor(foreign, device=dev)
+    sub = rng.choice(FOREIGN_QUERIES, ORACLE_ROWS, replace=False)
 
-    # -- main path: (b) build + self-join, (c) R≠S, (d) brute ---------------
-    stream_kernel.prefetch_launches = stream_kernel.padded_launches = 0
-    topk_kernel.launches = hist_kernel.launches = 0
-    stream_ops.oversized_k_reroutes = topk_ops.oversized_k_reroutes = 0
+    # -- path 1: (b) build + self-join, (c) R≠S, (d) brute -----------------
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
-
     t0 = time.perf_counter()
     index = KNNIndex.build(pts, cfg, device="cuda")
     log(f"[b] build {time.perf_counter() - t0:.2f}s: eps={index.eps:.6g} "
@@ -274,20 +408,14 @@ def main(argv=None) -> int:
         f"backend={index.backend}")
     res = index.query(exclude_self=True)
     log(f"[b] self-join: {stats_line(res, len(pts))} sources={np.bincount(res.source, minlength=3).tolist()}")
-    pts_d = torch.as_tensor(pts, device=dev)
-    rows = torch.as_tensor(rng.choice(len(pts), ORACLE_ROWS, replace=False), device=dev)
-    check_exact(pts_d, pts_d[rows], rows, res.dists[rows.cpu().numpy()],
-                res.ids[rows.cpu().numpy()], "self-join")
+    check_exact(pts_d, pts_d[rows], rows, res.dists[rows_np], res.ids[rows_np], "self-join")
+    del res
 
-    foreign = pointclouds.load("susy", n_override=FOREIGN_QUERIES)
-    foreign = (foreign + rng.normal(0, 0.01, foreign.shape)).astype(np.float32)
     r1 = index.query(foreign)
     log(f"[c] R≠S #1: {stats_line(r1, FOREIGN_QUERIES)}")
     r2 = index.query(foreign)
     log(f"[c] R≠S #2: {stats_line(r2, FOREIGN_QUERIES)}")
     assert r2.stats.n_engine_compiles == 0, "steady-state R≠S query added engine buckets"
-    fq = torch.as_tensor(foreign, device=dev)
-    sub = rng.choice(FOREIGN_QUERIES, ORACLE_ROWS, replace=False)
     check_exact(pts_d, fq[sub], None, r2.dists[sub], r2.ids[sub], "R≠S")
 
     brute_rows = torch.cat([rows, torch.as_tensor(
@@ -302,121 +430,290 @@ def main(argv=None) -> int:
         f"({BRUTE_QUERIES / t_brute:.1f} queries/s)")
     check_exact(pts_d, pts_d[rows], rows, torch.sqrt(bd[:ORACLE_ROWS]).cpu().numpy(),
                 bi[:ORACLE_ROWS].cpu().numpy(), "brute")
-
-    launches = {
-        "knn_stream_topk_prefetch": stream_kernel.prefetch_launches,
-        "knn_stream_topk_padded": stream_kernel.padded_launches,
-        "knn_tile_topk": topk_kernel.launches,
-        "distance_bin_histogram": hist_kernel.launches,
-    }
-    reroutes = {"knn_stream": stream_ops.oversized_k_reroutes,
-                "knn_topk": topk_ops.oversized_k_reroutes}
-    log(json.dumps({"launch_counters": launches, "oversized_k_reroutes": reroutes}))
+    launches = read_counts("(b)-(d) fused l2")
     log(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in ("knn_stream_topk_prefetch", "knn_tile_topk", "distance_bin_histogram"):
-        assert launches[name] > 0, f"main path never launched {name}"
-    assert not any(reroutes.values()), f"oversized-k reroutes on the main path: {reroutes}"
+        assert launches.get(name, 0) > 0, f"main path never launched {name}"
 
-    # -- (a) every kernel against its plain version, on main-path inputs ---
+    # -- path 2: (e) the tiled pallas backend on the same points and grid ---
+    reset_counts()
+    t0 = time.perf_counter()
+    index_p = KNNIndex.build(pts, dataclasses.replace(cfg, backend="pallas"), index.eps,
+                             device="cuda")
+    log(f"[e] build {time.perf_counter() - t0:.2f}s (ε pinned to {index_p.eps:.6g}) "
+        f"backend={index_p.backend}")
+    res = index_p.query(exclude_self=True)
+    log(f"[e] self-join: {stats_line(res, len(pts))} sources={np.bincount(res.source, minlength=3).tolist()}")
+    check_exact(pts_d, pts_d[rows], rows, res.dists[rows_np], res.ids[rows_np],
+                "pallas self-join")
+    del res
+    p1 = index_p.query(foreign)
+    log(f"[e] R≠S #1: {stats_line(p1, FOREIGN_QUERIES)}")
+    p2 = index_p.query(foreign)
+    log(f"[e] R≠S #2: {stats_line(p2, FOREIGN_QUERIES)}")
+    assert p2.stats.n_engine_compiles == 0, "steady-state pallas R≠S added engine buckets"
+    check_exact(pts_d, fq[sub], None, p2.dists[sub], p2.ids[sub], "pallas R≠S")
+    launches_p = read_counts("(e) pallas")
+    log(f"[e] pairwise_sq_l2 launches: {launches_p.get('pairwise_sq_l2', 0)}")
+    assert launches_p.get("pairwise_sq_l2", 0) > 0, "the pallas path never launched pairwise_sq_l2"
+    del index_p, p1, p2
+
+    # -- path 3: (g) cosine and ip indexes --------------------------------------
+    reset_counts()
+    pts_unit = normalize_rows(pts)
+    fq_unit = normalize_rows(foreign)
+    t0 = time.perf_counter()
+    cos_index = KNNIndex.build(pts_unit, dataclasses.replace(cfg, metric="cosine"),
+                               device="cuda")
+    rc = cos_index.query(fq_unit)
+    log(f"[g] cosine build+R≠S {time.perf_counter() - t0:.2f}s eps={cos_index.eps:.6g}: "
+        f"{stats_line(rc, FOREIGN_QUERIES)}")
+    check_exact(torch.as_tensor(pts_unit, device=dev), torch.as_tensor(fq_unit[sub], device=dev),
+                None, rc.dists[sub], rc.ids[sub], "cosine R≠S", "cosine")
+    del cos_index, rc, pts_unit
+    t0 = time.perf_counter()
+    ip_index = KNNIndex.build(pts, dataclasses.replace(cfg, metric="ip"), device="cuda")
+    ri = ip_index.query(foreign)
+    log(f"[g] ip build+R≠S {time.perf_counter() - t0:.2f}s: t_brute={ri.stats.t_brute:.3f}s "
+        f"queries/s={FOREIGN_QUERIES / ri.stats.t_wall:.1f} sources="
+        f"{np.bincount(ri.source, minlength=3).tolist()}")
+    assert (ri.source == 2).all(), "an ip query left the brute lane"
+    check_exact(pts_d, fq[sub], None, ri.dists[sub], ri.ids[sub], "ip R≠S", "ip")
+    assert (ri.dists < 0).any(), "ip scores were clamped"
+    del ip_index, ri
+    launches_g = read_counts("(g) metrics")
+    assert launches_g.get("knn_tile_topk[ip]", 0) > 0, "the ip path never launched knn_tile_topk[ip]"
+
+    # -- path 4: (h) bf16 distances ----------------------------------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    bf_cfg = dataclasses.replace(cfg, k=K_BF16, distance_dtype="bf16")
+    bf_index = KNNIndex.build(pts, bf_cfg, device="cuda")
+    rb = bf_index.query(foreign)
+    log(f"[h] bf16 K={K_BF16} build+R≠S {time.perf_counter() - t0:.2f}s eps={bf_index.eps:.6g}: "
+        f"{stats_line(rb, FOREIGN_QUERIES)}")
+    check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K_BF16}")
+    rb = bf_index.query(foreign, k=K)
+    log(f"[h] bf16 K={K} R≠S (gathered fp32 route): {stats_line(rb, FOREIGN_QUERIES)}")
+    check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K}")
+    del rb
+    launches_h = read_counts("(h) bf16")
+    assert launches_h.get("knn_stream_topk_prefetch[bf16]", 0) > 0, "bf16 kernel never launched"
+    assert launches_h.get("knn_stream_topk_padded", 0) > 0, "K=25 bf16 never took the padded kernel"
+
     kernels = []
+    bq, bc = cfg.query_block, cfg.block_c
+    lanes = torch.arange(bc, device=dev)
 
-    # #1 knn_stream_topk_prefetch: the first dense batch's operands.
-    split = split_lib.split_from_counts(torch.as_tensor(index.home_counts), K,
-                                        index.grid.m, cfg.gamma, cfg.rho)
-    dense_ids = np.nonzero(split.to_dense.numpy())[0]
-    batch = WorkQueue(dense_ids, index.home_counts, cfg.n_batches).next_batch()
-    qp = _pad_ids(batch, cfg.query_block, dev)
+    def split_ids(idx, k):
+        split = split_lib.split_from_counts(torch.as_tensor(idx.home_counts), k,
+                                            idx.grid.m, cfg.gamma, cfg.rho)
+        to_dense = split.to_dense.numpy()
+        return np.nonzero(to_dense)[0], np.nonzero(~to_dense)[0]
+
+    def first_dense_batch(idx, k):
+        ids = split_ids(idx, k)[0]
+        return WorkQueue(ids, idx.home_counts, cfg.n_batches).next_batch()
+
+    def stream_check(what, ops_in, eps2, k, metric, pr_check, qpts_check):
+        """One knn_stream_topk_prefetch variant against its plain version."""
+        q_in, corpus, blk, excl, cand = ops_in
+        kw = dict(k=k, block_q=bq, block_c=bc, metric=metric)
+        kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(*ops_in, eps2, **kw)
+        rd, ri_, rf = stream_ref.knn_stream_topk_prefetch_ref(*ops_in, eps2, **kw)
+        torch.cuda.synchronize()
+
+        def scored(r):
+            t = r // bq
+            rr = (blk[t].long()[:, None] * bc + lanes).reshape(-1)
+            return corpus[rr][cand[t] >= 0]
+
+        err, _, _ = hold_topk(what, pr_check, qpts_check, kd, ki, rd, ri_, kf, rf, scored,
+                              eps2, metric)
+        ms = cuda_ms(lambda: stream_kernel.knn_stream_topk_prefetch(*ops_in, eps2, **kw))
+        plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_prefetch_ref(*ops_in, eps2, **kw),
+                           reps=1, warmup=0)
+        n_tiles, nblk = blk.shape
+        dim, esize = q_in.shape[1], q_in.element_size()
+        touched = torch.unique(blk[(cand.reshape(n_tiles, nblk, -1) >= 0).any(-1)]).numel()
+        nbytes = (q_in.numel() * esize + touched * bc * dim * esize + blk.numel() * 4
+                  + excl.numel() * 4 + cand.numel() * 4 + kd.numel() * 8 + kf.numel() * 4)
+        b = bound(nbytes, int((cand >= 0).sum()) * bq * (2 * dim + 3))
+        log(f"[a] {what}: tiles={n_tiles} nblk={nblk} kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        return err, ms, plain_ms, b
+
+    # #1 bf16: the bf16 index's first dense batch, as its engine calls it.
+    batch = first_dense_batch(bf_index, K_BF16)
+    qp = _pad_ids(batch, bq, dev)
     ops_in, _, _, _ = dense_lib.fused_prefetch_operands(
-        index.grid, pr, qp, cfg.dense_budget, cfg.query_block, cfg.block_c)
-    qpts, corpus, blk, excl, cand = ops_in
+        bf_index.grid, bf_index.points_r, qp, cfg.dense_budget, bq, bc)
+    ops_bf = tuple(x.to(torch.bfloat16) for x in ops_in[:2]) + ops_in[2:]
+    eps2 = torch.tensor(bf_index.eps, dtype=torch.float32, device=dev) ** 2
+    eps_keep = eps2 + dense_lib.BF16_EPS_SLACK * eps2.abs()
+    err, ms, plain_ms, b = stream_check(
+        "knn_stream_topk_prefetch[bf16]", ops_bf, eps_keep, K_BF16 + dense_lib.BF16_OVERFETCH,
+        "l2", bf_index.points_r.to(torch.bfloat16), ops_bf[0])
+    kernels.append(kernel_entry("knn_stream_topk_prefetch[bf16]", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:220",
+                                launches_h.get("knn_stream_topk_prefetch[bf16]", 0),
+                                err, ms, plain_ms, b, None))
+    del bf_index, ops_in, ops_bf
+
+    # -- (f) pallas against fused: on the first dense batch of the 5M index at
+    # its ε and budget (the main path's tiles, which all overflow), then on
+    # 16,384 sparse-split queries at growing budgets until at least half
+    # their tiles fit in both engines, so that found, ids and distances are
+    # compared in full on real tiles.
+    dim = pr.shape[1]
+
+    def engines_agree(grid, eps, label, ids_np, budget):
+        n_b = len(ids_np)
+        qp = _pad_ids(ids_np, bq, dev)
+        qrows = pr[qp[:n_b].long()]
+        kw = dict(k=K, budget=budget, query_block=bq, block_c=bc)
+        e = torch.tensor(eps, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        rf_ = dense_lib.dense_join(grid, pr, qp, e, backend="fused", **kw)
+        torch.cuda.synchronize()
+        t_f = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rp_ = dense_lib.dense_join(grid, pr, qp, e, backend="pallas", **kw)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        rf_, rp_ = (type(r)(*(x[:n_b] for x in r)) for r in (rf_, rp_))
+        _, _, ovf_f_tile, perm = dense_lib.fused_prefetch_operands(
+            grid, pr, qp, budget, bq, bc)
+        tiles, perm_p = grid_lib.group_queries_by_cell(grid, qp, bq)
+        assert torch.equal(perm, perm_p)
+        chunk = dense_lib.tiles_per_chunk(grid, dim, bq, budget, bc)
+        ovf_p_tile = torch.cat([
+            dense_lib.tiled_candidates(grid, pr, tiles[t0:t0 + chunk], budget, bc)[4]
+            for t0 in range(0, tiles.shape[0], chunk)])
+        inv = torch.empty_like(perm, dtype=torch.long)
+        inv[perm.long()] = torch.arange(perm.numel(), device=dev)
+        row_tile = (inv // bq)[:n_b]
+        ovf_f, ovf_p = ovf_f_tile[row_tile], ovf_p_tile[row_tile]
+        assert torch.equal(rf_.total_candidates, rp_.total_candidates), f"(f) {label}: totals"
+        assert not (ovf_p & ~ovf_f).any(), f"(f) {label}: a tiled overflow the fused engine missed"
+        frag = ovf_f & ~ovf_p        # block-table fragmentation: fused only
+        fit = ~ovf_f
+        flips = 0
+        if fit.any():
+            sel = fit.nonzero()[:, 0]
+
+            def scored(r):
+                t = int(row_tile[sel[r]])
+                _, cid, cpts, _, _ = dense_lib.tiled_candidates(
+                    grid, pr, tiles[t:t + 1], budget, bc)
+                return cpts[0][cid[0] >= 0]
+
+            _, _, flips = hold_topk(f"(f) pallas vs fused at {label}", pr, qrows[sel],
+                                    rp_.dists[sel], rp_.ids[sel], rf_.dists[sel], rf_.ids[sel],
+                                    rp_.found[sel], rf_.found[sel], scored, e ** 2)
+            same = (rp_.ids[sel] == rf_.ids[sel]) & torch.isfinite(rf_.dists[sel])
+            c = pr[rf_.ids[sel].clamp(min=0).long()].double()
+            allow = 2 * (dim + 4) * FP32_U * (qrows[sel].double().norm(dim=1)[:, None]
+                                              + c.norm(dim=-1)) ** 2
+            gap = (rp_.dists[sel].double() - rf_.dists[sel].double()).abs()
+            assert (gap <= allow)[same].all(), f"(f) {label}: distances beyond the fp32 bound"
+        bad = (rf_.failed != rp_.failed) & ~frag & (rf_.found == rp_.found)
+        assert not bad.any(), f"(f) {label}: failed differs on {int(bad.sum())} rows"
+        real = tiles[:, 0] >= 0
+        ovf_f_tile, ovf_p_tile = ovf_f_tile[real], ovf_p_tile[real]
+        log(f"[f] {label}: {n_b} queries, {int(real.sum())} tiles; fused {t_f:.2f}s "
+            f"pallas {t_p:.2f}s; overflowed tiles fused={int(ovf_f_tile.sum())} "
+            f"pallas={int(ovf_p_tile.sum())} (fragmentation only: "
+            f"{int((ovf_f_tile & ~ovf_p_tile).sum())}); rows compared in full={int(fit.sum())}; "
+            f"failed fused={int(rf_.failed.sum())} pallas={int(rp_.failed.sum())}; found "
+            f"flips at ε² {flips}")
+        return 1.0 - ovf_f_tile.float().mean().item()
+
+    dense_ids, sparse_ids = split_ids(index, K)
+    batch = WorkQueue(dense_ids, index.home_counts, cfg.n_batches).next_batch()
+    engines_agree(index.grid, index.eps, "ε, first dense batch", batch, cfg.dense_budget)
+    for budget in (cfg.dense_budget, 8192, 32768, 131072, 524288):
+        share = engines_agree(index.grid, index.eps,
+                              f"ε, 16,384 sparse-split queries, budget {budget}",
+                              sparse_ids[:16_384], budget)
+        if share >= 0.5:
+            break
+    assert share > 0, "(f) no tile fit the budget: nothing compared in full"
+    qp = _pad_ids(batch, bq, dev)
+
+    # -- (a) every kernel against its plain version, on its path's inputs -----
+    # #1 knn_stream_topk_prefetch, l2 and ip: the first dense batch's operands.
+    ops_in, _, _, _ = dense_lib.fused_prefetch_operands(index.grid, pr, qp, cfg.dense_budget,
+                                                        bq, bc)
+    qpts = ops_in[0]
     eps2 = torch.tensor(index.eps, dtype=torch.float32, device=dev) ** 2
-    kw = dict(k=K, block_q=cfg.query_block, block_c=cfg.block_c)
-    kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(*ops_in, eps2, **kw)
-    rd, ri, rf = stream_ref.knn_stream_topk_prefetch_ref(*ops_in, eps2, **kw)
-    torch.cuda.synchronize()
-    n_tiles, nblk = blk.shape
-    lanes = torch.arange(cfg.block_c, device=dev)
-
-    def scored(r):
-        t = r // cfg.query_block
-        rows = (blk[t].long()[:, None] * cfg.block_c + lanes).reshape(-1)
-        return corpus[rows][cand[t] >= 0]
-
-    log(f"[a] knn_stream_topk_prefetch inputs: tiles={n_tiles} nblk={nblk}")
-    err, _, _ = hold_topk("knn_stream_topk_prefetch", pr, qpts, kd, ki, rd, ri,
-                          kf, rf, scored, eps2)
-    ms = cuda_ms(lambda: stream_kernel.knn_stream_topk_prefetch(*ops_in, eps2, **kw))
-    plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_prefetch_ref(*ops_in, eps2, **kw),
-                       reps=1, warmup=0)
-    n_valid = int((cand >= 0).sum())
-    dim = qpts.shape[1]
-    touched = torch.unique(blk[(cand.reshape(n_tiles, nblk, -1) >= 0).any(-1)]).numel()
-    nbytes = (qpts.numel() * 4 + touched * cfg.block_c * dim * 4 + blk.numel() * 4
-              + excl.numel() * 4 + cand.numel() * 4 + kd.numel() * 8 + kf.numel() * 4)
-    b_ms, b_by = bound(nbytes, n_valid * cfg.query_block * (2 * dim + 3))
-    kernels.append(dict(name="knn_stream_topk_prefetch", route="cuda",
-                        source="src/repro_torch/csrc/knn_stream.cu",
-                        replaces="src/repro/kernels/knn_stream/kernel.py:220",
-                        launches=launches["knn_stream_topk_prefetch"], max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None))
+    for metric in ("l2", "ip"):
+        name = stream_kernel.variant("knn_stream_topk_prefetch", metric)
+        err, ms, plain_ms, b = stream_check(name, ops_in, eps2, K, metric, pr, qpts)
+        kernels.append(kernel_entry(name, STREAM_CU, "src/repro/kernels/knn_stream/kernel.py:220",
+                                    launches.get(name, 0), err, ms, plain_ms, b, None))
+    corpus, blk = ops_in[1], ops_in[2]
+    nblk = blk.shape[1]
 
     # #2 knn_stream_topk_padded (identity table): the batch's first 64 tiles
     # against one tile-budget-wide contiguous slice of the corpus.
-    q2, qid2 = qpts[: 64 * cfg.query_block], excl[: 64 * cfg.query_block]
-    c2 = corpus[: nblk * cfg.block_c]
+    kw = dict(k=K, block_q=bq, block_c=bc)
+    excl = ops_in[3]
+    q2, qid2 = qpts[: 64 * bq], excl[: 64 * bq]
+    c2 = corpus[: nblk * bc]
     cid2 = index.grid.order[: c2.shape[0]].contiguous()
     kd, ki, kf = stream_ops.knn_stream_topk(q2, c2, qid2, cid2, eps2, **kw)
-    rd, ri, rf = stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, eps2, k=K)
+    rd, ri_, rf = stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, eps2, k=K)
     err, _, _ = hold_topk(f"knn_stream_topk_padded {tuple(q2.shape)} x {tuple(c2.shape)}",
-                          pr, q2, kd, ki, rd, ri, kf, rf, lambda r: c2, eps2)
+                          pr, q2, kd, ki, rd, ri_, kf, rf, lambda r: c2, eps2)
     ms = cuda_ms(lambda: stream_ops.knn_stream_topk(q2, c2, qid2, cid2, eps2, **kw))
     plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, eps2, k=K),
                        reps=1, warmup=0)
     nbytes = (q2.numel() + c2.numel()) * 4 + (qid2.numel() + cid2.numel()) * 4 + kd.numel() * 8
-    b_ms, b_by = bound(nbytes, q2.shape[0] * c2.shape[0] * (2 * dim + 3))
-    kernels.append(dict(name="knn_stream_topk_padded", route="cuda",
-                        source="src/repro_torch/csrc/knn_stream.cu",
-                        replaces="src/repro/kernels/knn_stream/kernel.py:275",
-                        launches=launches["knn_stream_topk_padded"], max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None))
+    b = bound(nbytes, q2.shape[0] * c2.shape[0] * (2 * dim + 3))
+    kernels.append(kernel_entry("knn_stream_topk_padded", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:275",
+                                launches_h.get("knn_stream_topk_padded", 0), err, ms, plain_ms,
+                                b, None))
+    del ops_in, q2, c2
 
-    # #3 knn_tile_topk: the brute baseline's own call, its queries against
-    # the whole corpus in one launch.  The plain version takes the corpus in
-    # chunks merged with merge_running_topk, as the CPU brute lane does; the
-    # library yardstick too, since the full (Q, |D|) matrix would not fit.
-    q3 = pr[brute_rows].contiguous()
-    qid3 = brute_rows.to(torch.int32)
+    # #3 knn_tile_topk, l2 on the brute baseline's own call and ip on the ip
+    # index's first 4096 R≠S queries: each against the whole corpus in one
+    # launch.  The plain version takes the corpus in chunks merged with
+    # merge_running_topk, as the CPU brute lane does; the library yardstick
+    # too, since the full (Q, |D|) matrix would not fit.
     cid3 = torch.arange(len(pts), dtype=torch.int32, device=dev)
-    kd, ki = topk_ops.knn_topk(q3, pr, qid3, cid3, k=K)
+    for metric, q3, qid3 in (("l2", pr[brute_rows].contiguous(), brute_rows.to(torch.int32)),
+                             ("ip", fq[:BRUTE_QUERIES][:, index.dim_perm].contiguous(),
+                              torch.full((BRUTE_QUERIES,), -2, dtype=torch.int32,
+                                         device=dev))):
+        name = "knn_tile_topk[ip]" if metric == "ip" else "knn_tile_topk"
+        kd, ki = topk_ops.knn_topk(q3, pr, qid3, cid3, k=K, metric=metric)
 
-    def chunked(topk_of_chunk, chunk):
-        run_d = torch.full((q3.shape[0], K), float("inf"), device=dev)
-        run_i = torch.full((q3.shape[0], K), -1, dtype=torch.int32, device=dev)
-        for c0 in range(0, len(pts), chunk):
-            nd, ni = topk_of_chunk(pr[c0:c0 + chunk], cid3[c0:c0 + chunk])
-            run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=K)
-        return run_d, run_i
+        def chunked(topk_of_chunk, chunk):
+            run_d = torch.full((q3.shape[0], K), float("inf"), device=dev)
+            run_i = torch.full((q3.shape[0], K), -1, dtype=torch.int32, device=dev)
+            for c0 in range(0, len(pts), chunk):
+                nd, ni = topk_of_chunk(pr[c0:c0 + chunk], cid3[c0:c0 + chunk])
+                run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=K)
+            return run_d, run_i
 
-    def library_topk(c, cid):
-        vd, vi = torch.topk(torch.cdist(q3, c), K, dim=1, largest=False)
-        return vd, cid[vi]
+        def library_topk(c, cid):
+            score = -(q3 @ c.T) if metric == "ip" else torch.cdist(q3, c)
+            vd, vi = torch.topk(score, K, dim=1, largest=False)
+            return vd, cid[vi]
 
-    (rd, ri), plain_ms = timed(lambda: chunked(
-        lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=K), 8192))
-    err, _, _ = hold_topk(f"knn_tile_topk {tuple(q3.shape)} x {tuple(pr.shape)}",
-                          pr, q3, kd, ki, rd, ri)
-    ms = cuda_ms(lambda: topk_ops.knn_topk(q3, pr, qid3, cid3, k=K), reps=3)
-    lib_ms = cuda_ms(lambda: chunked(library_topk, 262_144), reps=1)
-    nbytes = (q3.numel() + pr.numel()) * 4 + (qid3.numel() + cid3.numel()) * 4 + kd.numel() * 8
-    b_ms, b_by = bound(nbytes, q3.shape[0] * pr.shape[0] * (2 * dim + 3))
-    kernels.append(dict(name="knn_tile_topk", route="cuda",
-                        source="src/repro_torch/csrc/knn_topk.cu",
-                        replaces="src/repro/kernels/knn_topk/kernel.py:119",
-                        launches=launches["knn_tile_topk"], max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms))
+        (rd, ri_), plain_ms = timed(lambda: chunked(
+            lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=K, metric=metric), 8192))
+        err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(pr.shape)}",
+                              pr, q3, kd, ki, rd, ri_, metric=metric)
+        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, pr, qid3, cid3, k=K, metric=metric), reps=3)
+        lib_ms = cuda_ms(lambda: chunked(library_topk, 262_144), reps=1)
+        nbytes = (q3.numel() + pr.numel()) * 4 + (qid3.numel() + cid3.numel()) * 4 + kd.numel() * 8
+        b = bound(nbytes, q3.shape[0] * pr.shape[0] * (2 * dim + (3 if metric == "l2" else 1)))
+        launch_n = (launches if metric == "l2" else launches_g).get(name, 0)
+        kernels.append(kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
+                                    launch_n, err, ms, plain_ms, b, lib_ms))
 
     # #4 distance_bin_histogram: the ε selection's own sample and bin width.
     n_q = min(cfg.n_query_sample, len(pts))
@@ -454,13 +751,98 @@ def main(argv=None) -> int:
     lib_ms = cuda_ms(lambda: torch.histc(torch.cdist(q4, pr), bins=cfg.n_bins, min=0.0, max=hi),
                      reps=3)
     nbytes = (q4.numel() + pr.numel()) * 4 + qidx.numel() * 4 + cfg.n_bins * 8
-    b_ms, b_by = bound(nbytes, q4.shape[0] * pr.shape[0] * (2 * dim + 5))
-    kernels.append(dict(name="distance_bin_histogram", route="cuda",
-                        source="src/repro_torch/csrc/bin_hist.cu",
-                        replaces="src/repro/kernels/bin_hist/kernel.py:80",
-                        launches=launches["distance_bin_histogram"], max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms))
+    b = bound(nbytes, q4.shape[0] * pr.shape[0] * (2 * dim + 5))
+    kernels.append(kernel_entry("distance_bin_histogram", "src/repro_torch/csrc/bin_hist.cu",
+                                "src/repro/kernels/bin_hist/kernel.py:80",
+                                launches["distance_bin_histogram"], err, ms, plain_ms, b, lib_ms))
+
+    # #5 pairwise_sq_l2: one chunk of phase (e)'s tiles (the same grid, so the
+    # same tiles), with the runtime-ε² SHORTC the tiled engine uses; then at
+    # FMA width, where 518 dims make 5 d-chunks and SHORTC can skip.
+    def pairwise_check(what, qpts5, cpts5, shortc, metric="l2", timing=True):
+        t = qpts5.shape[0]
+        shape = (t, qpts5.shape[1] // bq, cpts5.shape[1] // bc)
+        ck = torch.zeros(shape, dtype=torch.int32, device=dev)
+        cr = torch.zeros(shape, dtype=torch.int32, device=dev)
+        kw = dict(block_q=bq, block_c=bc, metric=metric)
+        got = pair_kernel.pairwise_sq_l2(qpts5, cpts5, shortc, chunks_out=ck, **kw)
+        want = pair_ref.pairwise_sq_l2_matmul_ref(qpts5, cpts5, shortc_eps2=shortc,
+                                                  chunks_out=cr, **kw)
+        torch.cuda.synchronize()
+        err, skipped = hold_pairwise(what, got, want, qpts5, cpts5, ck, cr, shortc, bq, bc)
+        del got, want
+        if not timing:
+            return err, skipped
+        ms = cuda_ms(lambda: pair_kernel.pairwise_sq_l2(qpts5, cpts5, shortc, **kw))
+        plain_ms = cuda_ms(lambda: pair_ref.pairwise_sq_l2_matmul_ref(
+            qpts5, cpts5, shortc_eps2=shortc, **kw), reps=1, warmup=0)
+        if metric == "ip":
+            lib_ms = cuda_ms(lambda: -torch.bmm(qpts5, cpts5.transpose(1, 2)))
+        else:
+            lib_ms = cuda_ms(lambda: torch.cdist(qpts5, cpts5).square())
+        b = pairwise_bound(qpts5, cpts5, ck, bq, bc)
+        log(f"[a] {what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        return err, skipped, ms, plain_ms, lib_ms, b
+
+    tiles, _ = grid_lib.group_queries_by_cell(index.grid, qp, bq)
+    chunk = dense_lib.tiles_per_chunk(index.grid, dim, bq, cfg.dense_budget, bc)
+    qpts5, _, cpts5, _, _ = dense_lib.tiled_candidates(index.grid, pr, tiles[:chunk],
+                                                      cfg.dense_budget, bc)
+    err, _, ms, plain_ms, lib_ms, b = pairwise_check(
+        f"pairwise_sq_l2 (e) tiles, D={dim}", qpts5, cpts5, eps2)
+    kernels.append(kernel_entry("pairwise_sq_l2", PAIRWISE_CU,
+                                "src/repro/kernels/pairwise_l2/kernel.py:151",
+                                launches_p.get("pairwise_sq_l2", 0), err, ms, plain_ms, b, lib_ms))
+    del qpts5, cpts5, tiles, index, pr
+
+    # FMA width: ε from the FMA cloud's own selection, computed with the plain
+    # versions on the host (the bin_hist kernel stages whole rows in shared
+    # memory and refuses 518 dims).
+    fma = pointclouds.load("fma")
+    fma_q = pointclouds.load("fma", seed=1)
+    t0 = time.perf_counter()
+    fma_r_host, _ = grid_lib.reorder_by_variance(torch.as_tensor(fma))
+    eps_f, _, _ = select_epsilon(fma_r_host, cfg, None, len(fma))
+    fidx = KNNIndex.build(fma, dataclasses.replace(cfg, backend="pallas"), eps_f, device="cuda")
+    log(f"[a] FMA {fma.shape}: ε={eps_f:.6g} selected on the host, index built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    fb = first_dense_batch(fidx, K)
+    ftiles, _ = grid_lib.group_queries_by_cell(fidx.grid, _pad_ids(fb, bq, dev), bq)
+    chunk = dense_lib.tiles_per_chunk(fidx.grid, fma.shape[1], bq, cfg.dense_budget, bc)
+    fq5, _, fc5, _, _ = dense_lib.tiled_candidates(fidx.grid, fidx.points_r, ftiles[:chunk],
+                                                  cfg.dense_budget, bc)
+    eps2_f = torch.tensor(eps_f, dtype=torch.float32, device=dev) ** 2
+    err, skipped, ms, plain_ms, lib_ms, b = pairwise_check(
+        f"pairwise_sq_l2 FMA self-join tiles, D={fma.shape[1]}, ε²={eps2_f.item():.6g}",
+        fq5, fc5, eps2_f)
+    kernels.append(kernel_entry("pairwise_sq_l2 (FMA width)", PAIRWISE_CU,
+                                "src/repro/kernels/pairwise_l2/kernel.py:151",
+                                launches_p.get("pairwise_sq_l2", 0), err, ms, plain_ms, b, lib_ms))
+    err, _, ms, plain_ms, lib_ms, b = pairwise_check(
+        f"pairwise_sq_l2[ip] FMA self-join tiles, D={fma.shape[1]}", fq5, fc5, None, "ip")
+    kernels.append(kernel_entry("pairwise_sq_l2[ip]", PAIRWISE_CU,
+                                "src/repro/kernels/pairwise_l2/kernel.py:151",
+                                launches_p.get("pairwise_sq_l2[ip]", 0), err, ms, plain_ms, b,
+                                lib_ms))
+    # R≠S tiles of an FMA cloud drawn with another seed: its queries lie far
+    # from the indexed clusters, so whole tiles exceed ε² after a chunk.
+    qr = torch.as_tensor(fma_q, device=dev)[:, fidx.dim_perm].contiguous()
+    qcoords = grid_lib.compute_cell_coords(fidx.grid, qr[:, : fidx.grid.m])
+    qids = _pad_ids(np.arange(len(fma_q), dtype=np.int32), bq, dev)
+    rtiles, _ = grid_lib.group_queries_by_cell(fidx.grid, qids, bq, qcoords)
+    rq5, _, rc5, _, _ = dense_lib.tiled_candidates(fidx.grid, fidx.points_r, rtiles[:chunk],
+                                                  cfg.dense_budget, bc, qr, qcoords)
+    scale = 1.0
+    while True:
+        e2 = eps2_f * scale
+        _, skip_r = pairwise_check(
+            f"pairwise_sq_l2 FMA R≠S tiles, ε²={e2.item():.6g} (FMA ε² × {scale:g})",
+            rq5, rc5, e2, timing=False)
+        if skipped + skip_r > 0 or scale < 4.0 ** -6:
+            break
+        scale /= 4
+    assert skipped + skip_r > 0, "SHORTC never skipped a tile at FMA width"
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -19,22 +19,24 @@ def brute_knn(corpus: torch.Tensor, queries: torch.Tensor,
               query_ids: torch.Tensor, *, k: int, corpus_chunk: int = 4096,
               metric: str = "l2"):
     """Exact K nearest neighbors of each query over the whole corpus.
-    Returns (dists (Q, k) ascending squared L2, ids (Q, k), −1-padded);
+    Returns (dists (Q, k) ascending raw scores — squared L2, or the negated
+    inner product −q·c under ``metric="ip"`` — and ids (Q, k), −1-padded);
     ``query_ids`` carries the self-exclusion (−1 = padding row).
     ``corpus_chunk`` bounds the CPU path's memory only; a CUDA corpus goes
     to the kernel in one call (ties still resolve in corpus order)."""
-    dense_lib.check_exact_l2(metric)
+    dense_lib.check_engine_args(metric, "fp32")
     n_corpus = corpus.shape[0]
     dev = corpus.device
     ids = torch.arange(n_corpus, dtype=torch.int32, device=dev)
     if corpus.is_cuda:
-        return topk_ops.knn_topk(queries, corpus, query_ids, ids, k=k)
+        return topk_ops.knn_topk(queries, corpus, query_ids, ids, k=k, metric=metric)
     chunk = min(corpus_chunk, round_up(n_corpus, 8))
     run_d = torch.full((queries.shape[0], k), float("inf"), device=dev)
     run_i = torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=dev)
     for c0 in range(0, n_corpus, chunk):
         nd, ni = topk_ops.knn_topk(
-            queries, corpus[c0:c0 + chunk], query_ids, ids[c0:c0 + chunk], k=k)
+            queries, corpus[c0:c0 + chunk], query_ids, ids[c0:c0 + chunk], k=k,
+            metric=metric)
         run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=k)
     return run_d, run_i
 

@@ -197,17 +197,20 @@ def tile_shared_candidates(index: GridIndex, starts: torch.Tensor,
     """Deduplicate one query tile's (TQ, R) candidate ranges into a shared
     block: a range's start uniquely keys its cell, so sorting the ranges
     by start and zeroing repeats yields the exact union.  Returns (pos
-    (budget,) i32, valid (budget,) bool, tile_total () i32, overflow ())."""
-    flat_s = starts.reshape(-1)
-    flat_c = counts.reshape(-1)
+    (budget,) i32, valid (budget,) bool, tile_total () i32, overflow ()).
+    A batch of tiles (T, TQ, R) gives each output a leading T axis."""
+    lead = starts.shape[:-2]
+    flat_s = starts.reshape(-1, starts.shape[-2] * starts.shape[-1])
+    flat_c = counts.reshape(flat_s.shape)
     key = torch.where(flat_c > 0, flat_s, torch.full_like(flat_s, INT32_SENTINEL))
-    key_s, order = torch.sort(key, stable=True)
+    key_s, order = torch.sort(key, dim=1, stable=True)
     dup = torch.zeros_like(key_s, dtype=torch.bool)
-    dup[1:] = key_s[1:] == key_s[:-1]
-    dedup_c = torch.where(dup, torch.zeros_like(flat_c), flat_c[order])
+    dup[:, 1:] = key_s[:, 1:] == key_s[:, :-1]
+    dedup_c = torch.where(dup, torch.zeros_like(flat_c), flat_c.gather(1, order))
     pos, valid, total, overflow = gather_candidates(
-        index, flat_s[order][None], dedup_c[None], budget)
-    return pos[0], valid[0], total[0], overflow[0]
+        index, flat_s.gather(1, order), dedup_c, budget)
+    return (pos.reshape(lead + (budget,)), valid.reshape(lead + (budget,)),
+            total.reshape(lead), overflow.reshape(lead))
 
 
 def home_cell_ids(index: GridIndex, qids: torch.Tensor, coords=None) -> torch.Tensor:

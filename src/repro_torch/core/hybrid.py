@@ -13,19 +13,21 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.retrieval.metrics import validate_metric
 from repro_torch.utils import pow2_bucket, unported
 
 BACKENDS = ("ref", "pallas", "interpret", "fused", "auto")
 DISTANCE_DTYPES = ("fp32", "bf16")
-METRICS = ("l2", "ip", "cosine")
 
 
 @dataclasses.dataclass(frozen=True)
 class HybridConfig:
     """All paper parameters (Table II) plus execution knobs; see the JAX
-    ``HybridConfig`` for each field's meaning.  Values this slice of the
-    port does not run raise ``NotImplementedError`` naming the ROADMAP
-    item that brings them."""
+    ``HybridConfig`` for each field's meaning.  ``backend`` "pallas" is the
+    cell-tiled dense path (its ``pairwise_l2`` kernel on the card),
+    "interpret" the same path's plain version on the CPU.  Values the port
+    does not run yet raise ``NotImplementedError`` naming the ROADMAP item
+    that brings them."""
 
     k: int
     m: int = 6
@@ -70,10 +72,7 @@ class HybridConfig:
             raise ValueError(
                 f"distance_dtype must be one of {DISTANCE_DTYPES}, "
                 f"got {self.distance_dtype!r}")
-        if self.metric not in METRICS:
-            raise ValueError(
-                f"unknown metric {self.metric!r} (HybridConfig.metric): "
-                f"expected one of {'|'.join(METRICS)}")
+        validate_metric(self.metric, "HybridConfig.metric")
         if not 0.0 < self.recall_target <= 1.0:
             raise ValueError(
                 f"recall_target must be in (0, 1], got {self.recall_target}")
@@ -89,13 +88,6 @@ class HybridConfig:
                 "kernel_mode names a JAX execution mode; the port dispatches "
                 f"kernels by the tensor's device, so it must be 'auto', got "
                 f"{self.kernel_mode!r}")
-        if self.backend in ("pallas", "interpret"):
-            raise unported(f"backend={self.backend!r} (the tiled pairwise_l2 path)",
-                           "queue B item 5")
-        if self.metric != "l2":
-            raise unported(f"metric={self.metric!r}", "queue A item 11")
-        if self.distance_dtype != "fp32":
-            raise unported("distance_dtype='bf16'", "queue A item 11")
         if self.recall_target < 1.0:
             raise unported("recall_target < 1", "queue A item 13")
         if self.projection_dim > 0:

@@ -10,10 +10,19 @@ the first level whose certified radius covers the pass-1 k-th distance.
 uncertified queries fall back to the brute lane.
 
 Backends: ``"ref"`` scores the gathered (B, budget, n) operand in the
-difference form; ``"fused"`` streams the budget in ``STREAM_CHUNK``-wide
-chunks through a running top-K (``knn_topk.merge_running_topk``), so
-neither the full gathered operand nor the (B, budget) distance tile
-exists.  This engine is plain tensor code, with no kernel of its own.
+difference form; ``"pallas"``/``"interpret"`` score it in the expansion
+form |q|² + |c|² − 2q·c clamped at 0 (candidate sets are per query here, so
+the dense engine's shared-tile kernel does not apply); ``"fused"`` streams
+the budget in ``STREAM_CHUNK``-wide chunks through a running top-K
+(``knn_topk.merge_running_topk``), so neither the full gathered operand nor
+the (B, budget) distance tile exists.  This engine is plain tensor code,
+with no kernel of its own.
+
+Under ``metric="ip"`` every backend scores −q·c and nothing is certified
+(ip has no triangle inequality), so the brute lane keeps exactness.  Under
+``distance_dtype="bf16"`` the non-ref backends score bf16-cast operands at
+k + ``BF16_OVERFETCH`` and rescore the survivors in exact fp32 before the
+certificate is evaluated.
 
 Every query is independent, so where the JAX package maps over 128-query
 blocks, the port runs memory-bounded chunks of many blocks at once.
@@ -75,23 +84,21 @@ class SparseKNNResult(NamedTuple):
     total_candidates: torch.Tensor  # (Q,) i32 — work proxy (T₁ numerator)
 
 
-def _streamed_topk(points_r, qpts, cand_ids, keep, k):
+def _streamed_topk(points_r, qpts, cand_ids, keep, k, metric="l2"):
     """The ``"fused"`` scan: the budget in ``STREAM_CHUNK``-wide chunks,
-    gathering, scoring (expansion form) and merging per chunk."""
+    gathering (cast to the query dtype), scoring in the expansion form and
+    merging per chunk."""
     b, budget = cand_ids.shape
     cpad = round_up(budget, STREAM_CHUNK)
     if cpad != budget:
         cand_ids = torch.cat([cand_ids, cand_ids.new_zeros((b, cpad - budget))], 1)
         keep = torch.cat([keep, keep.new_zeros((b, cpad - budget))], 1)
-    qq = (qpts * qpts).sum(-1)[:, None]
     run_d = torch.full((b, k), float("inf"), device=qpts.device)
     run_i = torch.full((b, k), -1, dtype=torch.int32, device=qpts.device)
     for c0 in range(0, cpad, STREAM_CHUNK):
         ids_c = cand_ids[:, c0:c0 + STREAM_CHUNK]
-        pts_c = points_r[ids_c.long()]                              # (B, chunk, n)
-        cc = (pts_c * pts_c).sum(-1)
-        qc = (qpts[:, None, :] * pts_c).sum(-1)
-        d2 = torch.clamp(qq + cc - 2.0 * qc, min=0.0)
+        pts_c = points_r[ids_c.long()].to(qpts.dtype)               # (B, chunk, n)
+        d2 = dense_lib._scores(qpts, pts_c, metric, expansion=True)
         keep_c = keep[:, c0:c0 + STREAM_CHUNK]
         d2m = torch.where(keep_c, d2, torch.full_like(d2, float("inf")))
         idm = torch.where(keep_c, ids_c, torch.full_like(ids_c, -1))
@@ -100,7 +107,7 @@ def _streamed_topk(points_r, qpts, cand_ids, keep, k):
 
 
 def _query_level(pyr, points_r, queries, orders, starts, counts, qids, excl,
-                 safe, sel, k, budget, backend):
+                 safe, sel, k, budget, backend, metric, distance_dtype):
     """Gather + distance + top-K at per-query pyramid level ``sel`` (B,).
     Returns (kd, ki, certified, overflow, total)."""
     b = sel.shape[0]
@@ -111,21 +118,34 @@ def _query_level(pyr, points_r, queries, orders, starts, counts, qids, excl,
     cand_ids = orders[sel64[:, None], pos.long()]                     # (B, budget)
     qpts = queries[safe]
     keep = valid & (cand_ids != excl[:, None])
+    # bf16: score at k + over-fetch, then rescore the survivors in exact
+    # fp32 — the certificate below reads exact distances.  ref stays fp32.
+    lowp = distance_dtype == "bf16" and backend != "ref"
+    k_run = min(k + dense_lib.BF16_OVERFETCH, budget) if lowp else k
+    qk = qpts.to(torch.bfloat16) if lowp else qpts
     if backend == "fused":
-        kd, ki = _streamed_topk(points_r, qpts, cand_ids, keep, k)
+        kd, ki = _streamed_topk(points_r, qk, cand_ids, keep, k_run, metric)
     else:
-        diff = qpts[:, None, :] - points_r[cand_ids.long()]
-        d2 = (diff * diff).sum(-1)
+        cand_pts = points_r[cand_ids.long()].to(qk.dtype)
+        d2 = dense_lib._scores(qk, cand_pts, metric, expansion=backend != "ref")
         d2m = torch.where(keep, d2, torch.full_like(d2, float("inf")))
-        kd, ki = dense_lib._topk_stable(d2m, cand_ids, k)
+        kd, ki = dense_lib._topk_stable(d2m, cand_ids, k_run)
+    if lowp:
+        kd, ki, _ = dense_lib._rescore_fp32(points_r, qpts, ki, float("inf"), k, metric)
     found = torch.isfinite(kd).sum(1)
-    cert_r = pyr.cert_radii[sel64]
-    certified = (found >= k) & (kd[:, k - 1] <= cert_r**2) & ~overflow & (qids >= 0)
+    if metric == "ip":
+        # No triangle inequality: a grid neighborhood certifies nothing
+        # about ip neighbors, so every query goes to the brute lane.
+        certified = torch.zeros_like(qids >= 0)
+    else:
+        cert_r = pyr.cert_radii[sel64]
+        certified = ((found >= k) & (kd[:, k - 1] <= cert_r**2) & ~overflow
+                     & (qids >= 0))
     return kd, ki, certified, overflow, total
 
 
 def _level_search(pyr, points_r, qids, k, budget, sel_factor, backend, queries,
-                  foreign, exclude_self, orders, offs):
+                  foreign, exclude_self, orders, offs, metric, distance_dtype):
     """Two-pass adaptive level search for one chunk of query ids."""
     n_levels = len(pyr.levels)
     m = pyr.levels[0].m
@@ -146,14 +166,16 @@ def _level_search(pyr, points_r, qids, k, budget, sel_factor, backend, queries,
     first = torch.argmax(enough.to(torch.int8), 0).to(torch.int32)
     sel1 = torch.where(enough.any(0), first, torch.full_like(first, n_levels - 1))
     args = (pyr, points_r, queries, orders, starts, counts, qids, excl, safe)
-    kd1, ki1, cert1, _, tot1 = _query_level(*args, sel1, k, budget, backend)
+    kd1, ki1, cert1, _, tot1 = _query_level(*args, sel1, k, budget, backend,
+                                            metric, distance_dtype)
 
     # Escalation level: first ℓ with cert_r(ℓ)² ≥ pass-1 kth (∞ → coarsest).
     cert_r2 = pyr.cert_radii**2
     sel2 = torch.searchsorted(cert_r2.contiguous(), kd1[:, k - 1].contiguous(),
                               out_int32=True)
     sel2 = torch.clamp(torch.maximum(sel2, sel1), 0, n_levels - 1)
-    kd2, ki2, cert2, _, tot2 = _query_level(*args, sel2, k, budget, backend)
+    kd2, ki2, cert2, _, tot2 = _query_level(*args, sel2, k, budget, backend,
+                                            metric, distance_dtype)
 
     use1 = cert1[:, None]
     return (torch.where(use1, kd1, kd2), torch.where(use1, ki1, ki2),
@@ -168,9 +190,10 @@ def sparse_knn(pyr: Pyramid, points_r: torch.Tensor, query_ids: torch.Tensor,
                metric: str = "l2", distance_dtype: str = "fp32") -> SparseKNNResult:
     """Pyramid search for the given query ids (−1 = padding).  With
     ``queries_r`` the ids index a foreign (R≠S) query cloud and per-level
-    cell coords are computed on the fly."""
+    cell coords are computed on the fly.  ``metric`` is the kernel metric
+    (``"l2"``/``"ip"``)."""
     backend = dense_lib.resolve_backend(backend, points_r.device)
-    dense_lib.check_exact_l2(metric, distance_dtype)
+    dense_lib.check_engine_args(metric, distance_dtype)
     dev = points_r.device
     n = query_ids.shape[0]
     qpad = round_up(n, query_block)
@@ -185,7 +208,7 @@ def sparse_knn(pyr: Pyramid, points_r: torch.Tensor, query_ids: torch.Tensor,
     outs = [
         _level_search(pyr, points_r, qids[q0:q0 + chunk], k, budget, sel_factor,
                       backend, queries, queries_r is not None, exclude_self,
-                      orders, offs)
+                      orders, offs, metric, distance_dtype)
         for q0 in range(0, qpad, chunk)
     ]
     kd, ki, cert, lvl, total = (torch.cat(x) for x in zip(*outs))

@@ -11,9 +11,13 @@
 // What it computes, per query row of tile t: for every slot j of
 // block_table[t], the block_c corpus rows starting at block_table[t, j] *
 // block_c (the cell-sorted corpus, read in place) are scored with
-// d = max(|q|^2 + |c|^2 - 2 q.c, 0); rows with cand_id >= 0, cand_id !=
+// d = max(|q|^2 + |c|^2 - 2 q.c, 0), or d = -q.c (unclamped: ip scores may
+// be negative) under the ip metric; rows with cand_id >= 0, cand_id !=
 // query_id and d <= eps2 are counted into `found` and merged into a running
-// top-k.  ids are -1 where the distance is inf.
+// top-k.  ids are -1 where the distance is inf.  Queries and corpus are
+// float, or both __nv_bfloat16 (distance_dtype="bf16", half the corpus
+// bytes): bf16 values are upcast on load and all arithmetic is fp32, as the
+// TPU's bf16 matmul with f32 accumulation.
 //
 // What bounds it on an H100: operations, not bytes.  Each corpus block is
 // read once per tile (block_c * dim * 4 bytes) and then used block_q times,
@@ -36,9 +40,9 @@
 
 #include "topk.cuh"
 
-template <int KMAX, int DP>
+template <int KMAX, int DP, bool IP, typename T>
 __global__ void knn_stream_kernel(
-    const float* __restrict__ queries, const float* __restrict__ corpus,
+    const T* __restrict__ queries, const T* __restrict__ corpus,
     const int* __restrict__ block_table, long long bt_stride,
     const int* __restrict__ query_ids, const int* __restrict__ cand_ids,
     long long cid_stride, const float* __restrict__ eps2_ptr,
@@ -80,7 +84,8 @@ __global__ void knn_stream_kernel(
     for (int r = 0; r < block_c; ++r) {
       const int cid = id_s[r];
       if (cid < 0) continue;
-      const float dist = fmaxf(q.qq + cc_s[r] - 2.f * q.dot(c_s + r * stride), 0.f);
+      const float dot = q.dot(c_s + r * stride);
+      const float dist = IP ? -dot : fmaxf(q.qq + cc_s[r] - 2.f * dot, 0.f);
       if (cid != qid && dist <= eps2) {
         ++found;
         top.push(dist, cid);
@@ -91,8 +96,8 @@ __global__ void knn_stream_kernel(
   out_found[row] = found;
 }
 
-template <int KMAX, int DP>
-static cudaError_t launch(const float* queries, const float* corpus,
+template <int KMAX, int DP, bool IP, typename T>
+static cudaError_t launch(const T* queries, const T* corpus,
                           const int* block_table, long long bt_stride,
                           const int* query_ids, const int* cand_ids,
                           long long cid_stride, const float* eps2,
@@ -104,31 +109,53 @@ static cudaError_t launch(const float* queries, const float* corpus,
                                        Query<DP>::smem_floats(dim, block_q));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        knn_stream_kernel<KMAX, DP>,
+        knn_stream_kernel<KMAX, DP, IP, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  knn_stream_kernel<KMAX, DP><<<n_tiles, block_q, smem, stream>>>(
+  knn_stream_kernel<KMAX, DP, IP, T><<<n_tiles, block_q, smem, stream>>>(
       queries, corpus, block_table, bt_stride, query_ids, cand_ids,
       cid_stride, eps2, out_d, out_i, out_found, nblk, dim, k, block_q,
       block_c);
   return cudaGetLastError();
 }
 
+template <typename T>
+static cudaError_t dispatch(const void* queries, const void* corpus,
+                            const int* block_table, long long bt_stride,
+                            const int* query_ids, const int* cand_ids,
+                            long long cid_stride, const float* eps2,
+                            float* out_d, int* out_i, int* out_found,
+                            int n_tiles, int nblk, int dim, int k, int block_q,
+                            int block_c, int ip, cudaStream_t stream) {
+  cudaError_t err;
+  DISPATCH_IP(ip, DISPATCH_KMAX_DP(k, dim,
+      err = (launch<KMAX, DP, IP, T>(
+          static_cast<const T*>(queries), static_cast<const T*>(corpus),
+          block_table, bt_stride, query_ids, cand_ids, cid_stride, eps2,
+          out_d, out_i, out_found, n_tiles, nblk, dim, k, block_q, block_c,
+          stream))));
+  return err;
+}
+
+// `bf16` selects the operand type of queries and corpus (0: float,
+// 1: __nv_bfloat16); `ip` the metric (0: squared L2, 1: -q.c).
 extern "C" int knn_stream_topk_launch(
-    const float* queries, const float* corpus, const int* block_table,
+    const void* queries, const void* corpus, const int* block_table,
     long long bt_stride, const int* query_ids, const int* cand_ids,
     long long cid_stride, const float* eps2, float* out_d, int* out_i,
     int* out_found, int n_tiles, int nblk, int dim, int k, int block_q,
-    int block_c, void* stream) {
+    int block_c, int ip, int bf16, void* stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
-  cudaError_t err;
-  DISPATCH_KMAX_DP(k, dim,
-                   err = (launch<KMAX, DP>(queries, corpus, block_table,
-                                           bt_stride, query_ids, cand_ids,
-                                           cid_stride, eps2, out_d, out_i,
-                                           out_found, n_tiles, nblk, dim, k,
-                                           block_q, block_c,
-                                           (cudaStream_t)stream)));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      bf16 ? dispatch<__nv_bfloat16>(queries, corpus, block_table, bt_stride,
+                                     query_ids, cand_ids, cid_stride, eps2,
+                                     out_d, out_i, out_found, n_tiles, nblk,
+                                     dim, k, block_q, block_c, ip, s)
+           : dispatch<float>(queries, corpus, block_table, bt_stride,
+                             query_ids, cand_ids, cid_stride, eps2, out_d,
+                             out_i, out_found, n_tiles, nblk, dim, k, block_q,
+                             block_c, ip, s);
   return (int)err;
 }

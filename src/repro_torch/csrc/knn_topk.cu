@@ -11,9 +11,10 @@
 // those with a stable sort, keeping split order, so the result equals the
 // TPU path's (first-argmin ties, lowest candidate column first).
 //
-// What it computes: d = max(|q|^2 + |c|^2 - 2 q.c, 0) with rows where
-// cand_id < 0 or cand_id == query_id excluded, reduced to the k smallest
-// (distance, id) pairs; ids are -1 where the distance is inf.
+// What it computes: d = max(|q|^2 + |c|^2 - 2 q.c, 0), or d = -q.c
+// (unclamped) under the ip metric, with rows where cand_id < 0 or cand_id ==
+// query_id excluded, reduced to the k smallest (distance, id) pairs; ids
+// are -1 where the distance is inf.
 //
 // What bounds it on an H100: operations.  Every candidate tile staged in
 // shared memory is reused by block_q queries, so the fp32 FMA pipe and the
@@ -30,7 +31,7 @@
 
 #include "topk.cuh"
 
-template <int KMAX, int DP>
+template <int KMAX, int DP, bool IP>
 __global__ void knn_topk_kernel(
     const float* __restrict__ queries, const float* __restrict__ cands,
     const int* __restrict__ query_ids, const int* __restrict__ cand_ids,
@@ -66,7 +67,8 @@ __global__ void knn_topk_kernel(
     for (int r = 0; r < n; ++r) {
       const int cid = id_s[r];
       if (cid < 0 || cid == qid) continue;
-      top.push(fmaxf(q.qq + cc_s[r] - 2.f * q.dot(c_s + r * stride), 0.f), cid);
+      const float dot = q.dot(c_s + r * stride);
+      top.push(IP ? -dot : fmaxf(q.qq + cc_s[r] - 2.f * dot, 0.f), cid);
     }
   }
   if (active) {
@@ -75,7 +77,7 @@ __global__ void knn_topk_kernel(
   }
 }
 
-template <int KMAX, int DP>
+template <int KMAX, int DP, bool IP>
 static cudaError_t launch(const float* queries, const float* cands,
                           const int* query_ids, const int* cand_ids,
                           float* out_d, int* out_i, int n_q, int n_c, int dim,
@@ -86,28 +88,30 @@ static cudaError_t launch(const float* queries, const float* cands,
                                        Query<DP>::smem_floats(dim, block_q));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        knn_topk_kernel<KMAX, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_topk_kernel<KMAX, DP, IP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((n_q + block_q - 1) / block_q, n_splits);
-  knn_topk_kernel<KMAX, DP><<<grid, block_q, smem, stream>>>(
+  knn_topk_kernel<KMAX, DP, IP><<<grid, block_q, smem, stream>>>(
       queries, cands, query_ids, cand_ids, out_d, out_i, n_q, n_c, dim, k,
       block_q, block_c, per_split);
   return cudaGetLastError();
 }
 
+// `ip` selects the metric (0: squared L2, 1: -q.c).
 extern "C" int knn_topk_launch(const float* queries, const float* cands,
                                const int* query_ids, const int* cand_ids,
                                float* out_d, int* out_i, int n_q, int n_c,
                                int dim, int k, int block_q, int block_c,
-                               int n_splits, long long per_split, void* stream) {
+                               int n_splits, long long per_split, int ip,
+                               void* stream) {
   if (n_q == 0) return (int)cudaGetLastError();
   cudaError_t err;
-  DISPATCH_KMAX_DP(k, dim,
-                   err = (launch<KMAX, DP>(queries, cands, query_ids, cand_ids,
-                                           out_d, out_i, n_q, n_c, dim, k,
-                                           block_q, block_c, n_splits,
-                                           per_split, (cudaStream_t)stream)));
+  DISPATCH_IP(ip, DISPATCH_KMAX_DP(k, dim,
+      err = (launch<KMAX, DP, IP>(queries, cands, query_ids, cand_ids, out_d,
+                                  out_i, n_q, n_c, dim, k, block_q, block_c,
+                                  n_splits, per_split,
+                                  (cudaStream_t)stream))));
   return (int)err;
 }

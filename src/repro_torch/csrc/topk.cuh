@@ -16,10 +16,19 @@
 // the load unit, sets the pace.  The padding adds exact zeros to every sum.
 // DP == 0 is the generic path for wide rows: the query tile stays in
 // shared memory, transposed, and rows are staged at stride dim.
+//
+// Operands may be float or __nv_bfloat16 (the dense engine's bf16 distance
+// mode).  bf16 values are upcast exactly on load and every sum runs in
+// fp32, so each distance is an exact-f32 function of the bf16-cast inputs;
+// the float instantiations are the same code as before bf16 was added.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <int KMAX>
 struct RunningTopK {
@@ -82,7 +91,8 @@ struct Query {
 
   // `tile` is the block's (rows, dim) query rows; row t is this thread's.
   // DP == 0 stages the tile in `smem` (dim * block_q floats) and syncs.
-  __device__ __forceinline__ void load(const float* tile, long long rows_valid,
+  template <typename T>
+  __device__ __forceinline__ void load(const T* tile, long long rows_valid,
                                        int dim_, int block_q_, float* smem) {
     t = threadIdx.x;
     dim = dim_;
@@ -91,13 +101,13 @@ struct Query {
     if constexpr (DP > 0) {
 #pragma unroll
       for (int d = 0; d < DP; ++d) {
-        v[d] = (d < dim && t < rows_valid) ? tile[(long long)t * dim + d] : 0.f;
+        v[d] = (d < dim && t < rows_valid) ? to_f32(tile[(long long)t * dim + d]) : 0.f;
         qq = fmaf(v[d], v[d], qq);
       }
     } else {
       for (int e = t; e < block_q * dim; e += blockDim.x) {
         const int r = e / dim;
-        smem[(e - r * dim) * block_q + r] = r < rows_valid ? tile[e] : 0.f;
+        smem[(e - r * dim) * block_q + r] = r < rows_valid ? to_f32(tile[e]) : 0.f;
       }
       __syncthreads();
       q_s = smem;
@@ -136,13 +146,14 @@ struct Query {
 // Stage n rows of `src` ((n, dim), row-major) into `dst` at stride `stride`
 // (zero-padding columns dim..stride-1 and rows n..n_alloc-1), then write
 // each row's squared norm into `norms`.  Ends with __syncthreads().
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n,
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int n,
                                            int n_alloc, int dim, int stride,
                                            float* dst, float* norms) {
   for (int e = threadIdx.x; e < n_alloc * stride; e += blockDim.x) {
     const int r = e / stride;
     const int d = e - r * stride;
-    dst[e] = (r < n && d < dim) ? src[(long long)r * dim + d] : 0.f;
+    dst[e] = (r < n && d < dim) ? to_f32(src[(long long)r * dim + d]) : 0.f;
   }
   __syncthreads();
   for (int r = threadIdx.x; r < n_alloc; r += blockDim.x) {
@@ -182,5 +193,18 @@ static inline int query_pad(int dim) {
     } else {                                                              \
       constexpr int KMAX = 32;                                            \
       DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+    }                                                                     \
+  } while (0)
+
+// Run `__VA_ARGS__` with constexpr bool IP (the metric: true for the
+// negated inner product -q.c, false for squared L2) in scope.
+#define DISPATCH_IP(ip, ...)                                              \
+  do {                                                                    \
+    if (ip) {                                                             \
+      constexpr bool IP = true;                                           \
+      __VA_ARGS__;                                                        \
+    } else {                                                              \
+      constexpr bool IP = false;                                          \
+      __VA_ARGS__;                                                        \
     }                                                                     \
   } while (0)

@@ -3,9 +3,9 @@ from __future__ import annotations
 
 import torch
 
-# Pairs scored per chunk of points: bounds the (S, chunk, D) difference
-# tensor when the corpus is large.
-_PAIRS_PER_CHUNK = 1 << 24
+# Elements of the (S, chunk, D) difference tensor per chunk of points: bounds
+# its memory whatever the corpus size and the width.
+_DIFF_ELEMS = 1 << 28
 
 
 def distance_bin_histogram_ref(queries, points, query_ids, point_ids,
@@ -16,7 +16,7 @@ def distance_bin_histogram_ref(queries, points, query_ids, point_ids,
     q = queries.float()
     qid = query_ids.to(torch.int32)
     counts = torch.zeros((n_bins + 1,), dtype=torch.int64, device=q.device)
-    chunk = max(1, _PAIRS_PER_CHUNK // max(1, q.shape[0]))
+    chunk = max(1, _DIFF_ELEMS // max(1, q.shape[0] * q.shape[1]))
     for p0 in range(0, points.shape[0], chunk):
         p = points[p0:p0 + chunk].float()
         pid = point_ids[p0:p0 + chunk].to(torch.int32)

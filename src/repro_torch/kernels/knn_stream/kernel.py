@@ -4,10 +4,17 @@ One kernel serves both TPU entry points of
 ``repro/kernels/knn_stream/kernel.py``: the scalar-prefetch block-table
 kernel (the dense engine's hot loop) and the contiguous padded kernel,
 which is the block-table kernel with one identity table shared by every
-tile (tile stride 0).  Each wrapper counts the launches it makes.
+tile (tile stride 0).
+
+Both take ``metric`` ("l2" squared L2, "ip" the unclamped −q·c) and
+queries and corpus in float32 or both in bfloat16 (upcast exactly in the
+kernel, fp32 arithmetic).  ``launches`` counts the launches per variant:
+``knn_stream_topk_prefetch``, ``knn_stream_topk_padded``, with ``[ip]``
+and ``[bf16]`` appended for those variants.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -16,23 +23,32 @@ from repro_torch.kernels import _build
 
 MAX_UNROLLED_K = 32
 
-prefetch_launches = 0
-padded_launches = 0
+launches: collections.Counter = collections.Counter()
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
-    + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
     + [ctypes.c_void_p]
 )
 
 
+def variant(entry: str, metric: str = "l2", dtype=torch.float32) -> str:
+    """Launch-counter key: the entry name with ``[ip]``/``[bf16]`` tags."""
+    return (entry + ("[ip]" if metric == "ip" else "")
+            + ("[bf16]" if dtype == torch.bfloat16 else ""))
+
+
 def _launch(queries, corpus, block_table, bt_stride, query_ids, cand_ids,
-            cid_stride, eps2, *, n_tiles, nblk, k, block_q, block_c):
+            cid_stride, eps2, *, n_tiles, nblk, k, block_q, block_c, metric):
     req = _build.require
     dev = queries.device
     req(dev.type == "cuda", "knn_stream kernel needs CUDA tensors")
-    for name, t, dt in (("queries", queries, torch.float32),
-                        ("corpus", corpus, torch.float32),
+    req(metric in ("l2", "ip"), f"metric must be 'l2' or 'ip', got {metric!r}")
+    op_dt = queries.dtype
+    req(op_dt in (torch.float32, torch.bfloat16),
+        f"knn_stream: queries must be float32 or bfloat16, got {op_dt}")
+    for name, t, dt in (("queries", queries, op_dt),
+                        ("corpus", corpus, op_dt),
                         ("block_table", block_table, torch.int32),
                         ("query_ids", query_ids, torch.int32),
                         ("cand_ids", cand_ids, torch.int32)):
@@ -60,39 +76,40 @@ def _launch(queries, corpus, block_table, bt_stride, query_ids, cand_ids,
     p = _build.ptr
     err = fn(p(queries), p(corpus), p(block_table), bt_stride, p(query_ids),
              p(cand_ids), cid_stride, p(eps), p(out_d), p(out_i), p(found),
-             n_tiles, nblk, dim, k, block_q, block_c, _build.stream())
+             n_tiles, nblk, dim, k, block_q, block_c, int(metric == "ip"),
+             int(op_dt == torch.bfloat16), _build.stream())
     _build.check(err, "knn_stream_topk_launch")
     return out_d, out_i, found
 
 
 def knn_stream_topk_prefetch(queries, corpus, block_table, query_ids, cand_ids,
                              eps2, *, k: int, block_q: int = 128,
-                             block_c: int = 128):
+                             block_c: int = 128, metric: str = "l2"):
     """Block-table streaming top-k (``knn_stream_topk_prefetch`` of the JAX
     package): tile i scores the ``block_c``-row corpus blocks named by
     ``block_table[i]`` against its ``block_q`` query rows.
 
-    queries (T·block_q, D) f32; corpus (C, D) f32, C % block_c == 0;
+    queries (T·block_q, D) and corpus (C, D), C % block_c == 0, both f32
+    or both bf16;
     block_table (T, nblk) i32; query_ids (T·block_q,) i32 exclusion ids;
     cand_ids (T, nblk·block_c) i32, −1 = row outside the tile's union;
     eps2 a () f32 tensor on the card (or a float).
     Returns (dists (T·block_q, k) f32, ids i32, found (T·block_q,) i32)."""
-    global prefetch_launches
     n_tiles, nblk = block_table.shape
     _build.require(tuple(cand_ids.shape) == (n_tiles, nblk * block_c),
                    f"cand_ids {tuple(cand_ids.shape)} != ({n_tiles}, {nblk * block_c})")
     out = _launch(queries, corpus, block_table, nblk, query_ids, cand_ids,
                   nblk * block_c, eps2, n_tiles=n_tiles, nblk=nblk, k=k,
-                  block_q=block_q, block_c=block_c)
-    prefetch_launches += 1
+                  block_q=block_q, block_c=block_c, metric=metric)
+    launches[variant("knn_stream_topk_prefetch", metric, queries.dtype)] += 1
     return out
 
 
 def knn_stream_topk_padded(queries, candidates, query_ids, cand_ids, eps2, *,
-                           k: int, block_q: int = 128, block_c: int = 128):
+                           k: int, block_q: int = 128, block_c: int = 128,
+                           metric: str = "l2"):
     """Contiguous streaming top-k (``knn_stream_topk_padded``): every query
     tile scans all of ``candidates``.  Q % block_q == 0, C % block_c == 0."""
-    global padded_launches
     n_c = candidates.shape[0]
     _build.require(queries.shape[0] % block_q == 0 and n_c % block_c == 0,
                    "knn_stream_topk_padded needs padded operands")
@@ -100,6 +117,6 @@ def knn_stream_topk_padded(queries, candidates, query_ids, cand_ids, eps2, *,
     table = torch.arange(n_cb, dtype=torch.int32, device=queries.device)
     out = _launch(queries, candidates, table, 0, query_ids, cand_ids, 0, eps2,
                   n_tiles=queries.shape[0] // block_q, nblk=n_cb, k=k,
-                  block_q=block_q, block_c=block_c)
-    padded_launches += 1
+                  block_q=block_q, block_c=block_c, metric=metric)
+    launches[variant("knn_stream_topk_padded", metric, queries.dtype)] += 1
     return out

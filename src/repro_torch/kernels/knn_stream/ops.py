@@ -44,8 +44,9 @@ def _pad_rows(x: torch.Tensor, rows: int, value) -> torch.Tensor:
 
 
 def knn_stream_topk(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
-                    block_q: int = 128, block_c: int = 128):
-    """One-pass ε-filtered top-k over arbitrary (unpadded) shapes.
+                    block_q: int = 128, block_c: int = 128, metric: str = "l2"):
+    """One-pass ε-filtered top-k over arbitrary (unpadded) shapes; scores
+    are squared L2, or −q·c under ``metric="ip"``.
 
     Returns (dists (Q, k) ascending inf-padded, ids (Q, k) −1-padded,
     found (Q,) i32 — in-range candidates, self/invalid excluded)."""
@@ -53,7 +54,7 @@ def knn_stream_topk(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
         if queries.is_cuda:
             _reroute_oversized_k(k)
         return _ref.knn_stream_topk_ref(
-            queries, candidates, query_ids, cand_ids, eps2, k=k)
+            queries, candidates, query_ids, cand_ids, eps2, k=k, metric=metric)
     q_n = queries.shape[0]
     qp = round_up(max(q_n, 1), block_q)
     cp = round_up(max(candidates.shape[0], 1), block_c)
@@ -62,20 +63,21 @@ def knn_stream_topk(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
         _pad_rows(candidates.float(), cp, 0.0),
         _pad_rows(query_ids.to(torch.int32), qp, -1),
         _pad_rows(cand_ids.to(torch.int32), cp, -1),
-        eps2, k=k, block_q=block_q, block_c=block_c,
+        eps2, k=k, block_q=block_q, block_c=block_c, metric=metric,
     )
     return kd[:q_n], ki[:q_n], found[:q_n]
 
 
 def knn_stream_topk_prefetch(queries, corpus, block_table, query_ids, cand_ids,
                              eps2, *, k: int, block_q: int = 128,
-                             block_c: int = 128):
+                             block_c: int = 128, metric: str = "l2"):
     """Block-table streaming top-k (operands pre-padded by the dense
-    engine — the block table fixes the shapes)."""
+    engine — the block table fixes the shapes).  Queries and corpus are
+    both f32, or both bf16 (the dense engine's bf16 distance mode)."""
     if not queries.is_cuda:
         return _ref.knn_stream_topk_prefetch_ref(
             queries, corpus, block_table, query_ids, cand_ids, eps2,
-            k=k, block_q=block_q, block_c=block_c)
+            k=k, block_q=block_q, block_c=block_c, metric=metric)
     return _kernel.knn_stream_topk_prefetch(
         queries, corpus, block_table, query_ids, cand_ids, eps2,
-        k=k, block_q=block_q, block_c=block_c)
+        k=k, block_q=block_q, block_c=block_c, metric=metric)

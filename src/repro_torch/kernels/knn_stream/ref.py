@@ -5,7 +5,8 @@ difference form (q − c)², ε-masked, then one stable sort (``lax.top_k``
 keeps the lowest index on ties; ``torch.topk`` promises no tie order, so a
 stable ``torch.sort`` takes its place).  The CUDA kernel computes the
 expansion |q|² + |c|² − 2q·c, so the two agree modulo last-ulp ε²-boundary
-flips and distance ties.
+flips and distance ties.  Under ``metric="ip"`` both score −q·c, unclamped.
+bf16 operands are upcast exactly and scored in fp32.
 """
 from __future__ import annotations
 
@@ -26,7 +27,17 @@ def _topk_rows(d: torch.Tensor, ids: torch.Tensor, keep: torch.Tensor, k: int):
     return kd, ki
 
 
-def knn_stream_topk_ref(queries, candidates, query_ids, cand_ids, eps2, *, k: int):
+def _scores(q, c, metric: str):
+    """(…, Q, D) × (…, C, D) f32 -> (…, Q, C) squared L2 (difference form)
+    or −q·c."""
+    if metric == "ip":
+        return -(q @ c.transpose(-1, -2))
+    diff = q[..., :, None, :] - c[..., None, :, :]
+    return (diff * diff).sum(-1)
+
+
+def knn_stream_topk_ref(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
+                        metric: str = "l2"):
     """ε-filtered exact k nearest candidates per query.
 
     Returns (dists (Q, k) f32 ascending inf-padded, ids (Q, k) i32
@@ -37,8 +48,7 @@ def knn_stream_topk_ref(queries, candidates, query_ids, cand_ids, eps2, *, k: in
     chunk = max(1, _DIFF_BYTES // max(1, c.numel() * 4))
     outs = []
     for q0 in range(0, queries.shape[0], chunk):
-        diff = queries[q0:q0 + chunk].float()[:, None, :] - c[None, :, :]
-        d = (diff * diff).sum(-1)                               # (Qc, C)
+        d = _scores(queries[q0:q0 + chunk].float(), c, metric)    # (Qc, C)
         keep = (cid >= 0) & (qid[q0:q0 + chunk, None] != cid) & (d <= eps2)
         kd, ki = _topk_rows(d, cid, keep, k)
         outs.append((kd, ki, keep.sum(1).to(torch.int32)))
@@ -47,7 +57,7 @@ def knn_stream_topk_ref(queries, candidates, query_ids, cand_ids, eps2, *, k: in
 
 def knn_stream_topk_prefetch_ref(queries, corpus, block_table, query_ids,
                                  cand_ids, eps2, *, k: int, block_q: int = 128,
-                                 block_c: int = 128):
+                                 block_c: int = 128, metric: str = "l2"):
     """Plain version of the block-table kernel: gather each tile's
     block-aligned candidate rows explicitly — the data movement the
     kernel performs itself — and run the materialize-then-sort version
@@ -63,9 +73,8 @@ def knn_stream_topk_prefetch_ref(queries, corpus, block_table, query_ids,
     for t0 in range(0, n_tiles, chunk):
         t1 = min(n_tiles, t0 + chunk)
         rows = (block_table[t0:t1].long()[:, :, None] * block_c + offs).reshape(t1 - t0, -1)
-        cand = corpus.float()[rows]                              # (tc, width, D)
-        diff = q_t[t0:t1, :, None, :] - cand[:, None, :, :]
-        d = (diff * diff).sum(-1)                                 # (tc, bq, width)
+        cand = corpus[rows].float()                              # (tc, width, D)
+        d = _scores(q_t[t0:t1], cand, metric)                     # (tc, bq, width)
         cid = cand_ids[t0:t1].to(torch.int32)[:, None, :]
         keep = (cid >= 0) & (qid_t[t0:t1, :, None] != cid) & (d <= eps2)
         kd, ki = _topk_rows(d, cid, keep, k)

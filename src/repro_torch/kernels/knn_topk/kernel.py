@@ -4,9 +4,12 @@ of ``repro/kernels/knn_topk/kernel.py::knn_tile_topk``.
 The kernel fuses the TPU path's cross-tile merge: each thread block walks
 one contiguous split of the candidates, so the output is (n_splits, Q, k)
 partials instead of (C / block_c, Q, k).  ``n_splits`` is chosen to give
-the card about two blocks per SM."""
+the card about two blocks per SM.  ``metric`` is "l2" (squared L2) or
+"ip" (the unclamped −q·c).  ``launches`` counts the launches per variant
+(``knn_tile_topk``, ``knn_tile_topk[ip]``)."""
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -16,10 +19,10 @@ from repro_torch.utils import cdiv
 
 MAX_UNROLLED_K = 32
 
-launches = 0
+launches: collections.Counter = collections.Counter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong]
-             + [ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_void_p])
 
 
 def split_plan(n_q: int, n_c: int, block_q: int, block_c: int, n_sms: int):
@@ -32,13 +35,13 @@ def split_plan(n_q: int, n_c: int, block_q: int, block_c: int, n_sms: int):
 
 
 def knn_tile_topk(queries, candidates, query_ids, cand_ids, *, k: int,
-                  block_q: int = 128, block_c: int = 256):
+                  block_q: int = 128, block_c: int = 256, metric: str = "l2"):
     """Per-split exact top-k partials: (dists (S, Q, k) f32, ids (S, Q, k)
     i32), −1 ids where inf.  Any Q and C (the kernel masks ragged edges)."""
-    global launches
     req = _build.require
     dev = queries.device
     req(dev.type == "cuda", "knn_topk kernel needs CUDA tensors")
+    req(metric in ("l2", "ip"), f"metric must be 'l2' or 'ip', got {metric!r}")
     for name, t, dt in (("queries", queries, torch.float32),
                         ("candidates", candidates, torch.float32),
                         ("query_ids", query_ids, torch.int32),
@@ -65,7 +68,7 @@ def knn_tile_topk(queries, candidates, query_ids, cand_ids, *, k: int,
     p = _build.ptr
     err = fn(p(queries), p(candidates), p(query_ids), p(cand_ids), p(out_d),
              p(out_i), n_q, n_c, dim, k, block_q, block_c, n_splits, per_split,
-             _build.stream())
+             int(metric == "ip"), _build.stream())
     _build.check(err, "knn_topk_launch")
-    launches += 1
+    launches["knn_tile_topk[ip]" if metric == "ip" else "knn_tile_topk"] += 1
     return out_d, out_i

@@ -13,21 +13,23 @@ oversized_k_reroutes = 0
 
 
 def knn_topk(queries, candidates, query_ids, cand_ids, *, k: int,
-             block_q: int = 128, block_c: int = 256):
+             block_q: int = 128, block_c: int = 256, metric: str = "l2"):
     """Exact k nearest candidates per query (self/invalid excluded).
 
-    Returns (dists (Q, k) f32 ascending squared L2, ids (Q, k) i32, −1
-    where fewer than k candidates exist)."""
+    Returns (dists (Q, k) f32 ascending — squared L2, or −q·c under
+    ``metric="ip"`` — and ids (Q, k) i32, −1 where fewer than k candidates
+    exist)."""
     global oversized_k_reroutes
     if not queries.is_cuda or k > _kernel.MAX_UNROLLED_K:
         if queries.is_cuda:
             oversized_k_reroutes += 1
-        return _ref.knn_topk_ref(queries, candidates, query_ids, cand_ids, k=k)
+        return _ref.knn_topk_ref(queries, candidates, query_ids, cand_ids, k=k,
+                                 metric=metric)
     pd, pi = _kernel.knn_tile_topk(
         queries.float().contiguous(), candidates.float().contiguous(),
         query_ids.to(torch.int32).contiguous(),
         cand_ids.to(torch.int32).contiguous(),
-        k=k, block_q=block_q, block_c=block_c)
+        k=k, block_q=block_q, block_c=block_c, metric=metric)
     if pd.shape[0] == 1:
         return pd[0], pi[0]
     return _ref.merge_topk_ref(pd, pi, k=k)

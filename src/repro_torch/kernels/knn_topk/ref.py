@@ -10,18 +10,25 @@ import torch
 _DIFF_BYTES = 1 << 28
 
 
-def knn_topk_ref(queries, candidates, query_ids, cand_ids, *, k: int):
+def knn_topk_ref(queries, candidates, query_ids, cand_ids, *, k: int,
+                 metric: str = "l2"):
     """Exact k nearest candidates per query: (dists (Q, k) f32 ascending,
     ids (Q, k) i32, −1 where fewer than k valid candidates exist).
-    Candidates with id < 0 and the query's own id are excluded."""
+    Candidates with id < 0 and the query's own id are excluded.  Scores are
+    squared L2, or the negated inner product −q·c (may be negative) under
+    ``metric="ip"``."""
     c = candidates.float()
     cid = cand_ids.to(torch.int32)[None, :]
     qid = query_ids.to(torch.int32)
     chunk = max(1, _DIFF_BYTES // max(1, c.numel() * 4))
     outs = []
     for q0 in range(0, queries.shape[0], chunk):
-        diff = queries[q0:q0 + chunk].float()[:, None, :] - c[None, :, :]
-        d = (diff * diff).sum(-1)
+        q = queries[q0:q0 + chunk].float()
+        if metric == "ip":
+            d = -(q @ c.T)
+        else:
+            diff = q[:, None, :] - c[None, :, :]
+            d = (diff * diff).sum(-1)
         invalid = (cid < 0) | (qid[q0:q0 + chunk, None] == cid)
         d = torch.where(invalid, torch.full_like(d, float("inf")), d)
         vals, sel = torch.sort(d, dim=1, stable=True)

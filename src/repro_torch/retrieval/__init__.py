@@ -1,1 +1,8 @@
-"""Retrieval helpers of the port (metrics)."""
+"""Retrieval helpers of the port: the metric registry."""
+from repro_torch.retrieval.metrics import (
+    METRICS, finalize, kernel_metric, normalize_rows, prepare_rows, unit_rows_ok,
+    validate_metric,
+)
+
+__all__ = ["METRICS", "finalize", "kernel_metric", "normalize_rows", "prepare_rows",
+           "unit_rows_ok", "validate_metric"]

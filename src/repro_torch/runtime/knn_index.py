@@ -1,7 +1,7 @@
 """Index/query serving API: build once, query many — in PyTorch.
 
 Port of ``repro/runtime/knn_index.py`` for one device, a clean (never
-mutated) index and exact l2 results:
+mutated) index and exact results in the l2, ip or cosine metric:
 
   * ``KNNIndex.build(points, config, device=...)`` runs the per-database
     steps once — REORDER by variance (§IV-D), ε selection (§V-C, the
@@ -10,6 +10,11 @@ mutated) index and exact l2 results:
     dense/sparse/brute pipeline through the §V-A work queue for an
     arbitrary (R≠S) query set; ``index.query(exclude_self=True)`` is the
     classic self-join.
+
+Metrics (``retrieval/metrics.py``): cosine runs the l2 engines over unit
+rows; an ip index serves every query through the exact brute lane (ip has
+no triangle inequality to bound a grid search); raw scores become reported
+distances once, in ``finalize``, at this boundary.
 
 Engine "compiles": the JAX package caches AOT executables per shape
 bucket.  PyTorch runs eagerly and the CUDA sources build once per
@@ -283,6 +288,11 @@ class KNNIndex:
 
     # -- engine callables for the work queue -------------------------------
 
+    def _grid_metric(self) -> str:
+        """The kernel metric of the grid-space engines: cosine rides the l2
+        kernels over unit rows."""
+        return met_lib.kernel_metric(self.config.metric)
+
     def _dense_fn(self, gen: _Generation, k: int, queries_rp, exclude_self: bool):
         cfg = self.config
         eps_arg = torch.tensor(gen.eps, dtype=torch.float32, device=self.device)
@@ -295,7 +305,7 @@ class KNNIndex:
             kwargs = dict(
                 k=k, budget=cfg.dense_budget, query_block=cfg.query_block,
                 block_c=cfg.block_c, backend=self.backend,
-                exclude_self=exclude_self, metric="l2",
+                exclude_self=exclude_self, metric=self._grid_metric(),
                 distance_dtype=cfg.distance_dtype,
             )
             run_engine(self, "dense", args, kwargs)
@@ -320,7 +330,7 @@ class KNNIndex:
             kwargs = dict(
                 k=k, budget=cfg.sparse_budget, query_block=cfg.query_block,
                 sel_factor=cfg.sel_factor, backend=self.backend,
-                exclude_self=exclude_self, metric="l2",
+                exclude_self=exclude_self, metric=self._grid_metric(),
                 distance_dtype=cfg.distance_dtype,
             )
             run_engine(self, "sparse", args, kwargs)
@@ -344,8 +354,9 @@ class KNNIndex:
             qp = hybrid_lib._pad_ids(ids, cfg.query_block, self.device)
             queries = gen.points_r if queries_rp is None else queries_rp
             args = (gen.points_r, qp) + (() if queries_rp is None else (queries_rp,))
+            metric = self._grid_metric()
             kwargs = dict(k=k, corpus_chunk=cfg.brute_chunk,
-                          exclude_self=exclude_self, metric="l2")
+                          exclude_self=exclude_self, metric=metric)
             run_engine(self, "brute", args, kwargs)
             # Only the real rows are scored: the pow2 padding keys the
             # bucket, and brute work grows with every padding row.
@@ -354,7 +365,7 @@ class KNNIndex:
             d, i = brute_lib.brute_knn(
                 gen.points_r, queries[safe],
                 dense_lib._exclusion_ids(live, exclude_self),
-                k=k, corpus_chunk=cfg.brute_chunk)
+                k=k, corpus_chunk=cfg.brute_chunk, metric=metric)
             return d.cpu().numpy(), i.cpu().numpy()
 
         return brute_fn
@@ -396,11 +407,10 @@ class KNNIndex:
                         context=" after self-exclusion" if exclude_self else "")
         compiles_before = self.total_compiles
 
-        if queries is None or queries is gen.points_ref:
+        is_self = queries is None or queries is gen.points_ref
+        if is_self:
             n_q = npts_ref
             queries_rp = None
-            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, rho)
-            home_counts = gen.home_counts
         else:
             q_np = met_lib.prepare_rows(validate_points(queries, self.n_dims),
                                         cfg.metric, "queries", context="KNNIndex.query")
@@ -408,6 +418,14 @@ class KNNIndex:
             q = torch.as_tensor(q_np, device=self.device)
             queries_r = q[:, gen.dim_perm] if gen.dim_perm is not None else q
             queries_rp = pad_rows_pow2(queries_r, cfg.query_block).contiguous()
+        if cfg.metric == "ip":
+            return self._query_brute_all(gen, kq, n_q, queries_rp, exclude_self,
+                                         compiles_before)
+
+        if is_self:
+            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, rho)
+            home_counts = gen.home_counts
+        else:
             q_coords = grid_lib.compute_cell_coords(gen.grid, queries_r[:, : gen.grid.m])
             split = split_lib.split_queries(gen.grid, q_coords, kq, cfg.gamma, rho)
             to_dense = split.to_dense.cpu().numpy()
@@ -447,3 +465,19 @@ class KNNIndex:
         return hybrid_lib.KNNResult(
             dists=met_lib.finalize(final_d, cfg.metric), ids=final_i,
             source=source, stats=stats)
+
+    def _query_brute_all(self, gen: _Generation, kq: int, n_q: int, queries_rp,
+                         exclude_self: bool, compiles_before: int):
+        """Raw inner-product serving: neither the grid's routing nor the
+        sparse certificates bound ip, so every query serves through the
+        exact brute lane (one padded batch), source 2."""
+        t0 = time.perf_counter()
+        d, i = self._brute_fn(gen, kq, queries_rp, exclude_self)(
+            np.arange(n_q, dtype=np.int32))
+        dt = time.perf_counter() - t0
+        stats = hybrid_lib.JoinStats(
+            epsilon=gen.eps, epsilon_beta=gen.eps_beta, t_brute=dt, t_wall=dt,
+            n_engine_compiles=self.total_compiles - compiles_before)
+        return hybrid_lib.KNNResult(
+            dists=met_lib.finalize(d, self.config.metric), ids=i,
+            source=np.full((n_q,), 2, np.int32), stats=stats)

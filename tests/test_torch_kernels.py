@@ -219,7 +219,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
         topk_kernel.knn_tile_topk(q, q, ids, ids, k=4)
     with pytest.raises(ValueError, match="CUDA"):
         hist_kernel.distance_bin_histogram(q, q, ids, 0.1, n_bins=16)
-    assert stream_kernel.prefetch_launches == topk_kernel.launches == 0
+    assert not stream_kernel.launches and not topk_kernel.launches
 
 
 @pytest.mark.parametrize("n_q,n_c", [(4096, 4096), (5, 5_000_000), (5_000_000, 5_000_000),

@@ -1,8 +1,8 @@
 """The port's main path as a whole: ``KNNIndex.build`` + ``query`` (self-join
 and an R≠S batch) against the JAX package's fused backend with ε pinned
 and online rebalancing off, and against the float64 oracle; steady-state
-engine buckets; the CUDA default of every entry point; features outside
-this slice raising ``NotImplementedError``."""
+engine buckets; the CUDA default of every entry point; features the port
+does not run yet raising ``NotImplementedError``."""
 import numpy as np
 import pytest
 import torch
@@ -123,13 +123,24 @@ def test_entry_points_default_to_cuda(monkeypatch):
             make()
 
 
-@pytest.mark.parametrize("kw", [dict(metric="ip"), dict(metric="cosine"),
-                                dict(distance_dtype="bf16"), dict(recall_target=0.9),
-                                dict(projection_dim=4), dict(backend="pallas"),
-                                dict(backend="interpret")])
+@pytest.mark.parametrize("kw", [dict(recall_target=0.9), dict(projection_dim=4)])
 def test_features_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         HybridConfig(k=3, **kw)
+
+
+def test_interpret_backend_refuses_cuda(monkeypatch):
+    """``backend="interpret"`` is the tiled route's plain version: on a CUDA
+    device it raises (naming ``"pallas"``) instead of skipping the kernel."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = HybridConfig(k=2, m=2, backend="interpret")
+    with pytest.raises(ValueError, match="pallas"):
+        JoinSession(cfg)
+    from repro_torch.core import dense_join as dense_lib
+    with pytest.raises(ValueError, match="pallas"):
+        dense_lib.resolve_backend("interpret", "cuda")
+    assert dense_lib.resolve_backend("interpret", "cpu") == "interpret"
+    assert dense_lib.resolve_backend("pallas", "cuda") == "pallas"
 
 
 def test_mutation_and_mesh_raise(both):
