@@ -42,8 +42,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          mismatches (each explained by an ε²- or bin-edge flip or a
          distance tie, recomputed in float64), kernel / plain / library
          times from CUDA events, and the bound from bytes and FLOPs.  The
-         pairwise kernel is also held at FMA width (``pointclouds.load(
-         "fma")``, 518 dims, 5 d-chunks), where SHORTC must skip tiles.
+         inputs of the ip brute call of (g) and of the first gathered-route
+         call of (h) are kept as those paths make them.  The pairwise kernel
+         is also held at FMA width (``pointclouds.load("fma")`` at the
+         published 107k × 518, 5 d-chunks), where SHORTC must skip tiles.
 
 Each path — (b)–(d), (e), (g), (h) — sets the kernel launch counters to 0
 just before it and reads them just after.  The last lines are the card's
@@ -73,6 +75,7 @@ K_BF16 = 16                         # k + 8 ≤ 32: the bf16 streaming kernel ru
 ORACLE_ROWS = 2048
 FOREIGN_QUERIES = 65_536
 BRUTE_QUERIES = 4096
+FMA_POINTS = 107_000                # FMA's published |D| (data/pointclouds.py)
 
 
 def log(msg: str) -> None:
@@ -297,6 +300,30 @@ def pairwise_bound(qpts, cpts, chunks, block_q, block_c, block_d=128):
     return bound(nbytes, per_tile.sum().item())
 
 
+class FirstCall:
+    """Within ``with``, keep the arguments of the first call of
+    ``module.name`` that ``want(*args, **kwargs)`` accepts; every call goes
+    through unchanged, so the launch counters stay the callee's own."""
+
+    def __init__(self, module, name, want=lambda *a, **kw: True):
+        self.module, self.name, self.want = module, name, want
+        self.args = None
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            if self.args is None and self.want(*a, **kw):
+                self.args = (a, kw)
+            return fn(*a, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, lib_ms):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -473,7 +500,8 @@ def main(argv=None) -> int:
     del cos_index, rc, pts_unit
     t0 = time.perf_counter()
     ip_index = KNNIndex.build(pts, dataclasses.replace(cfg, metric="ip"), device="cuda")
-    ri = ip_index.query(foreign)
+    with FirstCall(topk_ops, "knn_topk", lambda *a, **kw: kw.get("metric") == "ip") as ip_call:
+        ri = ip_index.query(foreign)
     log(f"[g] ip build+R≠S {time.perf_counter() - t0:.2f}s: t_brute={ri.stats.t_brute:.3f}s "
         f"queries/s={FOREIGN_QUERIES / ri.stats.t_wall:.1f} sources="
         f"{np.bincount(ri.source, minlength=3).tolist()}")
@@ -493,7 +521,9 @@ def main(argv=None) -> int:
     log(f"[h] bf16 K={K_BF16} build+R≠S {time.perf_counter() - t0:.2f}s eps={bf_index.eps:.6g}: "
         f"{stats_line(rb, FOREIGN_QUERIES)}")
     check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K_BF16}")
-    rb = bf_index.query(foreign, k=K)
+    bf_pr = bf_index.points_r
+    with FirstCall(stream_ops, "knn_stream_topk") as padded_call:
+        rb = bf_index.query(foreign, k=K)
     log(f"[h] bf16 K={K} R≠S (gathered fp32 route): {stats_line(rb, FOREIGN_QUERIES)}")
     check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K}")
     del rb
@@ -655,46 +685,49 @@ def main(argv=None) -> int:
     corpus, blk = ops_in[1], ops_in[2]
     nblk = blk.shape[1]
 
-    # #2 knn_stream_topk_padded (identity table): the batch's first 64 tiles
-    # against one tile-budget-wide contiguous slice of the corpus.
-    kw = dict(k=K, block_q=bq, block_c=bc)
-    excl = ops_in[3]
-    q2, qid2 = qpts[: 64 * bq], excl[: 64 * bq]
-    c2 = corpus[: nblk * bc]
-    cid2 = index.grid.order[: c2.shape[0]].contiguous()
-    kd, ki, kf = stream_ops.knn_stream_topk(q2, c2, qid2, cid2, eps2, **kw)
-    rd, ri_, rf = stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, eps2, k=K)
-    err, _, _ = hold_topk(f"knn_stream_topk_padded {tuple(q2.shape)} x {tuple(c2.shape)}",
-                          pr, q2, kd, ki, rd, ri_, kf, rf, lambda r: c2, eps2)
-    ms = cuda_ms(lambda: stream_ops.knn_stream_topk(q2, c2, qid2, cid2, eps2, **kw))
-    plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, eps2, k=K),
-                       reps=1, warmup=0)
-    nbytes = (q2.numel() + c2.numel()) * 4 + (qid2.numel() + cid2.numel()) * 4 + kd.numel() * 8
-    b = bound(nbytes, q2.shape[0] * c2.shape[0] * (2 * dim + 3))
+    # #2 knn_stream_topk_padded: (h)'s first gathered-route call at K = 25,
+    # one query tile against its shared candidate union.
+    (q2, c2, qid2, cid2, e2), kw2 = padded_call.args
+    kd, ki, kf = stream_ops.knn_stream_topk(q2, c2, qid2, cid2, e2, **kw2)
+    rd, ri_, rf = stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, e2, k=kw2["k"],
+                                                 metric=kw2["metric"])
+    n_valid = int((cid2 >= 0).sum())
+    err, _, _ = hold_topk(f"knn_stream_topk_padded {tuple(q2.shape)} x {tuple(c2.shape)} "
+                          f"({n_valid} valid candidates), k={kw2['k']}",
+                          bf_pr, q2, kd, ki, rd, ri_, kf, rf, lambda r: c2[cid2 >= 0], e2)
+    ms = cuda_ms(lambda: stream_ops.knn_stream_topk(q2, c2, qid2, cid2, e2, **kw2), reps=20)
+    plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_ref(
+        q2, c2, qid2, cid2, e2, k=kw2["k"], metric=kw2["metric"]), reps=1, warmup=0)
+    nbytes = ((q2.numel() + c2.numel()) * 4 + (qid2.numel() + cid2.numel()) * 4
+              + kd.numel() * 8 + kf.numel() * 4)
+    b = bound(nbytes, q2.shape[0] * n_valid * (2 * dim + 3))
+    log(f"[a] knn_stream_topk_padded: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b[0]:.5f} ms ({b[1]})")
     kernels.append(kernel_entry("knn_stream_topk_padded", STREAM_CU,
                                 "src/repro/kernels/knn_stream/kernel.py:275",
                                 launches_h.get("knn_stream_topk_padded", 0), err, ms, plain_ms,
                                 b, None))
-    del ops_in, q2, c2
+    del ops_in, q2, c2, bf_pr, padded_call
 
-    # #3 knn_tile_topk, l2 on the brute baseline's own call and ip on the ip
-    # index's first 4096 R≠S queries: each against the whole corpus in one
-    # launch.  The plain version takes the corpus in chunks merged with
-    # merge_running_topk, as the CPU brute lane does; the library yardstick
-    # too, since the full (Q, |D|) matrix would not fit.
+    # #3 knn_tile_topk, l2 on the brute baseline's own call (4096 queries)
+    # and ip on (g)'s own brute-lane call (all 65,536 R≠S queries): each
+    # against the whole corpus in one launch.  The plain version takes the
+    # corpus in chunks merged with merge_running_topk, as the CPU brute lane
+    # does; the library yardstick too, in chunks of 2^30 scores, since the
+    # full (Q, |D|) matrix would not fit.
     cid3 = torch.arange(len(pts), dtype=torch.int32, device=dev)
-    for metric, q3, qid3 in (("l2", pr[brute_rows].contiguous(), brute_rows.to(torch.int32)),
-                             ("ip", fq[:BRUTE_QUERIES][:, index.dim_perm].contiguous(),
-                              torch.full((BRUTE_QUERIES,), -2, dtype=torch.int32,
-                                         device=dev))):
+    (q3_ip, c3_ip, qid3_ip, cid3_ip), _ = ip_call.args
+    for metric, q3, qid3, c3, cids in (
+            ("l2", pr[brute_rows].contiguous(), brute_rows.to(torch.int32), pr, cid3),
+            ("ip", q3_ip, qid3_ip, c3_ip, cid3_ip)):
         name = "knn_tile_topk[ip]" if metric == "ip" else "knn_tile_topk"
-        kd, ki = topk_ops.knn_topk(q3, pr, qid3, cid3, k=K, metric=metric)
+        kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric)
 
         def chunked(topk_of_chunk, chunk):
             run_d = torch.full((q3.shape[0], K), float("inf"), device=dev)
             run_i = torch.full((q3.shape[0], K), -1, dtype=torch.int32, device=dev)
-            for c0 in range(0, len(pts), chunk):
-                nd, ni = topk_of_chunk(pr[c0:c0 + chunk], cid3[c0:c0 + chunk])
+            for c0 in range(0, c3.shape[0], chunk):
+                nd, ni = topk_of_chunk(c3[c0:c0 + chunk], cids[c0:c0 + chunk])
                 run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=K)
             return run_d, run_i
 
@@ -705,15 +738,18 @@ def main(argv=None) -> int:
 
         (rd, ri_), plain_ms = timed(lambda: chunked(
             lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=K, metric=metric), 8192))
-        err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(pr.shape)}",
-                              pr, q3, kd, ki, rd, ri_, metric=metric)
-        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, pr, qid3, cid3, k=K, metric=metric), reps=3)
-        lib_ms = cuda_ms(lambda: chunked(library_topk, 262_144), reps=1)
-        nbytes = (q3.numel() + pr.numel()) * 4 + (qid3.numel() + cid3.numel()) * 4 + kd.numel() * 8
-        b = bound(nbytes, q3.shape[0] * pr.shape[0] * (2 * dim + (3 if metric == "l2" else 1)))
+        err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(c3.shape)}",
+                              c3, q3, kd, ki, rd, ri_, metric=metric)
+        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric), reps=3)
+        lib_ms = cuda_ms(lambda: chunked(library_topk, (1 << 30) // q3.shape[0]), reps=1)
+        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + kd.numel() * 8
+        b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * dim + (3 if metric == "l2" else 1)))
+        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
         launch_n = (launches if metric == "l2" else launches_g).get(name, 0)
         kernels.append(kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
                                     launch_n, err, ms, plain_ms, b, lib_ms))
+    del q3_ip, c3_ip, qid3_ip, cid3_ip, ip_call, q3, c3
 
     # #4 distance_bin_histogram: the ε selection's own sample and bin width.
     n_q = min(cfg.n_query_sample, len(pts))
@@ -799,8 +835,8 @@ def main(argv=None) -> int:
     # FMA width: ε from the FMA cloud's own selection, computed with the plain
     # versions on the host (the bin_hist kernel stages whole rows in shared
     # memory and refuses 518 dims).
-    fma = pointclouds.load("fma")
-    fma_q = pointclouds.load("fma", seed=1)
+    fma = pointclouds.load("fma", n_override=FMA_POINTS)
+    fma_q = pointclouds.load("fma", seed=1, n_override=FMA_POINTS)
     t0 = time.perf_counter()
     fma_r_host, _ = grid_lib.reorder_by_variance(torch.as_tensor(fma))
     eps_f, _, _ = select_epsilon(fma_r_host, cfg, None, len(fma))
@@ -810,15 +846,18 @@ def main(argv=None) -> int:
     fb = first_dense_batch(fidx, K)
     ftiles, _ = grid_lib.group_queries_by_cell(fidx.grid, _pad_ids(fb, bq, dev), bq)
     chunk = dense_lib.tiles_per_chunk(fidx.grid, fma.shape[1], bq, cfg.dense_budget, bc)
+    log(f"[a] FMA first dense batch: {len(fb)} queries, {ftiles.shape[0]} tiles; "
+        f"{chunk} tiles per launch at this width")
     fq5, _, fc5, _, _ = dense_lib.tiled_candidates(fidx.grid, fidx.points_r, ftiles[:chunk],
                                                   cfg.dense_budget, bc)
     eps2_f = torch.tensor(eps_f, dtype=torch.float32, device=dev) ** 2
     err, skipped, ms, plain_ms, lib_ms, b = pairwise_check(
         f"pairwise_sq_l2 FMA self-join tiles, D={fma.shape[1]}, ε²={eps2_f.item():.6g}",
         fq5, fc5, eps2_f)
+    # No path runs a 518-dim index on the card (ROADMAP queue C): 0 launches.
     kernels.append(kernel_entry("pairwise_sq_l2 (FMA width)", PAIRWISE_CU,
                                 "src/repro/kernels/pairwise_l2/kernel.py:151",
-                                launches_p.get("pairwise_sq_l2", 0), err, ms, plain_ms, b, lib_ms))
+                                0, err, ms, plain_ms, b, lib_ms))
     err, _, ms, plain_ms, lib_ms, b = pairwise_check(
         f"pairwise_sq_l2[ip] FMA self-join tiles, D={fma.shape[1]}", fq5, fc5, None, "ip")
     kernels.append(kernel_entry("pairwise_sq_l2[ip]", PAIRWISE_CU,

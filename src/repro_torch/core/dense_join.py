@@ -17,8 +17,9 @@ Three backends share those semantics:
     the (TQ, TC) distance tiles of a whole chunk of tiles in one launch
     (with the SHORTC ε² tile short-circuit under l2), and a second pass of
     plain tensor code filters at ε² and keeps the top K.  ``"interpret"``
-    is the same route for CPU tensors (the kernel's plain version); on a
-    CUDA device it raises, so nothing on the card skips the kernel;
+    is an alias of ``"pallas"`` for CPU tensors (where the kernel's plain
+    version runs); on a CUDA device it raises, so nothing on the card
+    skips the kernel;
   * ``"fused"`` — the streaming one-pass engine: each tile's deduplicated
     3^m cell ranges become a block table (``_tile_block_tables``) and the
     ``knn_stream`` kernel reads those corpus blocks in place, filters at
@@ -73,8 +74,8 @@ _CHUNK_BYTES = 2 << 30
 
 def resolve_backend(backend: str, device) -> str:
     """Collapse ``"auto"``: the fused engine on a CUDA device, ref on the
-    CPU.  ``"interpret"`` (the tiled route's plain version) is for CPU
-    tensors only: on a CUDA device the tiled route is ``"pallas"``."""
+    CPU.  ``"interpret"`` names the tiled route on CPU tensors and resolves
+    to ``"pallas"``; on a CUDA device it raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     cuda = torch.device(device).type == "cuda"
@@ -85,7 +86,7 @@ def resolve_backend(backend: str, device) -> str:
             "which launches the pairwise_sq_l2 kernel")
     if backend == "auto":
         return "fused" if cuda else "ref"
-    return backend
+    return "pallas" if backend == "interpret" else backend
 
 
 def check_engine_args(metric: str, distance_dtype: str) -> None:
@@ -459,7 +460,7 @@ def dense_join(index: grid_lib.GridIndex, points_r: torch.Tensor,
         kd, ki, found, failed, total = _ref_join(
             index, points_r, qids, eps2, k, budget, queries, coords_all,
             exclude_self, metric)
-    elif backend in ("pallas", "interpret"):
+    elif backend == "pallas":
         kd, ki, found, failed, total = _tiled_join(
             index, points_r, qids, eps2, k, budget, query_block, block_c, *route)
     elif fused_k_run <= stream_kernel.MAX_UNROLLED_K:

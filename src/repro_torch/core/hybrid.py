@@ -25,7 +25,7 @@ class HybridConfig:
     """All paper parameters (Table II) plus execution knobs; see the JAX
     ``HybridConfig`` for each field's meaning.  ``backend`` "pallas" is the
     cell-tiled dense path (its ``pairwise_l2`` kernel on the card),
-    "interpret" the same path's plain version on the CPU.  Values the port
+    "interpret" an alias of it for CPU tensors.  Values the port
     does not run yet raise ``NotImplementedError`` naming the ROADMAP item
     that brings them."""
 

@@ -10,9 +10,10 @@ the first level whose certified radius covers the pass-1 k-th distance.
 uncertified queries fall back to the brute lane.
 
 Backends: ``"ref"`` scores the gathered (B, budget, n) operand in the
-difference form; ``"pallas"``/``"interpret"`` score it in the expansion
-form |q|² + |c|² − 2q·c clamped at 0 (candidate sets are per query here, so
-the dense engine's shared-tile kernel does not apply); ``"fused"`` streams
+difference form; ``"pallas"`` (``"interpret"`` on the CPU is its alias)
+scores it in the expansion form |q|² + |c|² − 2q·c clamped at 0
+(candidate sets are per query here, so the dense engine's shared-tile
+kernel does not apply); ``"fused"`` streams
 the budget in ``STREAM_CHUNK``-wide chunks through a running top-K
 (``knn_topk.merge_running_topk``), so neither the full gathered operand nor
 the (B, budget) distance tile exists.  This engine is plain tensor code,

@@ -130,8 +130,9 @@ def test_features_outside_the_slice_raise(kw):
 
 
 def test_interpret_backend_refuses_cuda(monkeypatch):
-    """``backend="interpret"`` is the tiled route's plain version: on a CUDA
-    device it raises (naming ``"pallas"``) instead of skipping the kernel."""
+    """``backend="interpret"`` is an alias of the tiled route for CPU
+    tensors: on a CUDA device it raises (naming ``"pallas"``) instead of
+    skipping the kernel."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = HybridConfig(k=2, m=2, backend="interpret")
     with pytest.raises(ValueError, match="pallas"):
@@ -139,7 +140,7 @@ def test_interpret_backend_refuses_cuda(monkeypatch):
     from repro_torch.core import dense_join as dense_lib
     with pytest.raises(ValueError, match="pallas"):
         dense_lib.resolve_backend("interpret", "cuda")
-    assert dense_lib.resolve_backend("interpret", "cpu") == "interpret"
+    assert dense_lib.resolve_backend("interpret", "cpu") == "pallas"
     assert dense_lib.resolve_backend("pallas", "cuda") == "pallas"
 
 
