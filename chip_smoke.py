@@ -31,6 +31,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          (the bf16 streaming kernel; exact after the fp32 rescore), then
          one R≠S call at K = 25 (k + 8 > 32: the gathered fp32 route, the
          ``knn_stream_topk_padded`` kernel);
+  (i)    FMA end to end at its published 107,000 × 518
+         (``pointclouds.load("fma", n_override=107_000)``): ε selected on
+         the card (the ``bin_hist`` kernel at 518 dims), the fused self-join
+         (``knn_stream`` at 518 dims, the brute lane's ``knn_topk``) and the
+         ``pallas`` self-join on the same grid (``pairwise_sq_l2``), 2048
+         rows of each held against float64;
   (f)    ``dense_join`` with ``backend="pallas"`` against ``"fused"`` on the
          first dense batch of the 5M index, and on 16,384 sparse-split
          queries at budgets growing until at least half their tiles fit
@@ -40,17 +46,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   (a)    each kernel and variant against its plain PyTorch version on the
          card, on the inputs its path gave it: max |Δd|, id / found / bin
          mismatches (each explained by an ε²- or bin-edge flip or a
-         distance tie, recomputed in float64), kernel / plain / library
-         times from CUDA events, and the bound from bytes and FLOPs.  The
-         inputs of the ip brute call of (g) and of the first gathered-route
-         call of (h) are kept as those paths make them.  The pairwise kernel
-         is also held at FMA width (``pointclouds.load("fma")`` at the
-         published 107k × 518, 5 d-chunks), where SHORTC must skip tiles.
+         distance tie, recomputed in float64; at 518 dims within the
+         expansion form's fp32 bound, which grows with the width), kernel /
+         plain / library times from CUDA events, and the bound from bytes
+         and FLOPs.  The inputs of the ip brute call of (g), of the first
+         gathered-route call of (h) and of (i)'s ε selection and brute-lane
+         call are kept as those paths make them.  The pairwise kernel is
+         also held on R≠S tiles of a second FMA cloud, where SHORTC must
+         skip tiles.
 
-Each path — (b)–(d), (e), (g), (h) — sets the kernel launch counters to 0
-just before it and reads them just after.  The last lines are the card's
-name and power limit, one JSON line with every kernel's numbers, and
-``{"ok": true, "device": {...}}``.
+Each path — (b)–(d), (e), (g), (h), (i) — sets the kernel launch counters
+to 0 just before it and reads them just after.  The last lines are the
+card's name and power limit, one JSON line with every kernel's numbers,
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -222,41 +230,63 @@ def pair64(c, q, metric: str):
     return -(c * q).sum(-1) if metric == "ip" else ((c - q) ** 2).sum(-1)
 
 
+def expansion_bound(qn, cn, dim: int):
+    """Twice the fp32 error bound of the expansion form |q|² + |c|² − 2q·c
+    (and of −q·c), 2·(D+4)·u·(|q|+|c|)², from float64 row norms."""
+    return 2.0 * (dim + 4) * FP32_U * (qn + cn) ** 2
+
+
 def hold_topk(what, pr, qpts, kd, ki, rd, ri, kf=None, rf=None, scored=None, eps2=None,
-              metric="l2"):
+              metric="l2", fp32_bound=False):
     """Hold a kernel's top-k against its plain version on the same inputs.
     ``found`` flips must have a scored pair within 1e-4 of the ε² threshold
-    in float64; on the other rows the inf pattern must agree and every id
-    mismatch must be a score tie in float64 (``pr[id]`` is candidate
-    ``id``).  Returns (max |Δd|, id mismatches, found mismatches)."""
+    in float64; on the other rows the inf pattern must agree, |Δd| ≤ 1e-4
+    and every id mismatch must be a score tie within 1e-5 in float64
+    (``pr[id]`` is candidate ``id``).  With ``fp32_bound`` (wide rows, where
+    the expansion form's rounding grows with the width) each of those three
+    tolerances is the pair's ``expansion_bound`` instead.  Returns
+    (max |Δd|, id mismatches, found mismatches)."""
     import torch
+    dim = qpts.shape[1]
+    qn = qpts.double().norm(dim=1)
+    cn = pr.double().norm(dim=1) if fp32_bound else None
     flips = ((kf != rf).nonzero()[:, 0] if kf is not None
              else torch.zeros((0,), dtype=torch.long, device=kd.device))
     flip_gap = tie_gap = 0.0
     for r in flips.tolist():
-        d2 = pair64(scored(r), qpts[r], metric)
-        gap = (d2 - eps2.double()).abs().min().item()
-        assert gap < 1e-4, f"{what}: row {r} found flip is {gap:.2e} off ε²"
-        flip_gap = max(flip_gap, gap)
+        c = scored(r)
+        gap = (pair64(c, qpts[r], metric) - eps2.double()).abs()
+        tol = expansion_bound(qn[r], c.double().norm(dim=1), dim) if fp32_bound else 1e-4
+        assert (gap < tol).any(), f"{what}: row {r} found flip is {gap.min().item():.2e} off ε²"
+        flip_gap = max(flip_gap, gap.min().item())
     ok = torch.ones(kd.shape[0], dtype=torch.bool, device=kd.device)
     ok[flips] = False
     assert (torch.isfinite(kd) == torch.isfinite(rd))[ok].all(), f"{what}: inf pattern"
     fin = torch.isfinite(rd) & ok[:, None]
-    err = (kd - rd).abs()[fin].max().item() if fin.any() else 0.0
+    delta = (kd - rd).abs()
+    err = delta[fin].max().item() if fin.any() else 0.0
+    worst = 0.0
+    if fp32_bound and fin.any():
+        allow = expansion_bound(qn[:, None], cn[ri.clamp(min=0).long()], dim)
+        worst = (delta.double() / allow)[fin].max().item()
     bad = ((ki != ri) & ok[:, None]).nonzero()
+    tie_ok = True
     if len(bad):
         r, c = bad[:, 0], bad[:, 1]
         dk = pair64(pr[ki[r, c].long()], qpts[r], metric)
         dr = pair64(pr[ri[r, c].long()], qpts[r], metric)
-        tie_gap = (dk - dr).abs().max().item()
-        assert tie_gap < 1e-5, f"{what}: an id mismatch is not a distance tie ({tie_gap:.2e})"
-    log(f"[a] {what}: max|Δd|={err:.3e} id mismatches={len(bad)} (float64 "
+        gaps = (dk - dr).abs()
+        tie_gap = gaps.max().item()
+        tol = expansion_bound(qn[r], cn[ri[r, c].long()], dim) if fp32_bound else 1e-5
+        tie_ok = bool((gaps < tol).all())
+    note = f" (largest |Δd|/bound {worst:.3f})" if fp32_bound else ""
+    log(f"[a] {what}: max|Δd|={err:.3e}{note} id mismatches={len(bad)} (float64 "
         f"|Δd²| ≤ {tie_gap:.2e}) found mismatches={len(flips)} (float64 "
         f"|d² − ε²| ≤ {flip_gap:.2e})")
-    assert err <= 1e-4, f"{what}: distances disagree with the plain version"
+    assert tie_ok, f"{what}: an id mismatch is not a distance tie ({tie_gap:.2e})"
+    assert (worst <= 1.0) if fp32_bound else (err <= 1e-4), \
+        f"{what}: distances disagree with the plain version"
     return err, len(bad), len(flips)
-
-
 
 
 def hold_pairwise(what, got, want, qpts, cpts, chunks_k, chunks_r, eps2, block_q, block_c):
@@ -271,7 +301,7 @@ def hold_pairwise(what, got, want, qpts, cpts, chunks_k, chunks_r, eps2, block_q
     dim = qpts.shape[-1]
     qn = qpts.double().norm(dim=-1)
     cn = cpts.double().norm(dim=-1)
-    allow = 2.0 * (dim + 4) * FP32_U * (qn[:, :, None] + cn[:, None, :]) ** 2
+    allow = expansion_bound(qn[:, :, None], cn[:, None, :], dim)
     delta = (got.double() - want.double()).abs()
     err = delta.max().item()
     worst = (delta / allow).max().item()
@@ -375,7 +405,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pairwise_l2 import ref as pair_ref
     from repro_torch.retrieval import normalize_rows
     from repro_torch.runtime import KNNIndex
-    from repro_torch.runtime.knn_index import select_epsilon
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float64 oracle / yardsticks
     torch.backends.cudnn.allow_tf32 = False
@@ -531,6 +560,42 @@ def main(argv=None) -> int:
     assert launches_h.get("knn_stream_topk_prefetch[bf16]", 0) > 0, "bf16 kernel never launched"
     assert launches_h.get("knn_stream_topk_padded", 0) > 0, "K=25 bf16 never took the padded kernel"
 
+    # -- path 5: (i) FMA end to end at 518 dims ---------------------------------
+    # The paper's FMA workload at its published 107,000 × 518: ε selected on
+    # the card (the bin_hist kernel's wide path), the fused self-join
+    # (knn_stream's wide path, the brute lane's knn_topk) and the pallas
+    # self-join on the same grid (pairwise_sq_l2), each held against float64.
+    reset_counts()
+    fma = pointclouds.load("fma", n_override=FMA_POINTS)
+    fma_d = torch.as_tensor(fma, device=dev)
+    frows = torch.as_tensor(rng.choice(len(fma), ORACLE_ROWS, replace=False), device=dev)
+    frows_np = frows.cpu().numpy()
+    t0 = time.perf_counter()
+    with FirstCall(hist_ops, "distance_bin_histogram") as fma_hist_call:
+        fidx = KNNIndex.build(fma, cfg, device="cuda")
+    log(f"[i] FMA {fma.shape} build {time.perf_counter() - t0:.2f}s: eps={fidx.eps:.6g} "
+        f"t_select_eps={fidx.t_select_eps:.3f}s t_build={fidx.t_build:.3f}s "
+        f"backend={fidx.backend}")
+    with FirstCall(topk_ops, "knn_topk") as fma_brute_call:
+        res = fidx.query(exclude_self=True)
+    log(f"[i] FMA fused self-join: {stats_line(res, len(fma))} "
+        f"sources={np.bincount(res.source, minlength=3).tolist()}")
+    check_exact(fma_d, fma_d[frows], frows, res.dists[frows_np], res.ids[frows_np],
+                "FMA self-join")
+    t0 = time.perf_counter()
+    fidx_p = KNNIndex.build(fma, dataclasses.replace(cfg, backend="pallas"), fidx.eps,
+                            device="cuda")
+    res = fidx_p.query(exclude_self=True)
+    log(f"[i] FMA pallas build+self-join {time.perf_counter() - t0:.2f}s: "
+        f"{stats_line(res, len(fma))} sources={np.bincount(res.source, minlength=3).tolist()}")
+    check_exact(fma_d, fma_d[frows], frows, res.dists[frows_np], res.ids[frows_np],
+                "FMA pallas self-join")
+    del res
+    launches_i = read_counts("(i) FMA")
+    for name in ("distance_bin_histogram", "knn_stream_topk_prefetch", "knn_tile_topk",
+                 "pairwise_sq_l2"):
+        assert launches_i.get(name, 0) > 0, f"the FMA path never launched {name}"
+
     kernels = []
     bq, bc = cfg.query_block, cfg.block_c
     lanes = torch.arange(bc, device=dev)
@@ -545,7 +610,7 @@ def main(argv=None) -> int:
         ids = split_ids(idx, k)[0]
         return WorkQueue(ids, idx.home_counts, cfg.n_batches).next_batch()
 
-    def stream_check(what, ops_in, eps2, k, metric, pr_check, qpts_check):
+    def stream_check(what, ops_in, eps2, k, metric, pr_check, qpts_check, fp32_bound=False):
         """One knn_stream_topk_prefetch variant against its plain version."""
         q_in, corpus, blk, excl, cand = ops_in
         kw = dict(k=k, block_q=bq, block_c=bc, metric=metric)
@@ -559,7 +624,7 @@ def main(argv=None) -> int:
             return corpus[rr][cand[t] >= 0]
 
         err, _, _ = hold_topk(what, pr_check, qpts_check, kd, ki, rd, ri_, kf, rf, scored,
-                              eps2, metric)
+                              eps2, metric, fp32_bound)
         ms = cuda_ms(lambda: stream_kernel.knn_stream_topk_prefetch(*ops_in, eps2, **kw))
         plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_prefetch_ref(*ops_in, eps2, **kw),
                            reps=1, warmup=0)
@@ -643,8 +708,8 @@ def main(argv=None) -> int:
                                     rp_.found[sel], rf_.found[sel], scored, e ** 2)
             same = (rp_.ids[sel] == rf_.ids[sel]) & torch.isfinite(rf_.dists[sel])
             c = pr[rf_.ids[sel].clamp(min=0).long()].double()
-            allow = 2 * (dim + 4) * FP32_U * (qrows[sel].double().norm(dim=1)[:, None]
-                                              + c.norm(dim=-1)) ** 2
+            allow = expansion_bound(qrows[sel].double().norm(dim=1)[:, None],
+                                    c.norm(dim=-1), dim)
             gap = (rp_.dists[sel].double() - rf_.dists[sel].double()).abs()
             assert (gap <= allow)[same].all(), f"(f) {label}: distances beyond the fp32 bound"
         bad = (rf_.failed != rp_.failed) & ~frag & (rf_.found == rp_.found)
@@ -709,18 +774,13 @@ def main(argv=None) -> int:
                                 b, None))
     del ops_in, q2, c2, bf_pr, padded_call
 
-    # #3 knn_tile_topk, l2 on the brute baseline's own call (4096 queries)
-    # and ip on (g)'s own brute-lane call (all 65,536 R≠S queries): each
-    # against the whole corpus in one launch.  The plain version takes the
-    # corpus in chunks merged with merge_running_topk, as the CPU brute lane
-    # does; the library yardstick too, in chunks of 2^30 scores, since the
-    # full (Q, |D|) matrix would not fit.
-    cid3 = torch.arange(len(pts), dtype=torch.int32, device=dev)
-    (q3_ip, c3_ip, qid3_ip, cid3_ip), _ = ip_call.args
-    for metric, q3, qid3, c3, cids in (
-            ("l2", pr[brute_rows].contiguous(), brute_rows.to(torch.int32), pr, cid3),
-            ("ip", q3_ip, qid3_ip, c3_ip, cid3_ip)):
-        name = "knn_tile_topk[ip]" if metric == "ip" else "knn_tile_topk"
+    # #3 knn_tile_topk, l2 on the brute baseline's own call (4096 queries),
+    # ip on (g)'s own brute-lane call (all 65,536 R≠S queries) and l2 on (i)'s
+    # FMA brute-lane call: each against its whole corpus in one launch.  The
+    # plain version takes the corpus in chunks merged with merge_running_topk,
+    # as the CPU brute lane does; the library yardstick too, in chunks of 2^30
+    # scores, since the full (Q, |D|) matrix would not fit.
+    def topk_check(name, q3, c3, qid3, cids, metric, launch_n, fp32_bound=False):
         kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric)
 
         def chunked(topk_of_chunk, chunk):
@@ -739,58 +799,73 @@ def main(argv=None) -> int:
         (rd, ri_), plain_ms = timed(lambda: chunked(
             lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=K, metric=metric), 8192))
         err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(c3.shape)}",
-                              c3, q3, kd, ki, rd, ri_, metric=metric)
+                              c3, q3, kd, ki, rd, ri_, metric=metric, fp32_bound=fp32_bound)
+        del kd, ki, rd, ri_
         ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric), reps=3)
         lib_ms = cuda_ms(lambda: chunked(library_topk, (1 << 30) // q3.shape[0]), reps=1)
-        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + kd.numel() * 8
-        b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * dim + (3 if metric == "l2" else 1)))
+        d3 = q3.shape[1]
+        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + q3.shape[0] * K * 8
+        b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * d3 + (3 if metric == "l2" else 1)))
         log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
             f"bound {b[0]:.3f} ms ({b[1]})")
-        launch_n = (launches if metric == "l2" else launches_g).get(name, 0)
-        kernels.append(kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
-                                    launch_n, err, ms, plain_ms, b, lib_ms))
-    del q3_ip, c3_ip, qid3_ip, cid3_ip, ip_call, q3, c3
+        return kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
+                            launch_n, err, ms, plain_ms, b, lib_ms)
+
+    cid3 = torch.arange(len(pts), dtype=torch.int32, device=dev)
+    kernels.append(topk_check("knn_tile_topk", pr[brute_rows].contiguous(),
+                              pr, brute_rows.to(torch.int32), cid3, "l2",
+                              launches.get("knn_tile_topk", 0)))
+    (q3_ip, c3_ip, qid3_ip, cid3_ip), _ = ip_call.args
+    kernels.append(topk_check("knn_tile_topk[ip]", q3_ip, c3_ip, qid3_ip, cid3_ip, "ip",
+                              launches_g.get("knn_tile_topk[ip]", 0)))
+    del q3_ip, c3_ip, qid3_ip, cid3_ip, ip_call, cid3
 
     # #4 distance_bin_histogram: the ε selection's own sample and bin width.
+    def hist_check(name, q4, p4, qidx, bw, n_bins, launch_n):
+        d4 = q4.shape[1]
+        kc = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins, self_indices=qidx)
+        pid = torch.arange(p4.shape[0], dtype=torch.int32, device=dev)
+        rc, plain_ms = timed(lambda: hist_ref.distance_bin_histogram_ref(
+            q4, p4, qidx.to(torch.int32), pid, bw, n_bins=n_bins))
+        # Bin b differs between the versions only by pairs near its two edges.
+        near = bin_edge_pairs(q4, p4, bw, n_bins)
+        allowed = (near[:-1] + near[1:]).to(kc.dtype)
+        delta = (kc - rc).abs()
+        err = delta.max().item()
+        log(f"[a] {name}: {tuple(q4.shape)} × {tuple(p4.shape)} "
+            f"bin-count |Δ| max={err:.0f} sum={delta.sum().item():.0f}; pairs near an edge "
+            f"{int(near.sum())}, per-bin allowance min={allowed.min().item():.0f} "
+            f"max={allowed.max().item():.0f}, largest |Δ|/allowance="
+            f"{(delta / allowed.clamp(min=1)).max().item():.3f}; total kernel="
+            f"{kc.sum().item():.0f} plain={rc.sum().item():.0f}")
+        bad = (delta > allowed).nonzero()[:, 0].tolist()
+        assert not bad, f"{name}: bins {bad[:8]} differ beyond their edge pairs"
+        # Self pairs sit at d = 0: without the exclusion exactly S more in bin 0.
+        extra = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins) - kc
+        n_self = int((qidx >= 0).sum())
+        log(f"[a] {name} self exclusion: bin 0 +{extra[0].item():.0f} "
+            f"without it (S={n_self}), other bins +{extra[1:].abs().sum().item():.0f}")
+        assert extra[0].item() == n_self and not extra[1:].any(), \
+            f"{name}: the self pairs are not excluded from bin 0"
+        ms = cuda_ms(lambda: hist_ops.distance_bin_histogram(q4, p4, bw, n_bins,
+                                                             self_indices=qidx))
+        hi = float(bw) * n_bins
+        lib_ms = cuda_ms(lambda: torch.histc(torch.cdist(q4, p4), bins=n_bins, min=0.0, max=hi),
+                         reps=3)
+        nbytes = (q4.numel() + p4.numel()) * 4 + qidx.numel() * 4 + n_bins * 8
+        b = bound(nbytes, q4.shape[0] * p4.shape[0] * (2 * d4 + 5))
+        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        return kernel_entry(name, "src/repro_torch/csrc/bin_hist.cu",
+                            "src/repro/kernels/bin_hist/kernel.py:80", launch_n, err, ms,
+                            plain_ms, b, lib_ms)
+
     n_q = min(cfg.n_query_sample, len(pts))
     ia, ib, qidx = eps_lib.sample_indices(len(pts), cfg.seed, n_pair_sample=cfg.n_pair_sample,
                                           n_query_sample=n_q, device=dev)
     bw = eps_lib.mean_pair_distance(pr, ia, ib) / cfg.n_bins
-    q4 = pr[qidx].contiguous()
-    kc = hist_ops.distance_bin_histogram(q4, pr, bw, cfg.n_bins, self_indices=qidx)
-    pid = torch.arange(len(pts), dtype=torch.int32, device=dev)
-    rc, plain_ms = timed(lambda: hist_ref.distance_bin_histogram_ref(
-        q4, pr, qidx.to(torch.int32), pid, bw, n_bins=cfg.n_bins))
-    # Bin b differs between the versions only by pairs near its two edges.
-    near = bin_edge_pairs(q4, pr, bw, cfg.n_bins)
-    allowed = (near[:-1] + near[1:]).to(kc.dtype)
-    delta = (kc - rc).abs()
-    err = delta.max().item()
-    log(f"[a] distance_bin_histogram: {tuple(q4.shape)} × {tuple(pr.shape)} "
-        f"bin-count |Δ| max={err:.0f} sum={delta.sum().item():.0f}; pairs near an edge "
-        f"{int(near.sum())}, per-bin allowance min={allowed.min().item():.0f} "
-        f"max={allowed.max().item():.0f}, largest |Δ|/allowance="
-        f"{(delta / allowed.clamp(min=1)).max().item():.3f}; total kernel="
-        f"{kc.sum().item():.0f} plain={rc.sum().item():.0f}")
-    bad = (delta > allowed).nonzero()[:, 0].tolist()
-    assert not bad, f"distance_bin_histogram: bins {bad[:8]} differ beyond their edge pairs"
-    # Self pairs sit at d = 0: without the exclusion exactly S more in bin 0.
-    extra = hist_ops.distance_bin_histogram(q4, pr, bw, cfg.n_bins) - kc
-    n_self = int((qidx >= 0).sum())
-    log(f"[a] distance_bin_histogram self exclusion: bin 0 +{extra[0].item():.0f} "
-        f"without it (S={n_self}), other bins +{extra[1:].abs().sum().item():.0f}")
-    assert extra[0].item() == n_self and not extra[1:].any(), \
-        "distance_bin_histogram: the self pairs are not excluded from bin 0"
-    ms = cuda_ms(lambda: hist_ops.distance_bin_histogram(q4, pr, bw, cfg.n_bins,
-                                                         self_indices=qidx))
-    hi = float(bw) * cfg.n_bins
-    lib_ms = cuda_ms(lambda: torch.histc(torch.cdist(q4, pr), bins=cfg.n_bins, min=0.0, max=hi),
-                     reps=3)
-    nbytes = (q4.numel() + pr.numel()) * 4 + qidx.numel() * 4 + cfg.n_bins * 8
-    b = bound(nbytes, q4.shape[0] * pr.shape[0] * (2 * dim + 5))
-    kernels.append(kernel_entry("distance_bin_histogram", "src/repro_torch/csrc/bin_hist.cu",
-                                "src/repro/kernels/bin_hist/kernel.py:80",
-                                launches["distance_bin_histogram"], err, ms, plain_ms, b, lib_ms))
+    kernels.append(hist_check("distance_bin_histogram", pr[qidx].contiguous(), pr, qidx, bw,
+                              cfg.n_bins, launches["distance_bin_histogram"]))
 
     # #5 pairwise_sq_l2: one chunk of phase (e)'s tiles (the same grid, so the
     # same tiles), with the runtime-ε² SHORTC the tiled engine uses; then at
@@ -832,45 +907,64 @@ def main(argv=None) -> int:
                                 launches_p.get("pairwise_sq_l2", 0), err, ms, plain_ms, b, lib_ms))
     del qpts5, cpts5, tiles, index, pr
 
-    # FMA width: ε from the FMA cloud's own selection, computed with the plain
-    # versions on the host (the bin_hist kernel stages whole rows in shared
-    # memory and refuses 518 dims).
-    fma = pointclouds.load("fma", n_override=FMA_POINTS)
-    fma_q = pointclouds.load("fma", seed=1, n_override=FMA_POINTS)
-    t0 = time.perf_counter()
-    fma_r_host, _ = grid_lib.reorder_by_variance(torch.as_tensor(fma))
-    eps_f, _, _ = select_epsilon(fma_r_host, cfg, None, len(fma))
-    fidx = KNNIndex.build(fma, dataclasses.replace(cfg, backend="pallas"), eps_f, device="cuda")
-    log(f"[a] FMA {fma.shape}: ε={eps_f:.6g} selected on the host, index built in "
-        f"{time.perf_counter() - t0:.2f}s")
+    # -- (a) at FMA width, on (i)'s own inputs ----------------------------------
+    fpr = fidx.points_r
+    fdim = fpr.shape[1]
+    # knn_stream_topk_prefetch, wide path: the fused index's first dense batch.
     fb = first_dense_batch(fidx, K)
-    ftiles, _ = grid_lib.group_queries_by_cell(fidx.grid, _pad_ids(fb, bq, dev), bq)
-    chunk = dense_lib.tiles_per_chunk(fidx.grid, fma.shape[1], bq, cfg.dense_budget, bc)
+    fops, _, _, _ = dense_lib.fused_prefetch_operands(
+        fidx.grid, fpr, _pad_ids(fb, bq, dev), cfg.dense_budget, bq, bc)
+    eps2_f = torch.tensor(fidx.eps, dtype=torch.float32, device=dev) ** 2
+    err, ms, plain_ms, b = stream_check(
+        f"knn_stream_topk_prefetch FMA first dense batch, D={fdim}", fops, eps2_f, K, "l2",
+        fpr, fops[0], fp32_bound=True)
+    kernels.append(kernel_entry("knn_stream_topk_prefetch (FMA width)", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:220",
+                                launches_i.get("knn_stream_topk_prefetch", 0), err, ms,
+                                plain_ms, b, None))
+    del fops
+    # knn_tile_topk at 518 dims: (i)'s brute-lane call.
+    (q3f, c3f, qid3f, cid3f), _ = fma_brute_call.args
+    kernels.append(topk_check("knn_tile_topk (FMA width)", q3f, c3f, qid3f, cid3f, "l2",
+                              launches_i.get("knn_tile_topk", 0), fp32_bound=True))
+    del q3f, c3f, qid3f, cid3f, fma_brute_call
+    # distance_bin_histogram at 518 dims: (i)'s ε selection call.
+    (q4f, p4f, bwf, nbf), kw4f = fma_hist_call.args
+    kernels.append(hist_check("distance_bin_histogram (FMA width)", q4f, p4f,
+                              kw4f["self_indices"], bwf, nbf,
+                              launches_i["distance_bin_histogram"]))
+    del q4f, p4f, fma_hist_call
+
+    # pairwise_sq_l2 at 518 dims: one chunk of the pallas index's first dense
+    # batch (5 d-chunks).
+    fb = first_dense_batch(fidx_p, K)
+    ftiles, _ = grid_lib.group_queries_by_cell(fidx_p.grid, _pad_ids(fb, bq, dev), bq)
+    chunk = dense_lib.tiles_per_chunk(fidx_p.grid, fdim, bq, cfg.dense_budget, bc)
     log(f"[a] FMA first dense batch: {len(fb)} queries, {ftiles.shape[0]} tiles; "
         f"{chunk} tiles per launch at this width")
-    fq5, _, fc5, _, _ = dense_lib.tiled_candidates(fidx.grid, fidx.points_r, ftiles[:chunk],
+    fq5, _, fc5, _, _ = dense_lib.tiled_candidates(fidx_p.grid, fidx_p.points_r, ftiles[:chunk],
                                                   cfg.dense_budget, bc)
-    eps2_f = torch.tensor(eps_f, dtype=torch.float32, device=dev) ** 2
     err, skipped, ms, plain_ms, lib_ms, b = pairwise_check(
-        f"pairwise_sq_l2 FMA self-join tiles, D={fma.shape[1]}, ε²={eps2_f.item():.6g}",
+        f"pairwise_sq_l2 FMA self-join tiles, D={fdim}, ε²={eps2_f.item():.6g}",
         fq5, fc5, eps2_f)
-    # No path runs a 518-dim index on the card (ROADMAP queue C): 0 launches.
     kernels.append(kernel_entry("pairwise_sq_l2 (FMA width)", PAIRWISE_CU,
                                 "src/repro/kernels/pairwise_l2/kernel.py:151",
-                                0, err, ms, plain_ms, b, lib_ms))
+                                launches_i.get("pairwise_sq_l2", 0), err, ms, plain_ms, b,
+                                lib_ms))
     err, _, ms, plain_ms, lib_ms, b = pairwise_check(
-        f"pairwise_sq_l2[ip] FMA self-join tiles, D={fma.shape[1]}", fq5, fc5, None, "ip")
+        f"pairwise_sq_l2[ip] FMA self-join tiles, D={fdim}", fq5, fc5, None, "ip")
     kernels.append(kernel_entry("pairwise_sq_l2[ip]", PAIRWISE_CU,
                                 "src/repro/kernels/pairwise_l2/kernel.py:151",
                                 launches_p.get("pairwise_sq_l2[ip]", 0), err, ms, plain_ms, b,
                                 lib_ms))
     # R≠S tiles of an FMA cloud drawn with another seed: its queries lie far
     # from the indexed clusters, so whole tiles exceed ε² after a chunk.
-    qr = torch.as_tensor(fma_q, device=dev)[:, fidx.dim_perm].contiguous()
-    qcoords = grid_lib.compute_cell_coords(fidx.grid, qr[:, : fidx.grid.m])
+    fma_q = pointclouds.load("fma", seed=1, n_override=FMA_POINTS)
+    qr = torch.as_tensor(fma_q, device=dev)[:, fidx_p.dim_perm].contiguous()
+    qcoords = grid_lib.compute_cell_coords(fidx_p.grid, qr[:, : fidx_p.grid.m])
     qids = _pad_ids(np.arange(len(fma_q), dtype=np.int32), bq, dev)
-    rtiles, _ = grid_lib.group_queries_by_cell(fidx.grid, qids, bq, qcoords)
-    rq5, _, rc5, _, _ = dense_lib.tiled_candidates(fidx.grid, fidx.points_r, rtiles[:chunk],
+    rtiles, _ = grid_lib.group_queries_by_cell(fidx_p.grid, qids, bq, qcoords)
+    rq5, _, rc5, _, _ = dense_lib.tiled_candidates(fidx_p.grid, fidx_p.points_r, rtiles[:chunk],
                                                   cfg.dense_budget, bc, qr, qcoords)
     scale = 1.0
     while True:

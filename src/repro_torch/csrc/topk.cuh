@@ -1,4 +1,6 @@
-// Shared device code of the port's top-k kernels (knn_stream.cu, knn_topk.cu).
+// Shared device code of the port's top-k kernels: the register top-k, the
+// register query row and the row staging of knn_stream.cu's narrow kernel,
+// and the template dispatch of knn_stream.cu and knn_topk.cu.
 //
 // RunningTopK keeps one query's k smallest (distance, id) pairs in
 // registers, sorted ascending.  The buffer is KMAX long (a compile-time
@@ -14,8 +16,7 @@
 // shared memory at a stride of DP floats (zero-padded too) and read as
 // float4 broadcasts: one shared load per four FMAs, so the fp32 pipe, not
 // the load unit, sets the pace.  The padding adds exact zeros to every sum.
-// DP == 0 is the generic path for wide rows: the query tile stays in
-// shared memory, transposed, and rows are staged at stride dim.
+// Rows wider than 32 dims take knn_stream.cu's d-chunked kernel instead.
 //
 // Operands may be float or __nv_bfloat16 (the dense engine's bf16 distance
 // mode).  bf16 values are upcast exactly on load and every sum runs in
@@ -84,60 +85,35 @@ struct RunningTopK {
 
 template <int DP>
 struct Query {
-  float v[DP > 0 ? DP : 1];
-  const float* q_s;  // DP == 0: the transposed [dim][block_q] query tile
-  int t, block_q, dim;
+  static_assert(DP > 0 && DP % 4 == 0, "register-resident rows only");
+  float v[DP];
   float qq;
 
-  // `tile` is the block's (rows, dim) query rows; row t is this thread's.
-  // DP == 0 stages the tile in `smem` (dim * block_q floats) and syncs.
+  // `tile` is the block's (rows, dim) query rows; row threadIdx.x is this
+  // thread's (zero past rows_valid).
   template <typename T>
   __device__ __forceinline__ void load(const T* tile, long long rows_valid,
-                                       int dim_, int block_q_, float* smem) {
-    t = threadIdx.x;
-    dim = dim_;
-    block_q = block_q_;
+                                       int dim) {
+    const int t = threadIdx.x;
     qq = 0.f;
-    if constexpr (DP > 0) {
 #pragma unroll
-      for (int d = 0; d < DP; ++d) {
-        v[d] = (d < dim && t < rows_valid) ? to_f32(tile[(long long)t * dim + d]) : 0.f;
-        qq = fmaf(v[d], v[d], qq);
-      }
-    } else {
-      for (int e = t; e < block_q * dim; e += blockDim.x) {
-        const int r = e / dim;
-        smem[(e - r * dim) * block_q + r] = r < rows_valid ? to_f32(tile[e]) : 0.f;
-      }
-      __syncthreads();
-      q_s = smem;
-      for (int d = 0; d < dim; ++d) {
-        const float x = q_s[d * block_q + t];
-        qq = fmaf(x, x, qq);
-      }
+    for (int d = 0; d < DP; ++d) {
+      v[d] = (d < dim && t < rows_valid) ? to_f32(tile[(long long)t * dim + d]) : 0.f;
+      qq = fmaf(v[d], v[d], qq);
     }
   }
 
-  // Floats of shared memory the query needs (DP == 0 only).
-  static __host__ __device__ int smem_floats(int dim, int block_q) {
-    return DP > 0 ? 0 : dim * block_q;
-  }
-
-  // q.c for one staged row (`stride` floats, 16-byte aligned for DP > 0).
+  // q.c for one staged row (DP floats, 16-byte aligned).
   __device__ __forceinline__ float dot(const float* c) const {
     float s = 0.f;
-    if constexpr (DP > 0) {
-      const float4* c4 = reinterpret_cast<const float4*>(c);
+    const float4* c4 = reinterpret_cast<const float4*>(c);
 #pragma unroll
-      for (int j = 0; j < DP / 4; ++j) {
-        const float4 x = c4[j];
-        s = fmaf(v[4 * j], x.x, s);
-        s = fmaf(v[4 * j + 1], x.y, s);
-        s = fmaf(v[4 * j + 2], x.z, s);
-        s = fmaf(v[4 * j + 3], x.w, s);
-      }
-    } else {
-      for (int d = 0; d < dim; ++d) s = fmaf(q_s[d * block_q + t], c[d], s);
+    for (int j = 0; j < DP / 4; ++j) {
+      const float4 x = c4[j];
+      s = fmaf(v[4 * j], x.x, s);
+      s = fmaf(v[4 * j + 1], x.y, s);
+      s = fmaf(v[4 * j + 2], x.z, s);
+      s = fmaf(v[4 * j + 3], x.w, s);
     }
     return s;
   }
@@ -164,13 +140,12 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int n,
   __syncthreads();
 }
 
-// Smallest register-resident query width holding `dim`, or 0 (generic).
+// Smallest register-resident query width holding `dim`, or 0 (wider rows).
 static inline int query_pad(int dim) {
   return dim <= 8 ? 8 : dim <= 16 ? 16 : dim <= 24 ? 24 : dim <= 32 ? 32 : 0;
 }
 
-// Run `__VA_ARGS__` with constexpr KMAX (smallest of 8/16/32 holding k) and
-// DP (query_pad(dim)) in scope.
+// Run `__VA_ARGS__` with constexpr DP = dp (one of 8/16/24/32) in scope.
 #define DISPATCH_DP(dp, ...)                                      \
   do {                                                            \
     switch (dp) {                                                 \
@@ -178,21 +153,22 @@ static inline int query_pad(int dim) {
       case 16: { constexpr int DP = 16; __VA_ARGS__; } break;     \
       case 24: { constexpr int DP = 24; __VA_ARGS__; } break;     \
       case 32: { constexpr int DP = 32; __VA_ARGS__; } break;     \
-      default: { constexpr int DP = 0; __VA_ARGS__; } break;      \
     }                                                             \
   } while (0)
 
-#define DISPATCH_KMAX_DP(k, dim, ...)                                     \
+// Run `__VA_ARGS__` with constexpr KMAX (smallest of 8/16/32 holding k) in
+// scope.
+#define DISPATCH_KMAX(k, ...)                                             \
   do {                                                                    \
     if ((k) <= 8) {                                                       \
       constexpr int KMAX = 8;                                             \
-      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+      __VA_ARGS__;                                                        \
     } else if ((k) <= 16) {                                               \
       constexpr int KMAX = 16;                                            \
-      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+      __VA_ARGS__;                                                        \
     } else {                                                              \
       constexpr int KMAX = 32;                                            \
-      DISPATCH_DP(query_pad(dim), __VA_ARGS__);                           \
+      __VA_ARGS__;                                                        \
     }                                                                     \
   } while (0)
 

@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("knn_stream", "knn_topk", "bin_hist", "pairwise_l2")
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
+NARROW_DIM = 32               # widest row a narrow (whole-row) kernel stages
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -108,6 +109,13 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def d_chunks(dim: int, width: int) -> list:
+    """The d-chunk plan of the d-chunked kernels: ``(d0, n)`` for each
+    staged chunk of ``width`` dims, the last one ragged, covering
+    ``[0, dim)`` once and in order (the kernels loop ``d0`` the same way)."""
+    return [(d0, min(width, dim - d0)) for d0 in range(0, dim, width)]
 
 
 def require(cond: bool, what: str) -> None:

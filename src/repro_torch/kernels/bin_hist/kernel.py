@@ -1,5 +1,10 @@
 """Wrapper of the CUDA distance-bin histogram kernel (``csrc/bin_hist.cu``),
-the port of ``repro/kernels/bin_hist/kernel.py::distance_bin_histogram``."""
+the port of ``repro/kernels/bin_hist/kernel.py::distance_bin_histogram``.
+
+Rows of up to 32 dims are staged whole, ``block_p`` points per block;
+wider rows in ``WIDE_D``-dim chunks, ``WIDE_P`` points and ``WIDE_G``
+sampled queries at a time, so any width fits (``smem_bytes`` is the
+plan)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,10 +14,20 @@ import torch
 from repro_torch.kernels import _build
 
 _QTILE = 64                   # sampled queries per shared-memory tile (bin_hist.cu)
+WIDE_G = 32                   # sampled queries per group of the wide kernel (HG)
+WIDE_D = 32                   # dims per staged chunk of the wide kernel (HD)
+WIDE_P = 256                  # points (threads) per block of the wide kernel (TP)
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def smem_bytes(dim: int, n_bins: int, block_p: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``bin_hist.cu``)."""
+    if dim <= _build.NARROW_DIM:
+        return 4 * (dim * block_p + _QTILE * dim + 2 * _QTILE + n_bins)
+    return 4 * (WIDE_D * (WIDE_P + 4) + WIDE_D * (WIDE_G + 4) + WIDE_P + 2 * WIDE_G + n_bins)
 
 
 def distance_bin_histogram(queries, points, query_ids, bin_width, *,
@@ -36,9 +51,9 @@ def distance_bin_histogram(queries, points, query_ids, bin_width, *,
     n_p = points.shape[0]
     req(points.shape[1] == dim and query_ids.shape == (n_q,),
         "bin_hist: operand shapes disagree")
-    smem = 4 * (dim * block_p + _QTILE * dim + 2 * _QTILE + n_bins)
+    smem = smem_bytes(dim, n_bins, block_p)
     req(smem <= _build.SMEM_LIMIT,
-        f"bin_hist: dim={dim}, n_bins={n_bins} need {smem} B of shared memory")
+        f"bin_hist: n_bins={n_bins} needs {smem} B of shared memory")
     bw = torch.as_tensor(bin_width, dtype=torch.float32, device=dev).reshape(1)
     counts = torch.zeros((n_bins,), dtype=torch.int64, device=dev)
     fn = _build.function("bin_hist", "bin_hist_launch", _ARGTYPES)

@@ -8,9 +8,12 @@ tile (tile stride 0).
 
 Both take ``metric`` ("l2" squared L2, "ip" the unclamped −q·c) and
 queries and corpus in float32 or both in bfloat16 (upcast exactly in the
-kernel, fp32 arithmetic).  ``launches`` counts the launches per variant:
-``knn_stream_topk_prefetch``, ``knn_stream_topk_padded``, with ``[ip]``
-and ``[bf16]`` appended for those variants.
+kernel, fp32 arithmetic), at any width: rows of up to 32 dims sit whole in
+registers and shared memory, wider rows are staged in ``WIDE_D``-dim
+chunks, ``WIDE_G`` candidates at a time (``smem_bytes`` is the plan).
+``launches`` counts the launches per variant: ``knn_stream_topk_prefetch``,
+``knn_stream_topk_padded``, with ``[ip]`` and ``[bf16]`` appended for
+those variants.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_UNROLLED_K = 32
+WIDE_G = 32                   # candidates per group of the wide kernel (WG)
+WIDE_D = 32                   # dims per staged chunk of the wide kernel (WD)
 
 launches: collections.Counter = collections.Counter()
 
@@ -36,6 +41,18 @@ def variant(entry: str, metric: str = "l2", dtype=torch.float32) -> str:
     """Launch-counter key: the entry name with ``[ip]``/``[bf16]`` tags."""
     return (entry + ("[ip]" if metric == "ip" else "")
             + ("[bf16]" if dtype == torch.bfloat16 else ""))
+
+
+def smem_bytes(dim: int, block_q: int, block_c: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``knn_stream.cu``): a
+    narrow row (≤ 32 dims) stages the whole corpus block at its padded
+    width; a wide one a transposed query chunk, one candidate group's chunk
+    and norms, and the slot's ids."""
+    if dim <= _build.NARROW_DIM:
+        dp = next(p for p in (8, 16, 24, 32) if dim <= p)
+        return 4 * (block_c * dp + 2 * block_c)
+    ids = -(-block_c // WIDE_G) * WIDE_G
+    return 4 * (WIDE_D * (block_q + 1) + WIDE_G * WIDE_D + WIDE_G + ids)
 
 
 def _launch(queries, corpus, block_table, bt_stride, query_ids, cand_ids,
@@ -63,9 +80,10 @@ def _launch(queries, corpus, block_table, bt_stride, query_ids, cand_ids,
     req(corpus.shape[1] == dim and corpus.shape[0] % block_c == 0,
         f"corpus {tuple(corpus.shape)} must be (C, {dim}) with C % {block_c} == 0")
     req(queries.shape[0] == n_tiles * block_q, "queries must hold n_tiles·block_q rows")
-    smem = 4 * (block_c * max(dim, 32) + 2 * block_c + (dim * block_q if dim > 32 else 0))
+    smem = smem_bytes(dim, block_q, block_c)
     req(smem <= _build.SMEM_LIMIT,
-        f"knn_stream: dim={dim} needs {smem} B of shared memory (> {_build.SMEM_LIMIT})")
+        f"knn_stream: block_c={block_c} needs {smem} B of shared memory "
+        f"(> {_build.SMEM_LIMIT})")
     eps = torch.as_tensor(eps2, dtype=torch.float32, device=dev).reshape(1)
 
     rows = n_tiles * block_q

@@ -1,0 +1,188 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs a CUDA card and nvcc (the kernels are built on first
+use) and is marked ``cuda``; without a card the ``card`` fixture skips it.
+Run them on the card with
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Inputs come from numpy with a seed.  Tolerance: the kernels score squared
+L2 in the expansion form |q|² + |c|² − 2q·c, the plain versions in the
+difference form, so a score may differ by the expansion's fp32 bound
+(D + 4)·u·(|q| + |c|)² (u = 2⁻²⁴); two ids may differ only where their
+float64 scores lie within that bound of each other, and a found count only
+where a pair lies within it of ε².  On small-integer data every score is
+exact in both forms, and there ids must agree exactly: that checks the tie
+rule (equal scores, lowest candidate column first)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.bin_hist import kernel as hist_kernel
+from repro_torch.kernels.bin_hist import ref as hist_ref
+from repro_torch.kernels.knn_stream import kernel as stream_kernel
+from repro_torch.kernels.knn_stream import ref as stream_ref
+from repro_torch.kernels.knn_topk import ops as topk_ops
+from repro_torch.kernels.knn_topk import ref as topk_ref
+
+pytestmark = pytest.mark.cuda
+
+U = 2.0 ** -24
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _allow(q, c):
+    """Per-pair fp32 bound of the expansion form, (Q, C) in float64."""
+    dim = q.shape[1]
+    qn = q.double().norm(dim=1)[:, None]
+    cn = c.double().norm(dim=1)[None, :]
+    return 2.0 * (dim + 4) * U * (qn + cn) ** 2
+
+
+def _score64(q, c, metric):
+    q, c = q.double(), c.double()
+    if metric == "ip":
+        return -(q @ c.T)
+    return ((q[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+
+
+def _hold(kd, ki, rd, ri, q, cands_of_id, metric, exact=False):
+    """Kernel (kd, ki) against plain (rd, ri) for queries ``q``;
+    ``cands_of_id`` maps ids to candidate rows."""
+    assert torch.equal(torch.isfinite(kd), torch.isfinite(rd)), "inf pattern"
+    fin = torch.isfinite(rd)
+    if exact:
+        assert torch.equal(ki, ri), "ids differ on exact data"
+        assert torch.equal(kd[fin], rd[fin])
+        return
+    rows = torch.arange(q.shape[0], device=q.device)[:, None].expand_as(ki)
+    got = ki.clamp(min=0).long()
+    want = ri.clamp(min=0).long()
+    c_got = cands_of_id(got.reshape(-1)).reshape(*got.shape, -1)
+    c_want = cands_of_id(want.reshape(-1)).reshape(*want.shape, -1)
+    qq = q.double()[rows]
+    if metric == "ip":
+        s_got = -(qq * c_got.double()).sum(-1)
+        s_want = -(qq * c_want.double()).sum(-1)
+    else:
+        s_got = ((qq - c_got.double()) ** 2).sum(-1)
+        s_want = ((qq - c_want.double()) ** 2).sum(-1)
+    dim = q.shape[1]
+    allow = 2.0 * (dim + 4) * U * (q.double().norm(dim=1)[:, None]
+                                   + c_want.double().norm(dim=-1)) ** 2
+    assert ((kd.double() - rd.double()).abs() <= allow)[fin].all(), "scores"
+    assert ((s_got - s_want).abs() <= 2 * allow)[fin].all(), "an id mismatch is not a tie"
+
+
+def _topk_case(rng, n_q, n_c, dim, integer):
+    if integer:
+        q = rng.integers(-3, 4, size=(n_q, dim)).astype(np.float32)
+        c = rng.integers(-3, 4, size=(n_c, dim)).astype(np.float32)
+    else:
+        q = rng.normal(size=(n_q, dim)).astype(np.float32)
+        c = rng.normal(size=(n_c, dim)).astype(np.float32)
+    m = min(n_q, n_c) // 2
+    c[:m] = q[:m]                               # self pairs at d = 0
+    dup = min(40, n_c - 2 * m)
+    c[2 * m: 2 * m + dup] = c[:dup]             # exact duplicate candidates
+    cid = np.arange(n_c, dtype=np.int32)
+    cid[rng.random(n_c) < 0.05] = -1
+    cid[n_c // 2: n_c // 2 + 5] = -1
+    qid = np.arange(n_q, dtype=np.int32)
+    qid[-3:] = -1
+    return q, c, qid, cid
+
+
+@pytest.mark.parametrize("n_q,n_c,dim,k,metric,integer", [
+    (300, 5000, 18, 25, "l2", False),
+    (130, 7000, 518, 25, "l2", False),
+    (200, 3000, 1100, 8, "ip", False),
+    (5, 90_000, 18, 16, "l2", False),        # many splits, merged in order
+    (129, 2000, 40, 32, "l2", True),
+    (260, 4000, 7, 3, "ip", True),
+    (64, 30, 18, 25, "l2", False),           # fewer valid candidates than k
+])
+def test_knn_tile_topk_matches_plain(card, n_q, n_c, dim, k, metric, integer):
+    rng = np.random.default_rng(n_q + n_c + dim + k)
+    q, c, qid, cid = (torch.as_tensor(x, device=card)
+                      for x in _topk_case(rng, n_q, n_c, dim, integer))
+    kd, ki = topk_ops.knn_topk(q, c, qid, cid, k=k, metric=metric)
+    rd, ri = topk_ref.knn_topk_ref(q, c, qid, cid, k=k, metric=metric)
+    torch.cuda.synchronize()
+    _hold(kd, ki, rd, ri, q, lambda i: c[i], metric, exact=integer)
+    assert not ((ki == qid[:, None]) & (ki >= 0)).any(), "self pair returned"
+
+
+def _stream_case(rng, dim, n_tiles, nblk, n_cb, block_q=128, block_c=128, integer=False):
+    def draw(shape):
+        if integer:
+            return rng.integers(-2, 3, size=shape).astype(np.float32)
+        return (rng.normal(size=shape) * 0.3).astype(np.float32)
+    corpus = draw((n_cb * block_c, dim))
+    queries = draw((n_tiles * block_q, dim))
+    corpus[:block_q] = queries[:block_q]
+    blk = rng.integers(0, n_cb, size=(n_tiles, nblk)).astype(np.int32)
+    rows = blk[:, :, None] * block_c + np.arange(block_c)
+    cand = rows.reshape(n_tiles, -1).astype(np.int32)
+    cand[rng.random(cand.shape) < 0.3] = -1
+    cand[:, block_c: 2 * block_c] = -1          # one empty slot per tile
+    qid = np.arange(n_tiles * block_q, dtype=np.int32)
+    return queries, corpus, blk, qid, cand
+
+
+@pytest.mark.parametrize("dim,k,metric,dtype,integer", [
+    (18, 25, "l2", torch.float32, False),
+    (518, 25, "l2", torch.float32, False),
+    (518, 16, "ip", torch.float32, False),
+    (1100, 8, "l2", torch.bfloat16, False),
+    (70, 32, "l2", torch.float32, True),
+])
+def test_knn_stream_prefetch_matches_plain(card, dim, k, metric, dtype, integer):
+    rng = np.random.default_rng(dim + k)
+    queries, corpus, blk, qid, cand = (
+        torch.as_tensor(x, device=card)
+        for x in _stream_case(rng, dim, 3, 4, 6, integer=integer))
+    queries, corpus = queries.to(dtype), corpus.to(dtype)
+    # ε² at the median score, so that about half the pairs are in range.
+    e2 = _score64(queries[:64].float(), corpus[:512].float(), metric).median().float()
+    kw = dict(k=k, block_q=128, block_c=128, metric=metric)
+    kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(queries, corpus, blk, qid, cand, e2, **kw)
+    rd, ri, rf = stream_ref.knn_stream_topk_prefetch_ref(queries, corpus, blk, qid, cand, e2, **kw)
+    torch.cuda.synchronize()
+    q32, c32 = queries.float(), corpus.float()
+    flips = (kf != rf).nonzero()[:, 0]
+    for r in flips.tolist():
+        t = r // 128
+        rows = (blk[t].long()[:, None] * 128 + torch.arange(128, device=card)).reshape(-1)
+        cs = c32[rows][cand[t] >= 0]
+        gap = (_score64(q32[r:r + 1], cs, metric) - e2.double()).abs().min()
+        assert gap <= _allow(q32[r:r + 1], cs).max(), f"row {r}: found flip off ε²"
+    ok = torch.ones(kf.shape[0], dtype=torch.bool, device=card)
+    ok[flips] = False
+    _hold(kd[ok], ki[ok], rd[ok], ri[ok], q32[ok], lambda i: c32[i], metric,
+          exact=integer)
+    assert (kf > 0).any() and (kf[ok] == rf[ok]).all()
+
+
+@pytest.mark.parametrize("dim,n_q", [(18, 70), (518, 45), (1100, 33)])
+def test_bin_hist_matches_plain(card, dim, n_q):
+    rng = np.random.default_rng(dim)
+    pts = torch.as_tensor(rng.integers(-3, 4, size=(3000, dim)).astype(np.float32), device=card)
+    qidx = torch.as_tensor(rng.integers(0, 3000, size=n_q).astype(np.int32), device=card)
+    qidx[-2:] = -1
+    q = pts[qidx.clamp(min=0).long()].contiguous()
+    bw, n_bins = torch.tensor(4.0, device=card), 64
+    got = hist_kernel.distance_bin_histogram(q, pts, qidx, bw, n_bins=n_bins)
+    pid = torch.arange(3000, dtype=torch.int32, device=card)
+    want = hist_ref.distance_bin_histogram_ref(q, pts, qidx, pid, bw, n_bins=n_bins)
+    # Integer data: every squared distance is exact in both forms, and a
+    # distance on a bin edge is an exact square root in both.
+    assert torch.equal(got, want)
+    assert got.sum() > 0
