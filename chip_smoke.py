@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   (h)    bf16: a fused index with ``distance_dtype="bf16"`` at K = 16
          (the bf16 streaming kernel; exact after the fp32 rescore), then
          one R≠S call at K = 25 (k + 8 > 32: the gathered fp32 route, the
-         ``knn_stream_topk_padded`` kernel);
+         ``knn_stream_topk_padded`` kernel, launched once per chunk of
+         tiles: the count must be the route's ⌈tiles / tiles-per-chunk⌉);
   (i)    FMA end to end at its published 107,000 × 518
          (``pointclouds.load("fma", n_override=107_000)``): ε selected on
          the card (the ``bin_hist`` kernel at 518 dims), the fused self-join
@@ -50,8 +51,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          expansion form's fp32 bound, which grows with the width), kernel /
          plain / library times from CUDA events, and the bound from bytes
          and FLOPs.  The inputs of the ip brute call of (g), of the first
-         gathered-route call of (h) and of (i)'s ε selection and brute-lane
-         call are kept as those paths make them.  The pairwise kernel is
+         batched gathered-route launch of (h) and of (i)'s ε selection and
+         brute-lane call are kept as those paths make them.  The pairwise kernel is
          also held on R≠S tiles of a second FMA cloud, where SHORTC must
          skip tiles.
 
@@ -332,12 +333,14 @@ def pairwise_bound(qpts, cpts, chunks, block_q, block_c, block_d=128):
 
 class FirstCall:
     """Within ``with``, keep the arguments of the first call of
-    ``module.name`` that ``want(*args, **kwargs)`` accepts; every call goes
+    ``module.name`` that ``want(*args, **kwargs)`` accepts, and
+    ``note(*args, **kwargs)`` of every call in ``notes``; every call goes
     through unchanged, so the launch counters stay the callee's own."""
 
-    def __init__(self, module, name, want=lambda *a, **kw: True):
-        self.module, self.name, self.want = module, name, want
+    def __init__(self, module, name, want=lambda *a, **kw: True, note=None):
+        self.module, self.name, self.want, self.note = module, name, want, note
         self.args = None
+        self.notes = []
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
@@ -345,6 +348,8 @@ class FirstCall:
         def spy(*a, **kw):
             if self.args is None and self.want(*a, **kw):
                 self.args = (a, kw)
+            if self.note is not None:
+                self.notes.append(self.note(*a, **kw))
             return fn(*a, **kw)
 
         setattr(self.module, self.name, spy)
@@ -551,14 +556,29 @@ def main(argv=None) -> int:
         f"{stats_line(rb, FOREIGN_QUERIES)}")
     check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K_BF16}")
     bf_pr = bf_index.points_r
-    with FirstCall(stream_ops, "knn_stream_topk") as padded_call:
+
+    def plan(grid, pr_, qids, eps2, k, budget, qb, bc, *route):
+        """(tiles, launches at the route's chunk plan) of one gathered-route call."""
+        n_t = qids.shape[0] // qb
+        return n_t, -(-n_t // dense_lib.tiles_per_chunk(grid, pr_.shape[1], qb, budget, bc))
+
+    with FirstCall(stream_ops, "knn_stream_topk_tiles") as padded_call, \
+            FirstCall(dense_lib, "_gathered_join", note=plan) as gathered:
         rb = bf_index.query(foreign, k=K)
     log(f"[h] bf16 K={K} R≠S (gathered fp32 route): {stats_line(rb, FOREIGN_QUERIES)}")
     check_exact(pts_d, fq[sub], None, rb.dists[sub], rb.ids[sub], f"bf16 R≠S K={K}")
+    t_dense_h = rb.stats.t_dense
     del rb
     launches_h = read_counts("(h) bf16")
     assert launches_h.get("knn_stream_topk_prefetch[bf16]", 0) > 0, "bf16 kernel never launched"
-    assert launches_h.get("knn_stream_topk_padded", 0) > 0, "K=25 bf16 never took the padded kernel"
+    n_tiles_h = sum(n for n, _ in gathered.notes)
+    n_planned = sum(m for _, m in gathered.notes)
+    log(f"[h] K={K} gathered route: t_dense={t_dense_h:.3f}s, {len(gathered.notes)} dense "
+        f"calls, {n_tiles_h} tiles, knn_stream_topk_padded launches="
+        f"{launches_h.get('knn_stream_topk_padded', 0)} (⌈tiles / tiles-per-chunk⌉ = "
+        f"{n_planned})")
+    assert launches_h.get("knn_stream_topk_padded", 0) == n_planned > 0, \
+        "K=25 bf16 did not launch the padded kernel once per chunk of tiles"
 
     # -- path 5: (i) FMA end to end at 518 dims ---------------------------------
     # The paper's FMA workload at its published 107,000 × 518: ε selected on
@@ -649,6 +669,17 @@ def main(argv=None) -> int:
     err, ms, plain_ms, b = stream_check(
         "knn_stream_topk_prefetch[bf16]", ops_bf, eps_keep, K_BF16 + dense_lib.BF16_OVERFETCH,
         "l2", bf_index.points_r.to(torch.bfloat16), ops_bf[0])
+    # fp32 operands of the same batch, at the same ε² and k — as they are,
+    # and holding the bf16-rounded values — are the yardsticks of the bf16
+    # variant's time: the second differs from it only in the loads.
+
+    def fp32_ms(operands):
+        return cuda_ms(lambda: stream_kernel.knn_stream_topk_prefetch(
+            *operands, eps_keep, k=K_BF16 + dense_lib.BF16_OVERFETCH, block_q=bq, block_c=bc))
+    ms32 = fp32_ms(ops_in)
+    ms32_rounded = fp32_ms(tuple(x.float() for x in ops_bf[:2]) + ops_bf[2:])
+    log(f"[a] knn_stream_topk_prefetch[bf16] vs fp32 operands of the same batch, ε² and k: "
+        f"{ms:.3f} ms vs {ms32:.3f} ms (fp32 holding the bf16 values: {ms32_rounded:.3f} ms)")
     kernels.append(kernel_entry("knn_stream_topk_prefetch[bf16]", STREAM_CU,
                                 "src/repro/kernels/knn_stream/kernel.py:220",
                                 launches_h.get("knn_stream_topk_prefetch[bf16]", 0),
@@ -750,29 +781,37 @@ def main(argv=None) -> int:
     corpus, blk = ops_in[1], ops_in[2]
     nblk = blk.shape[1]
 
-    # #2 knn_stream_topk_padded: (h)'s first gathered-route call at K = 25,
-    # one query tile against its shared candidate union.
+    # #2 knn_stream_topk_padded: (h)'s first batched gathered-route launch at
+    # K = 25, a chunk of query tiles, each against its own candidate union.
     (q2, c2, qid2, cid2, e2), kw2 = padded_call.args
-    kd, ki, kf = stream_ops.knn_stream_topk(q2, c2, qid2, cid2, e2, **kw2)
-    rd, ri_, rf = stream_ref.knn_stream_topk_ref(q2, c2, qid2, cid2, e2, k=kw2["k"],
-                                                 metric=kw2["metric"])
-    n_valid = int((cid2 >= 0).sum())
-    err, _, _ = hold_topk(f"knn_stream_topk_padded {tuple(q2.shape)} x {tuple(c2.shape)} "
-                          f"({n_valid} valid candidates), k={kw2['k']}",
-                          bf_pr, q2, kd, ki, rd, ri_, kf, rf, lambda r: c2[cid2 >= 0], e2)
-    ms = cuda_ms(lambda: stream_ops.knn_stream_topk(q2, c2, qid2, cid2, e2, **kw2), reps=20)
-    plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_ref(
-        q2, c2, qid2, cid2, e2, k=kw2["k"], metric=kw2["metric"]), reps=1, warmup=0)
+    n_t2, tq2, _ = q2.shape
+    tc2 = c2.shape[1]
+    d2 = q2.shape[-1]
+    a2 = (q2.reshape(-1, d2), c2, qid2.reshape(-1).contiguous(), cid2, e2)
+    kw2 = dict(k=kw2["k"], block_q=tq2, block_c=kw2["block_c"], metric=kw2["metric"])
+    table2 = stream_kernel.identity_block_table(n_t2, tc2 // kw2["block_c"], dev)
+    kd, ki, kf = stream_kernel.knn_stream_topk_padded(*a2, **kw2)
+    rd, ri_, rf = stream_ref.knn_stream_topk_prefetch_ref(
+        a2[0], c2.reshape(-1, d2), table2, *a2[2:], **kw2)
+    valid2 = cid2 >= 0
+    n_valid = int(valid2.sum())
+    err, _, _ = hold_topk(f"knn_stream_topk_padded {n_t2} tiles × {tuple(q2.shape[1:])} x "
+                          f"{tuple(c2.shape[1:])} ({n_valid} valid candidates), k={kw2['k']}",
+                          bf_pr, a2[0], kd, ki, rd, ri_, kf, rf,
+                          lambda r: c2[r // tq2][valid2[r // tq2]], e2)
+    ms = cuda_ms(lambda: stream_kernel.knn_stream_topk_padded(*a2, **kw2), reps=20)
+    plain_ms = cuda_ms(lambda: stream_ref.knn_stream_topk_prefetch_ref(
+        a2[0], c2.reshape(-1, d2), table2, *a2[2:], **kw2), reps=1, warmup=0)
     nbytes = ((q2.numel() + c2.numel()) * 4 + (qid2.numel() + cid2.numel()) * 4
               + kd.numel() * 8 + kf.numel() * 4)
-    b = bound(nbytes, q2.shape[0] * n_valid * (2 * dim + 3))
-    log(f"[a] knn_stream_topk_padded: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b[0]:.5f} ms ({b[1]})")
+    b = bound(nbytes, tq2 * n_valid * (2 * d2 + 3))
+    log(f"[a] knn_stream_topk_padded: kernel {ms:.4f} ms for {n_t2} tiles "
+        f"({ms / n_t2:.5f} ms a tile), plain {plain_ms:.3f} ms, bound {b[0]:.5f} ms ({b[1]})")
     kernels.append(kernel_entry("knn_stream_topk_padded", STREAM_CU,
                                 "src/repro/kernels/knn_stream/kernel.py:275",
                                 launches_h.get("knn_stream_topk_padded", 0), err, ms, plain_ms,
                                 b, None))
-    del ops_in, q2, c2, bf_pr, padded_call
+    del a2, q2, c2, bf_pr, padded_call, table2
 
     # #3 knn_tile_topk, l2 on the brute baseline's own call (4096 queries),
     # ip on (g)'s own brute-lane call (all 65,536 R≠S queries) and l2 on (i)'s

@@ -25,8 +25,9 @@ Three backends share those semantics:
     ``knn_stream`` kernel reads those corpus blocks in place, filters at
     ε² and keeps a running top-K — no (block, budget) distance tile and no
     gathered candidate copy exists.  When k (+ the bf16 over-fetch)
-    exceeds ``MAX_UNROLLED_K`` the gathered per-tile route
-    (``_fused_tile_fn``) takes over, always at fp32.
+    exceeds ``MAX_UNROLLED_K`` the gathered route (``_gathered_join``:
+    each tile's gathered candidate union, one kernel launch per chunk of
+    tiles) takes over, always at fp32.
 
 ``metric`` is the kernel score space: ``"l2"`` squared L2 (which cosine
 indexes reuse over unit rows) or ``"ip"`` the negated inner product, where
@@ -333,39 +334,12 @@ def _fused_prefetch_join(index, points_r, qids, eps2, k, budget, query_block,
     return _unpermute(perm, (kd, ki, found, failed, own_total.reshape(-1)))
 
 
-def _fused_tile_fn(index, points_r, eps2, k, budget, block_c, queries_r=None,
-                   qcoords=None, exclude_self=True, metric="l2"):
-    """Gathered one-pass route for k (+ over-fetch) > MAX_UNROLLED_K: each
-    cell-sorted tile gathers its shared candidate union and streams it
-    through ``knn_stream`` ops at fp32 (which reroute k > MAX_UNROLLED_K to
-    the plain version)."""
-    queries = points_r if queries_r is None else queries_r
-    coords_all = index.point_coords if qcoords is None else qcoords
-    cand_budget = round_up(budget, block_c)
-
-    def fn(qids):
-        safe = torch.clamp(qids, 0, queries.shape[0] - 1).long()
-        starts, counts = grid_lib.neighbor_ranges(index, coords_all[safe])
-        counts = counts * (qids >= 0)[:, None]
-        pos, valid, _, tile_overflow = grid_lib.tile_shared_candidates(
-            index, starts, counts, cand_budget)
-        pos = pos.long()
-        cand_ids = torch.where(valid, index.order[pos], torch.full_like(pos, -1, dtype=torch.int32))
-        kd, ki, found = stream_ops.knn_stream_topk(
-            queries[safe], index.points_sorted[pos],
-            _exclusion_ids(qids, exclude_self), cand_ids, eps2,
-            k=k, block_q=qids.shape[0], block_c=block_c, metric=metric)
-        failed = (found < k) | tile_overflow
-        return kd, ki, found, failed, counts.sum(1, dtype=torch.int32)
-
-    return fn
-
-
 def tiles_per_chunk(index, n_dim: int, query_block: int, budget: int,
                     block_c: int) -> int:
-    """Tiles the tiled route processes per step: its range stacks,
-    gathered candidates and (TQ, TC) distance tile (with the sort's
-    values and indices) stay near ``_CHUNK_BYTES``."""
+    """Tiles the tiled and the gathered routes process per step: their
+    range stacks, gathered candidates and (TQ, TC) distance tile (with the
+    sort's values and indices; the gathered route's plain version builds
+    it too) stay near ``_CHUNK_BYTES``."""
     cand = round_up(budget, block_c)
     per_tile = (query_block * 3 ** index.m * (index.m * 4 + 96)
                 + cand * (n_dim * 8 + 32) + query_block * cand * 32)
@@ -395,6 +369,29 @@ def tiled_candidates(index, points_r, tiles, budget, block_c, queries_r=None,
     cand_ids = torch.where(valid, index.order[pos], torch.full_like(pos, -1, dtype=torch.int32))
     return (queries[safe], cand_ids, index.points_sorted[pos],
             counts.sum(-1, dtype=torch.int32), overflow)
+
+
+def _gathered_join(index, points_r, qids, eps2, k, budget, query_block, block_c,
+                   queries_r=None, qcoords=None, exclude_self=True, metric="l2"):
+    """Gathered one-pass route for k (+ over-fetch) > MAX_UNROLLED_K: per
+    chunk of cell-sorted tiles (``tiles_per_chunk``), each tile gathers its
+    shared candidate union (``tiled_candidates``) and one ``knn_stream``
+    launch streams every tile through its own union at fp32 (k >
+    MAX_UNROLLED_K goes to the plain version).  The JAX package maps the
+    same work over the tiles one at a time."""
+    tiles, perm = grid_lib.group_queries_by_cell(index, qids, query_block, qcoords)
+    chunk = tiles_per_chunk(index, points_r.shape[1], query_block, budget, block_c)
+    outs = []
+    for t0 in range(0, tiles.shape[0], chunk):
+        t = tiles[t0:t0 + chunk]
+        qpts, cand_ids, cand_pts, own_total, tile_ovf = tiled_candidates(
+            index, points_r, t, budget, block_c, queries_r, qcoords)
+        kd, ki, found = stream_ops.knn_stream_topk_tiles(
+            qpts, cand_pts, _exclusion_ids(t, exclude_self), cand_ids, eps2, k=k,
+            block_c=block_c, metric=metric)
+        failed = (found < k) | tile_ovf.repeat_interleave(query_block)
+        outs.append((kd, ki, found, failed, own_total.reshape(-1)))
+    return _unpermute(perm, (torch.cat(x) for x in zip(*outs)))
 
 
 def _tiled_join(index, points_r, qids, eps2, k, budget, query_block, block_c,
@@ -468,10 +465,8 @@ def dense_join(index: grid_lib.GridIndex, points_r: torch.Tensor,
             index, points_r, qids, eps2, k, budget, query_block, block_c,
             *route, distance_dtype)
     else:
-        fn = _fused_tile_fn(index, points_r, eps2, k, budget, block_c, *route)
-        tiles, perm = grid_lib.group_queries_by_cell(index, qids, query_block, qcoords)
-        outs = [fn(t) for t in tiles]
-        kd, ki, found, failed, total = _unpermute(perm, (torch.cat(x) for x in zip(*outs)))
+        kd, ki, found, failed, total = _gathered_join(
+            index, points_r, qids, eps2, k, budget, query_block, block_c, *route)
     pad_row = torch.arange(qpad, device=dev) >= n
     failed = failed | pad_row | (qids < 0)
     return DenseJoinResult(kd[:n], ki[:n], found[:n], failed[:n], total[:n])

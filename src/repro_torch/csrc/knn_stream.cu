@@ -5,330 +5,344 @@
 // (scalar-prefetch block table, pallas_call at :220) and
 // knn_stream_topk_padded (contiguous candidates, :275), both running
 // _stream_kernel (:73).  The padded kernel is the identity-block-table case
-// of this one: the wrapper passes a single shared table and id row with
-// tile stride 0.
+// of this one: the wrapper passes one table shared by every tile (tile
+// stride 0), or, for the gathered route's batched launch, a per-tile
+// identity table over the tiles' gathered candidates.
 //
-// What it computes, per query row of tile t: for every slot j of
-// block_table[t], the block_c corpus rows starting at block_table[t, j] *
-// block_c (the cell-sorted corpus, read in place) are scored with
-// d = max(|q|^2 + |c|^2 - 2 q.c, 0), or d = -q.c (unclamped: ip scores may
-// be negative) under the ip metric; rows with cand_id >= 0, cand_id !=
-// query_id and d <= eps2 are counted into `found` and merged into a running
-// top-k.  ids are -1 where the distance is inf.  Queries and corpus are
-// float, or both __nv_bfloat16 (distance_dtype="bf16", half the corpus
-// bytes): bf16 values are upcast on load and all arithmetic is fp32, as the
-// TPU's bf16 matmul with f32 accumulation.
+// What it computes, per query row of tile t: the tile's candidate stream is
+// position p = j * block_c + r (slot j of block_table[t], row r of the
+// block_c corpus rows starting at block_table[t, j] * block_c, the
+// cell-sorted corpus read in place).  Each position with cand_id >= 0 is
+// scored with d = max(|q|^2 + |c|^2 - 2 q.c, 0), or d = -q.c (unclamped:
+// ip scores may be negative) under the ip metric; pairs with cand_id !=
+// query_id and d <= eps2 are counted into `found` and merged into the k
+// best, ordered by (d, p): equal scores keep the first-seen position, the
+// Pallas merge's first-argmin rule.  ids are -1 where the distance is inf.
+// Queries and corpus are float, or both __nv_bfloat16
+// (distance_dtype="bf16", half the corpus bytes): bf16 values are upcast as
+// they are staged and all arithmetic is fp32, as the TPU's bf16 matmul with
+// f32 accumulation.
 //
-// What bounds it on an H100: operations, not bytes.  Each corpus block is
-// read once per tile (block_c * dim * 4 bytes) and then used block_q times,
-// so arithmetic intensity is ~block_q / 2 FMA per byte; the FMAs run on the
-// fp32 pipe (exact fp32 distances are the contract, so no TF32/bf16 tensor
-// cores), and the running top-k insertion costs ~3 * KMAX instructions per
-// accepted candidate.
+// What bounds it on an H100: operations, not bytes.  Each staged candidate
+// is used by 128 queries, so arithmetic intensity is ~64 FMA per byte
+// loaded; the FMAs run on the fp32 pipe (exact fp32 distances are the
+// contract, so no TF32 / bf16 tensor cores).
 //
 // What the design does about it: the TPU kernel carried its running top-k
-// across a sequential grid axis in VMEM scratch.  Here one thread block owns
-// one query tile and walks its block-table slots itself; each thread owns
-// one query and keeps its top-k in registers (RunningTopK, templated on KMAX
-// in {8, 16, 32} so no register array is indexed at runtime).  A slot whose
-// ids are all -1 (unused schedule slots, rows outside the tile's cell union)
-// is skipped before its corpus block is loaded, which subsumes the Pallas
-// per-slot merge skip.  Two kernels share that skeleton:
-//  - narrow rows (dim <= 32): the query row sits in registers (Query<DP>,
-//    zero-padded to DP dims) and each corpus block is staged once in shared
-//    memory and read by every thread as float4 broadcasts;
-//  - wide rows (any dim > 32): the query tile and the corpus rows are staged
-//    in d-chunks of WD dims (8 loads in flight per thread), a group of WG
-//    candidates at a time.  Each thread
-//    keeps the partial dots of its query with the group's WG candidates in
-//    registers across the chunks, then pushes the group in column order, so
-//    the tie rule is the narrow kernel's.  Shared memory is
-//    WD * (block_q + 1) + WG * (WD + 1) floats at any width.
+// across a sequential grid axis in VMEM scratch.  Here one block of 256
+// threads owns one 128-query tile and walks its candidate stream itself,
+// built like knn_topk.cu on the tile of score_tile.cuh:
+//  - Compaction.  The stream's positions with cand_id >= 0 are compacted, in
+//    order, into a shared-memory list (LCAP positions a window, a ballot per
+//    warp and a prefix over the warps), and the list is scored in tiles of
+//    128 candidates.  A slot whose ids are all -1 contributes nothing, so
+//    its corpus block is never loaded; rows outside the tile's cell union
+//    (about two thirds of the touched blocks' rows on the SuSy batches) cost
+//    no FMAs either.
+//  - The score tile: 128 x 128, 8 x 8 per thread, the d axis staged in
+//    8-dim chunks, transposed and double-buffered (any width), candidate
+//    rows gathered through the list and the block table.
+//  - The epsilon filter gates everything: a row of a thread's 8 scores whose
+//    minimum exceeds eps2 costs one compare.  Passing pairs (self excluded)
+//    are counted per row in each thread, reduced over the 16 threads that
+//    share the row by shuffles and added into a shared per-query count.  A
+//    passing score is queued only if it precedes the query's current k-th
+//    entry; the top-k lists and queues live in shared memory and one warp
+//    per row merges with a ballot rank (score_tile.cuh's merge_queues).
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
-#include "topk.cuh"
+#include <climits>
 
-template <int KMAX, int DP, bool IP, typename T>
-__global__ void knn_stream_kernel(
-    const T* __restrict__ queries, const T* __restrict__ corpus,
-    const int* __restrict__ block_table, long long bt_stride,
-    const int* __restrict__ query_ids, const int* __restrict__ cand_ids,
-    long long cid_stride, const float* __restrict__ eps2_ptr,
-    float* __restrict__ out_d, int* __restrict__ out_i,
-    int* __restrict__ out_found, int nblk, int dim, int k, int block_q,
-    int block_c) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int stride = DP;
-  float* c_s = smem;                                   // [block_c][stride]
-  float* cc_s = c_s + block_c * stride;                // [block_c]
-  int* id_s = reinterpret_cast<int*>(cc_s + block_c);  // [block_c]
+#include "score_tile.cuh"
 
-  const long long tile = blockIdx.x;
-  const long long row = tile * block_q + threadIdx.x;
-  Query<DP> q;
-  q.load(queries + tile * block_q * dim, block_q, dim);
-  const int qid = query_ids[row];
-  const float eps2 = *eps2_ptr;
-  const int* table = block_table + tile * bt_stride;
-  const int* ids = cand_ids + tile * cid_stride;
+namespace {
 
-  RunningTopK<KMAX> top;
-  top.init(k);
-  int found = 0;
+using namespace tile;
 
-  for (int j = 0; j < nblk; ++j) {
-    __syncthreads();  // the previous slot's readers are done with c_s/id_s
-    int any = 0;
-    for (int r = threadIdx.x; r < block_c; r += blockDim.x) {
-      const int cid = ids[(long long)j * block_c + r];
-      id_s[r] = cid;
-      any |= cid >= 0;
-    }
-    if (!__syncthreads_or(any)) continue;
-    stage_rows(corpus + (long long)table[j] * block_c * dim, block_c, block_c,
-               dim, stride, c_s, cc_s);
+constexpr int LCAP = 4096;    // stream positions compacted per window
+constexpr int WARPS = THREADS / 32;
 
-    for (int r = 0; r < block_c; ++r) {
-      const int cid = id_s[r];
-      if (cid < 0) continue;
-      const float dot = q.dot(c_s + r * stride);
-      const float dist = IP ? -dot : fmaxf(q.qq + cc_s[r] - 2.f * dot, 0.f);
-      if (cid != qid && dist <= eps2) {
-        ++found;
-        top.push(dist, cid);
-      }
-    }
-  }
-  top.store(out_d, out_i, row);
-  out_found[row] = found;
-}
-
-// Copy n elements into shared memory, element e read by load(e) and written
-// by store(e, v), with UNROLL loads in flight per thread: a plain strided
-// loop whose trip count the compiler cannot see waits out each load's
-// latency before it starts the next.
-template <int UNROLL, typename Load, typename Store>
-__device__ __forceinline__ void stage_copy(int n, Load load, Store store) {
-  for (int e0 = threadIdx.x; e0 < n; e0 += UNROLL * blockDim.x) {
-    float v[UNROLL];
+// Compact the positions p0..p1 of the stream whose ids are >= 0 into
+// list[0..n), in order; returns n (the same in every thread).
+__device__ __forceinline__ int compact(const int* __restrict__ ids, long long p0,
+                                       long long p1, int* list, int* wcnt) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int base = 0;
+  for (long long i0 = p0; i0 < p1; i0 += THREADS) {
+    const long long p = i0 + t;
+    const bool live = p < p1 && ids[p] >= 0;
+    const unsigned m = __ballot_sync(FULL, live);
+    if (lane == 0) wcnt[warp] = __popc(m);
+    __syncthreads();
+    int off = base, total = 0;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int e = e0 + u * blockDim.x;
-      v[u] = e < n ? load(e) : 0.f;
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = wcnt[w];
+      total += c;
+      if (w < warp) off += c;
     }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < n) store(e, v[u]);
-    }
+    if (live) list[off + __popc(m & ((1u << lane) - 1u))] = (int)p;
+    __syncthreads();
+    base += total;
   }
+  return base;
 }
-
-constexpr int WG = 32;  // candidates per group (partial dots in registers)
-constexpr int WD = 32;  // dims per staged chunk
-static_assert(WG <= WD, "a group's dots are parked in the query chunk's rows");
 
 template <int KMAX, bool IP, typename T>
-__global__ void knn_stream_wide_kernel(
-    const T* __restrict__ queries, const T* __restrict__ corpus,
-    const int* __restrict__ block_table, long long bt_stride,
-    const int* __restrict__ query_ids, const int* __restrict__ cand_ids,
-    long long cid_stride, const float* __restrict__ eps2_ptr,
-    float* __restrict__ out_d, int* __restrict__ out_i,
-    int* __restrict__ out_found, int nblk, int dim, int k, int block_q,
-    int block_c) {
+__global__ void __launch_bounds__(THREADS, 2)
+knn_stream_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
+                  const int* __restrict__ block_table, long long bt_stride,
+                  const int* __restrict__ query_ids, const int* __restrict__ cand_ids,
+                  long long cid_stride, const float* __restrict__ eps2_ptr,
+                  float* __restrict__ out_d, int* __restrict__ out_i,
+                  int* __restrict__ out_found, int nblk, int dim, int k,
+                  int block_c) {
   extern __shared__ __align__(16) float smem[];
-  const int ldq = block_q + 1;
-  float* q_s = smem;                          // [WD][ldq] transposed query chunk
-  float* c_s = q_s + WD * ldq;                // [WG][WD] corpus chunk
-  float* cc_s = c_s + WG * WD;                // [WG]
-  int* id_s = reinterpret_cast<int*>(cc_s + WG);  // [block_c rounded up to WG]
-  const int n_ids = (block_c + WG - 1) / WG * WG;
+  float* qs = smem;                         // [2][BK][LD] query chunks
+  float* cs = qs + 2 * CHUNK;               // [2][BK][LD] candidate chunks
+  float* top_d = cs + 2 * CHUNK;            // [TQ][KMAX] sorted scores
+  int* top_c = reinterpret_cast<int*>(top_d + TQ * KMAX);  // their positions
+  float* q_d = reinterpret_cast<float*>(top_c + TQ * KMAX);  // [TQ][QCAP]
+  int* q_c = reinterpret_cast<int*>(q_d + TQ * QCAP);        // [TQ][QCAP]
+  float* worst_d = reinterpret_cast<float*>(q_c + TQ * QCAP);  // [TQ]
+  int* worst_c = reinterpret_cast<int*>(worst_d + TQ);         // [TQ]
+  int* q_cnt = worst_c + TQ;                                   // [TQ]
+  int* qid_s = q_cnt + TQ;                                     // [TQ]
+  int* found_s = qid_s + TQ;                                   // [TQ]
+  float* qq_s = reinterpret_cast<float*>(found_s + TQ);        // [TQ]
+  float* cc_s = qq_s + TQ;                                     // [TC]
+  int* cid_s = reinterpret_cast<int*>(cc_s + TC);              // [TC]
+  int* cpos_s = cid_s + TC;                                    // [TC]
+  int* crow_s = cpos_s + TC;                // [2][TC] corpus rows of a tile
+  int* list = crow_s + 2 * TC;              // [LCAP] compacted positions
+  int* wcnt = list + LCAP;                  // [WARPS]
 
   const int t = threadIdx.x;
+  const int tx = t & 15;
+  const int ty = t >> 4;
   const long long tile = blockIdx.x;
-  const long long row = tile * block_q + t;
-  const T* q_tile = queries + tile * block_q * dim;
-
-  // Stage dims d0..d0+WD of the query tile, transposed (zero past dim).
-  auto stage_queries = [&](int d0, int nd) {
-    stage_copy<8>(
-        block_q * WD,
-        [&](int e) {
-          const int r = e / WD;
-          const int d = e - r * WD;
-          return d < nd ? to_f32(q_tile[(long long)r * dim + d0 + d]) : 0.f;
-        },
-        [&](int e, float v) { q_s[(e % WD) * ldq + e / WD] = v; });
-  };
-
-  float qq = 0.f;
-  if (!IP) {
-    for (int d0 = 0; d0 < dim; d0 += WD) {
-      const int nd = min(WD, dim - d0);
-      __syncthreads();
-      stage_queries(d0, nd);
-      __syncthreads();
-      for (int d = 0; d < nd; ++d) qq = fmaf(q_s[d * ldq + t], q_s[d * ldq + t], qq);
-    }
-  }
-  const int qid = query_ids[row];
-  const float eps2 = *eps2_ptr;
+  const T* q_tile = queries + tile * TQ * dim;
   const int* table = block_table + tile * bt_stride;
   const int* ids = cand_ids + tile * cid_stride;
+  const long long n_pos = (long long)nblk * block_c;
+  const float eps2 = *eps2_ptr;
 
-  RunningTopK<KMAX> top;
-  top.init(k);
-  int found = 0;
+  if (t < TQ) {
+    qid_s[t] = query_ids[tile * TQ + t];
+    worst_d[t] = CUDART_INF_F;
+    worst_c[t] = INT_MAX;
+    q_cnt[t] = 0;
+    found_s[t] = 0;
+  }
+  for (int e = t; e < TQ * KMAX; e += THREADS) {
+    top_d[e] = CUDART_INF_F;
+    top_c[e] = INT_MAX;
+  }
+  // Corpus row of compacted entry l of the window (-1 past its n entries).
+  auto row_of = [&](int l, int n) {
+    if (l >= n) return -1;
+    const int p = list[l];
+    const int j = p / block_c;
+    return table[j] * block_c + (p - j * block_c);
+  };
 
-  for (int j = 0; j < nblk; ++j) {
-    __syncthreads();  // the previous slot's readers are done with id_s
-    int any = 0;
-    for (int r = t; r < n_ids; r += blockDim.x) {
-      const int cid = r < block_c ? ids[(long long)j * block_c + r] : -1;
-      id_s[r] = cid;
-      any |= cid >= 0;
-    }
-    if (!__syncthreads_or(any)) continue;
-    const T* blk = corpus + (long long)table[j] * block_c * dim;
+  float reg_q[4], reg_c[4];
+  int buf = 0;
+  for (long long p0 = 0; p0 < n_pos; p0 += LCAP) {
+    const int n = compact(ids, p0, min(n_pos, p0 + LCAP), list, wcnt);
+    if (n == 0) continue;
+    if (t < TC) crow_s[t] = row_of(t, n);
+    __syncthreads();
+    load_chunk(q_tile, dim, 0, TQ, 0, dim, reg_q);
+    load_chunk_rows(corpus, dim, crow_s, 0, dim, reg_c);
+    store_chunk(qs + buf * CHUNK, reg_q);
+    store_chunk(cs + buf * CHUNK, reg_c);
 
-    for (int g0 = 0; g0 < block_c; g0 += WG) {
-      bool live = false;
+    for (int l0 = 0, par = 0; l0 < n; l0 += TC, par ^= 1) {
+      const bool more_t = l0 + TC < n;
+      if (t < TC) crow_s[(par ^ 1) * TC + t] = more_t ? row_of(l0 + TC + t, n) : -1;
+      __syncthreads();
+
+      float acc[8][8];
 #pragma unroll
-      for (int g = 0; g < WG; ++g) live |= id_s[g0 + g] >= 0;
-      if (!live) continue;  // the same answer in every thread
-      float dot[WG];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int g = 0; g < WG; ++g) dot[g] = 0.f;
-      float cc = 0.f;  // thread g < WG: |c|^2 of the group's row g
-      for (int d0 = 0; d0 < dim; d0 += WD) {
-        const int nd = min(WD, dim - d0);
-        __syncthreads();  // the previous chunk's readers are done
-        stage_queries(d0, nd);
-        stage_copy<8>(
-            WG * WD,
-            [&](int e) {
-              const int r = e / WD;
-              const int d = e - r * WD;
-              return (g0 + r < block_c && d < nd)
-                         ? to_f32(blk[(long long)(g0 + r) * dim + d0 + d]) : 0.f;
-            },
-            [&](int e, float v) { c_s[e] = v; });
-        __syncthreads();
-        if (!IP && t < WG) {
-          for (int d = 0; d < nd; ++d) cc = fmaf(c_s[t * WD + d], c_s[t * WD + d], cc);
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      float norm = 0.f;  // threads < 128: |c|^2 of column t; others |q|^2 of row t - 128
+      for (int d0 = 0; d0 < dim; d0 += BK) {
+        // Prefetch the next chunk (of this tile, or the first of the next).
+        const bool more_d = d0 + BK < dim;
+        const bool next = more_d || more_t;
+        if (next) {
+          const int nd0 = more_d ? d0 + BK : 0;
+          load_chunk(q_tile, dim, 0, TQ, nd0, dim, reg_q);
+          load_chunk_rows(corpus, dim, crow_s + (more_d ? par : par ^ 1) * TC, nd0, dim,
+                          reg_c);
         }
-        const float4* c4 = reinterpret_cast<const float4*>(c_s);
-        for (int d4 = 0; d4 < (nd + 3) / 4; ++d4) {
-          const float x0 = q_s[(4 * d4) * ldq + t];
-          const float x1 = q_s[(4 * d4 + 1) * ldq + t];
-          const float x2 = q_s[(4 * d4 + 2) * ldq + t];
-          const float x3 = q_s[(4 * d4 + 3) * ldq + t];
+        fma_chunk<!IP>(qs + buf * CHUNK, cs + buf * CHUNK, min(BK, dim - d0), acc, norm);
+        if (next) {
+          store_chunk(qs + (buf ^ 1) * CHUNK, reg_q);
+          store_chunk(cs + (buf ^ 1) * CHUNK, reg_c);
+        }
+        __syncthreads();
+        buf ^= 1;
+      }
+
+      // Scores of the tile; columns past the list's end score NaN, which no
+      // comparison lets through.
+      if (t < TC) {
+        const int p = l0 + t < n ? list[l0 + t] : -1;
+        cpos_s[t] = p;
+        cid_s[t] = p >= 0 ? ids[p] : -1;
+        cc_s[t] = norm;
+      } else {
+        qq_s[t - TC] = norm;
+      }
+      __syncthreads();
+      const int nv = n - l0;
+      float cmask[8];
 #pragma unroll
-          for (int g = 0; g < WG; ++g) {
-            const float4 c = c4[g * (WD / 4) + d4];
-            dot[g] = fmaf(x0, c.x, dot[g]);
-            dot[g] = fmaf(x1, c.y, dot[g]);
-            dot[g] = fmaf(x2, c.z, dot[g]);
-            dot[g] = fmaf(x3, c.w, dot[g]);
-          }
+      for (int j = 0; j < 8; ++j) cmask[j] = slot_of(tx, j) < nv ? 0.f : CUDART_NAN_F;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float qq = qq_s[slot_of(ty, i)];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float s = IP ? -acc[i][j]
+                             : fmaxf(qq + cc_s[slot_of(tx, j)] - 2.f * acc[i][j], 0.f);
+          acc[i][j] = s + cmask[j];
         }
       }
-      // Park the dots in this thread's own column of the query chunk (only
-      // thread t reads column t there) so that the push loop below needs no
-      // register indexing and is not unrolled WG times.
+
+      // The epsilon filter: bit 8i+j of `pass` marks a pair within eps2
+      // that is not the query itself.  One compare per row settles the
+      // common case of none (fminf skips the NaN columns).
+      unsigned long long pass = 0ull;
 #pragma unroll
-      for (int g = 0; g < WG; ++g) q_s[g * ldq + t] = dot[g];
-      if (!IP && t < WG) cc_s[t] = cc;
-      __syncthreads();
-#pragma unroll 1
-      for (int g = 0; g < WG; ++g) {
-        const int cid = id_s[g0 + g];
-        if (cid < 0) continue;
-        const float dt = q_s[g * ldq + t];
-        const float dist = IP ? -dt : fmaxf(qq + cc_s[g] - 2.f * dt, 0.f);
-        if (cid != qid && dist <= eps2) {
-          ++found;
-          top.push(dist, cid);
+      for (int i = 0; i < 8; ++i) {
+        float low = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) low = fminf(low, acc[i][j]);
+        if (!(low <= eps2)) continue;
+        const int qid = qid_s[slot_of(ty, i)];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (acc[i][j] <= eps2 && cid_s[slot_of(tx, j)] != qid)
+            pass |= 1ull << (8 * i + j);
         }
+      }
+      // found: each row's passes, summed over the 16 threads of the row.
+      if (__any_sync(FULL, pass != 0ull)) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          int c = __popc((unsigned)(pass >> (8 * i)) & 0xffu);
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1) c += __shfl_xor_sync(FULL, c, off);
+          if (tx == 0 && c) found_s[slot_of(ty, i)] += c;
+        }
+      }
+
+      // Queue the passes that precede the row's k-th entry and merge them;
+      // a full queue is drained and its rejected passes filtered again.
+      while (true) {
+        int tried = 0, overflow = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (!((pass >> (8 * i)) & 0xffull)) continue;
+          const int row = slot_of(ty, i);
+          const float wd = worst_d[row];
+          const int wc = worst_c[row];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const unsigned long long bit = 1ull << (8 * i + j);
+            if (!(pass & bit)) continue;
+            const int pos = cpos_s[slot_of(tx, j)];
+            if (!before(acc[i][j], pos, wd, wc)) {
+              pass &= ~bit;  // the k-th entry only improves: it stays out
+              continue;
+            }
+            tried = 1;
+            const int slot = atomicAdd(&q_cnt[row], 1);
+            if (slot < QCAP) {
+              q_d[row * QCAP + slot] = acc[i][j];
+              q_c[row * QCAP + slot] = pos;
+              pass &= ~bit;
+            } else {
+              overflow = 1;
+            }
+          }
+        }
+        if (!__syncthreads_or(tried)) break;
+        merge_queues<KMAX>(top_d, top_c, q_d, q_c, q_cnt, worst_d, worst_c, k,
+                           [](int, int) { return false; });
+        if (!__syncthreads_or(overflow)) break;
       }
     }
   }
-  top.store(out_d, out_i, row);
-  out_found[row] = found;
-}
 
-template <typename K>
-static cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  __syncthreads();
+  const long long row0 = tile * TQ;
+  for (int e = t; e < TQ * k; e += THREADS) {
+    const int r = e / k;
+    const int p = e - r * k;
+    const float d = top_d[r * KMAX + p];
+    out_d[(row0 + r) * k + p] = d;
+    out_i[(row0 + r) * k + p] = isinf(d) ? -1 : ids[top_c[r * KMAX + p]];
+  }
+  if (t < TQ) out_found[row0 + t] = found_s[t];
 }
 
 // Dynamic shared memory of one block (the wrapper's plan mirrors it).
-static size_t smem_bytes(int dim, int block_q, int block_c) {
-  const int dp = query_pad(dim);
-  if (dp > 0) return sizeof(float) * ((size_t)block_c * dp + 2 * block_c);
-  return sizeof(float) * ((size_t)WD * (block_q + 1) + WG * WD + WG +
-                          (size_t)(block_c + WG - 1) / WG * WG);
+template <int KMAX>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (4 * CHUNK + 2 * TQ * KMAX + 2 * TQ * QCAP + 6 * TQ + 5 * TC + LCAP + WARPS);
 }
 
-template <typename T>
-static cudaError_t dispatch(const void* queries, const void* corpus,
-                            const int* block_table, long long bt_stride,
-                            const int* query_ids, const int* cand_ids,
-                            long long cid_stride, const float* eps2,
-                            float* out_d, int* out_i, int* out_found,
-                            int n_tiles, int nblk, int dim, int k, int block_q,
-                            int block_c, int ip, cudaStream_t stream) {
-  const T* q = static_cast<const T*>(queries);
-  const T* c = static_cast<const T*>(corpus);
-  const size_t smem = smem_bytes(dim, block_q, block_c);
-  const int dp = query_pad(dim);
-  cudaError_t err = cudaErrorInvalidValue;
-  DISPATCH_IP(ip, DISPATCH_KMAX(k,
-      if (dp > 0) {
-        DISPATCH_DP(dp,
-            auto kern = knn_stream_kernel<KMAX, DP, IP, T>;
-            err = allow_smem(kern, smem);
-            if (err == cudaSuccess) {
-              kern<<<n_tiles, block_q, smem, stream>>>(
-                  q, c, block_table, bt_stride, query_ids, cand_ids,
-                  cid_stride, eps2, out_d, out_i, out_found, nblk, dim, k,
-                  block_q, block_c);
-              err = cudaGetLastError();
-            });
-      } else {
-        auto kern = knn_stream_wide_kernel<KMAX, IP, T>;
-        err = allow_smem(kern, smem);
-        if (err == cudaSuccess) {
-          kern<<<n_tiles, block_q, smem, stream>>>(
-              q, c, block_table, bt_stride, query_ids, cand_ids, cid_stride,
-              eps2, out_d, out_i, out_found, nblk, dim, k, block_q, block_c);
-          err = cudaGetLastError();
-        }
-      }));
-  return err;
+template <int KMAX, bool IP, typename T>
+cudaError_t launch(const void* queries, const void* corpus, const int* block_table,
+                   long long bt_stride, const int* query_ids, const int* cand_ids,
+                   long long cid_stride, const float* eps2, float* out_d, int* out_i,
+                   int* out_found, int n_tiles, int nblk, int dim, int k, int block_c,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<KMAX>();
+  auto kern = knn_stream_kernel<KMAX, IP, T>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<n_tiles, THREADS, smem, stream>>>(
+      static_cast<const T*>(queries), static_cast<const T*>(corpus), block_table,
+      bt_stride, query_ids, cand_ids, cid_stride, eps2, out_d, out_i, out_found, nblk,
+      dim, k, block_c);
+  return cudaGetLastError();
 }
+
+}  // namespace
 
 // `bf16` selects the operand type of queries and corpus (0: float,
-// 1: __nv_bfloat16); `ip` the metric (0: squared L2, 1: -q.c).
+// 1: __nv_bfloat16); `ip` the metric (0: squared L2, 1: -q.c).  One block
+// per 128-query tile.
 extern "C" int knn_stream_topk_launch(
     const void* queries, const void* corpus, const int* block_table,
     long long bt_stride, const int* query_ids, const int* cand_ids,
     long long cid_stride, const float* eps2, float* out_d, int* out_i,
-    int* out_found, int n_tiles, int nblk, int dim, int k, int block_q,
-    int block_c, int ip, int bf16, void* stream) {
+    int* out_found, int n_tiles, int nblk, int dim, int k, int block_c, int ip,
+    int bf16, void* stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(queries, corpus, block_table, bt_stride,
-                                     query_ids, cand_ids, cid_stride, eps2,
-                                     out_d, out_i, out_found, n_tiles, nblk,
-                                     dim, k, block_q, block_c, ip, s)
-           : dispatch<float>(queries, corpus, block_table, bt_stride,
-                             query_ids, cand_ids, cid_stride, eps2, out_d,
-                             out_i, out_found, n_tiles, nblk, dim, k, block_q,
-                             block_c, ip, s);
+  cudaError_t err;
+  DISPATCH_IP(ip, DISPATCH_KMAX(k,
+      if (bf16) {
+        err = (launch<KMAX, IP, __nv_bfloat16>(
+            queries, corpus, block_table, bt_stride, query_ids, cand_ids, cid_stride,
+            eps2, out_d, out_i, out_found, n_tiles, nblk, dim, k, block_c, s));
+      } else {
+        err = (launch<KMAX, IP, float>(
+            queries, corpus, block_table, bt_stride, query_ids, cand_ids, cid_stride,
+            eps2, out_d, out_i, out_found, n_tiles, nblk, dim, k, block_c, s));
+      }));
   return (int)err;
 }

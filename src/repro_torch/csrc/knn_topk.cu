@@ -22,11 +22,11 @@
 // contract, so the FMAs run on the CUDA cores (no TF32 / bf16 tensor cores).
 //
 // What the design does about it:
-//  - A register-tiled distance tile, as in pairwise_l2.cu: 256 threads
-//    compute a 128 x 128 score tile, 8 x 8 per thread.  The d axis is staged
-//    in chunks of BK dims, transposed, double-buffered in shared memory (any
-//    width fits); each thread reads its 8 query and 8 candidate values per
-//    dim as four float4 loads and does 64 FMAs with them.
+//  - The register-tiled score tile of score_tile.cuh: 256 threads compute a
+//    128 x 128 score tile, 8 x 8 per thread.  The d axis is staged in chunks
+//    of BK dims, transposed, double-buffered in shared memory (any width
+//    fits); each thread reads its 8 query and 8 candidate values per dim as
+//    four float4 loads and does 64 FMAs with them.
 //  - A threshold filter before any insertion: each query's current k-th
 //    best (score, column) sits in shared memory; a score is compared with it
 //    and only survivors are queued (per query, QCAP slots).  Over a large
@@ -36,60 +36,21 @@
 //  - The top-k lists live in shared memory, not in registers, so the
 //    accumulators alone set the register budget (two blocks per SM).  One
 //    warp merges a query's queued survivors into its list, one survivor per
-//    step: a ballot finds its rank, a shuffle shifts the tail.  Entries are
-//    ordered by (score, column), so survivors may arrive in any order and
-//    equal scores still keep the lowest column first.  A queue that
-//    overflows is drained and the rejected survivors are filtered again.
+//    step: a ballot finds its rank, a shuffle shifts the tail
+//    (score_tile.cuh's merge_queues).  Entries are ordered by (score,
+//    column), so survivors may arrive in any order and equal scores still
+//    keep the lowest column first.  A queue that overflows is drained and
+//    the rejected survivors are filtered again.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <climits>
 
-#include "topk.cuh"
+#include "score_tile.cuh"
 
 namespace {
 
-constexpr int TQ = 128;       // queries per block tile
-constexpr int TC = 128;       // candidates per block tile
-constexpr int BK = 8;         // dims per staged chunk
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 scores each
-constexpr int LD = TQ + 4;    // row stride (floats) of a transposed chunk
-constexpr int QCAP = 32;      // queued survivors per query per round
-constexpr int CHUNK = BK * LD;                // floats of one staged chunk
-constexpr unsigned FULL = 0xffffffffu;
-
-// Row (or column) of the tile held by register slot i of thread coordinate
-// t: two runs of four, 64 apart, so each is one float4 read.
-__device__ __forceinline__ int slot_of(int t, int i) {
-  return (i < 4 ? 0 : 64) + 4 * t + (i & 3);
-}
-
-// (a, ca) < (b, cb) in (score, column) order.
-__device__ __forceinline__ bool before(float a, int ca, float b, int cb) {
-  return a < b || (a == b && ca < cb);
-}
-
-// Load this thread's share of the chunk (dims d0..d0+BK) of a 128-row tile
-// starting at row r0 (rows >= r_end and dims >= dim read as 0).
-__device__ __forceinline__ void load_chunk(const float* __restrict__ src,
-                                           long long r0, long long r_end,
-                                           int d0, int dim, float (&reg)[4]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    const long long r = r0 + (e >> 3);
-    const int d = d0 + (e & 7);
-    reg[u] = (r < r_end && d < dim) ? src[r * dim + d] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_chunk(float* dst, const float (&reg)[4]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = threadIdx.x + u * THREADS;
-    dst[(e & 7) * LD + (e >> 3)] = reg[u];
-  }
-}
+using namespace tile;
 
 template <int KMAX, bool IP>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -117,8 +78,6 @@ knn_topk_kernel(const float* __restrict__ queries,
   const int t = threadIdx.x;
   const int tx = t & 15;
   const int ty = t >> 4;
-  const int lane = t & 31;
-  const int warp = t >> 5;
   const long long q0 = (long long)blockIdx.x * TQ;
   const long long c_begin = blockIdx.y * per_split;
   const long long c_end = min((long long)n_c, c_begin + per_split);
@@ -137,8 +96,8 @@ knn_topk_kernel(const float* __restrict__ queries,
 
   float reg_q[4], reg_c[4];
   if (c_begin < c_end) {
-    load_chunk(queries, q0, n_q, 0, dim, reg_q);
-    load_chunk(cands, c_begin, c_end, 0, dim, reg_c);
+    load_chunk(queries, dim, q0, n_q, 0, dim, reg_q);
+    load_chunk(cands, dim, c_begin, c_end, 0, dim, reg_c);
     store_chunk(qs, reg_q);
     store_chunk(cs, reg_c);
   }
@@ -159,31 +118,12 @@ knn_topk_kernel(const float* __restrict__ queries,
       const bool next = more_d || c0 + TC < c_end;
       if (next) {
         const int nd0 = more_d ? d0 + BK : 0;
-        load_chunk(queries, q0, n_q, nd0, dim, reg_q);
-        load_chunk(cands, more_d ? c0 : c0 + TC, c_end, nd0, dim, reg_c);
+        load_chunk(queries, dim, q0, n_q, nd0, dim, reg_q);
+        load_chunk(cands, dim, more_d ? c0 : c0 + TC, c_end, nd0, dim, reg_c);
       }
       const float* qb = qs + buf * CHUNK;
       const float* cb = cs + buf * CHUNK;
-      const int nd = min(BK, dim - d0);
-#pragma unroll
-      for (int dd = 0; dd < BK; ++dd) {
-        if (dd < nd) {
-          const float4 a0 = *reinterpret_cast<const float4*>(qb + dd * LD + 4 * ty);
-          const float4 a1 = *reinterpret_cast<const float4*>(qb + dd * LD + 64 + 4 * ty);
-          const float4 b0 = *reinterpret_cast<const float4*>(cb + dd * LD + 4 * tx);
-          const float4 b1 = *reinterpret_cast<const float4*>(cb + dd * LD + 64 + 4 * tx);
-          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          if (!IP) {
-            const float x = t < TC ? cb[dd * LD + t] : qb[dd * LD + t - TC];
-            norm = fmaf(x, x, norm);
-          }
-        }
-      }
+      fma_chunk<!IP, false>(qb, cb, min(BK, dim - d0), acc, norm);
       if (next) {
         store_chunk(qs + (buf ^ 1) * CHUNK, reg_q);
         store_chunk(cs + (buf ^ 1) * CHUNK, reg_c);
@@ -259,43 +199,10 @@ knn_topk_kernel(const float* __restrict__ queries,
       first = false;
       if (!__syncthreads_or(tried)) break;
 
-      // Merge each query's queue into its list: warp w takes rows w, w+8, ...
-      for (int row = warp; row < TQ; row += THREADS / 32) {
-        const int n = min(q_cnt[row], QCAP);
-        if (n == 0) continue;
-        const int qid = qid_s[row];
-        float d = lane < KMAX ? top_d[row * KMAX + lane] : CUDART_INF_F;
-        int c = lane < KMAX ? top_c[row * KMAX + lane] : INT_MAX;
-        float wd = __shfl_sync(FULL, d, k - 1);
-        int wc = __shfl_sync(FULL, c, k - 1);
-        for (int e = 0; e < n; ++e) {
-          const float s = q_d[row * QCAP + e];
-          const int g = q_c[row * QCAP + e];
-          // The self pair passes the filter (it is rare); it is dropped here.
-          if (!before(s, g, wd, wc) || cid_s[g - c0] == qid) continue;
-          const int pos = __popc(__ballot_sync(FULL, before(d, c, s, g)));
-          const float ud = __shfl_up_sync(FULL, d, 1);
-          const int uc = __shfl_up_sync(FULL, c, 1);
-          if (lane > pos) {
-            d = ud;
-            c = uc;
-          } else if (lane == pos) {
-            d = s;
-            c = g;
-          }
-          wd = __shfl_sync(FULL, d, k - 1);
-          wc = __shfl_sync(FULL, c, k - 1);
-        }
-        if (lane < KMAX) {
-          top_d[row * KMAX + lane] = d;
-          top_c[row * KMAX + lane] = c;
-        }
-        if (lane == 0) {
-          worst_d[row] = wd;
-          worst_c[row] = wc;
-          q_cnt[row] = 0;
-        }
-      }
+      // Merge each query's queue into its list.  The self pair passes the
+      // filter (it is rare); it is dropped here.
+      merge_queues<KMAX>(top_d, top_c, q_d, q_c, q_cnt, worst_d, worst_c, k,
+                         [&](int row, int g) { return cid_s[g - c0] == qid_s[row]; });
       if (!__syncthreads_or(overflow)) break;
     }
   }

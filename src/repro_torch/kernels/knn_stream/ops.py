@@ -1,10 +1,10 @@
 """Dispatch for the streaming distance + top-k engine: the plain version
 for a CPU tensor, the CUDA kernel for a CUDA tensor.
 
-Oversized k (> ``MAX_UNROLLED_K``) reroutes ``knn_stream_topk`` to the
-plain version on either device, as the JAX ops do: the kernel keeps k in
-registers up to that ceiling.  The reroute is counted
-(``oversized_k_reroutes``) and logged once per process.
+Oversized k (> ``MAX_UNROLLED_K``) reroutes ``knn_stream_topk`` and
+``knn_stream_topk_tiles`` to the plain version on either device, as the
+JAX ops do: the kernel's top-k lists hold k up to that ceiling.  The
+reroute is counted (``oversized_k_reroutes``) and logged once per process.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels.knn_stream import kernel as _kernel
 from repro_torch.kernels.knn_stream import ref as _ref
-from repro_torch.utils import round_up
+from repro_torch.utils import cdiv, round_up
 
 _log = logging.getLogger(__name__)
 
@@ -81,3 +81,32 @@ def knn_stream_topk_prefetch(queries, corpus, block_table, query_ids, cand_ids,
     return _kernel.knn_stream_topk_prefetch(
         queries, corpus, block_table, query_ids, cand_ids, eps2,
         k=k, block_q=block_q, block_c=block_c, metric=metric)
+
+
+def knn_stream_topk_tiles(queries, candidates, query_ids, cand_ids, eps2, *, k: int,
+                          block_c: int = 128, metric: str = "l2"):
+    """Per-tile streaming top-k over a chunk of gathered tiles (the dense
+    engine's gathered route): tile t's queries (T, TQ, D) against its own
+    candidates (T, TC, D), TC % block_c == 0; query_ids (T, TQ) exclusion
+    ids, cand_ids (T, TC) (−1 = padding).  On the card one launch scores
+    every tile (``knn_stream_topk_padded``, a per-tile identity table); the
+    plain version, with the same table, serves a CPU tensor or k >
+    ``MAX_UNROLLED_K``.
+
+    Returns (dists (T·TQ, k) ascending inf-padded, ids (T·TQ, k)
+    −1-padded, found (T·TQ,) i32)."""
+    n_tiles, tq, dim = queries.shape
+    q = queries.reshape(n_tiles * tq, dim)
+    qid = query_ids.to(torch.int32).reshape(-1).contiguous()
+    cid = cand_ids.to(torch.int32).contiguous()
+    if not queries.is_cuda or k > _kernel.MAX_UNROLLED_K:
+        if queries.is_cuda:
+            _reroute_oversized_k(k)
+        table = _kernel.identity_block_table(n_tiles, cdiv(candidates.shape[1], block_c),
+                                             queries.device)
+        return _ref.knn_stream_topk_prefetch_ref(
+            q, candidates.reshape(-1, dim), table, qid, cid, eps2, k=k, block_q=tq,
+            block_c=block_c, metric=metric)
+    return _kernel.knn_stream_topk_padded(
+        q.float().contiguous(), candidates.float().contiguous(), qid, cid, eps2,
+        k=k, block_q=tq, block_c=block_c, metric=metric)

@@ -3,11 +3,14 @@ the port of ``repro/kernels/pairwise_l2/kernel.py::pairwise_sq_l2`` and
 ``::pairwise_sq_l2_dyn_shortc``.
 
 One launch scores a whole batch of (query tile, candidate block) pairs:
-the cell-tiled dense engine passes a chunk of tiles at once.  ε² is always
-a device operand (a float is written to a one-element tensor on the card,
-a tensor is used where it lies), so the static and the runtime SHORTC forms
-are one kernel and nothing waits on the host.  ``launches`` counts the
-launches per variant (``pairwise_sq_l2``, ``pairwise_sq_l2[ip]``)."""
+the cell-tiled dense engine passes a chunk of tiles at once.  Each thread
+block owns one ``TILE`` × ``TILE`` output tile (the register-tiled score
+tile of ``csrc/score_tile.cuh``), so ``block_q`` and ``block_c`` — the
+SHORTC tile — must be ``TILE``.  ε² is always a device operand (a float is
+written to a one-element tensor on the card, a tensor is used where it
+lies), so the static and the runtime SHORTC forms are one kernel and
+nothing waits on the host.  ``launches`` counts the launches per variant
+(``pairwise_sq_l2``, ``pairwise_sq_l2[ip]``)."""
 from __future__ import annotations
 
 import collections
@@ -17,12 +20,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE_ROWS = 8                 # query rows and candidate columns per thread
-MAX_THREADS = 256
+TILE = 128                    # output tile rows and columns (score_tile.cuh TQ, TC)
 
 launches: collections.Counter = collections.Counter()
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def variant(metric: str) -> str:
@@ -53,11 +55,9 @@ def pairwise_sq_l2(queries, candidates, shortc_eps2=None, *, block_q: int = 128,
     req(candidates.shape[0] == batch and candidates.shape[2] == dim,
         f"pairwise_l2: candidates {tuple(candidates.shape)} do not match "
         f"queries {tuple(queries.shape)}")
-    threads = (block_q // TILE_ROWS) * (block_c // TILE_ROWS)
-    req(block_q % TILE_ROWS == 0 and block_c % TILE_ROWS == 0
-        and threads % 32 == 0 and 32 <= threads <= MAX_THREADS,
-        f"pairwise_l2: block_q={block_q}, block_c={block_c} must be multiples of "
-        f"{TILE_ROWS} giving 32..{MAX_THREADS} threads (a multiple of 32)")
+    req(block_q == TILE and block_c == TILE,
+        f"pairwise_l2: block_q={block_q}, block_c={block_c} must both be {TILE} "
+        f"(the kernel's output tile)")
     req(block_d >= 1, f"block_d must be >= 1, got {block_d}")
     req(n_q % block_q == 0 and n_c % block_c == 0,
         f"pairwise_l2: rows ({n_q}, {n_c}) must be multiples of ({block_q}, {block_c})")
@@ -79,7 +79,7 @@ def pairwise_sq_l2(queries, candidates, shortc_eps2=None, *, block_q: int = 128,
     p = _build.ptr
     err = fn(p(queries), p(candidates), p(eps), p(out),
              ctypes.c_void_p(chunks_out.data_ptr() if chunks_out is not None else None),
-             batch, n_q, n_c, dim, block_q, block_c, block_d, int(shortc),
+             batch, n_q, n_c, dim, block_d, int(shortc),
              int(metric == "ip"), _build.stream())
     _build.check(err, "pairwise_l2_launch")
     launches[variant(metric)] += 1

@@ -186,3 +186,143 @@ def test_bin_hist_matches_plain(card, dim, n_q):
     # distance on a bin edge is an exact square root in both.
     assert torch.equal(got, want)
     assert got.sum() > 0
+
+
+def _ties_rows(rng, shape, lo=-2, hi=3):
+    return rng.integers(lo, hi, size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("nblk,block_c,integer", [
+    (40, 128, True),       # 5,120 stream positions: two compaction windows
+    (9, 64, False),
+    (3, 200, True),        # blocks that straddle the kernel's 128-candidate tiles
+])
+def test_knn_stream_windows_and_block_sizes(card, nblk, block_c, integer):
+    """The block-table kernel at other block sizes and over more than one
+    compaction window, against its plain version."""
+    rng = np.random.default_rng(nblk * block_c)
+    queries, corpus, blk, qid, cand = (
+        torch.as_tensor(x, device=card)
+        for x in _stream_case(rng, 24, 2, nblk, nblk + 3, block_c=block_c, integer=integer))
+    e2 = _score64(queries[:64], corpus[:512], "l2").median().float()
+    kw = dict(k=20, block_q=128, block_c=block_c, metric="l2")
+    kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(queries, corpus, blk, qid, cand, e2, **kw)
+    rd, ri, rf = stream_ref.knn_stream_topk_prefetch_ref(queries, corpus, blk, qid, cand, e2, **kw)
+    torch.cuda.synchronize()
+    if integer:
+        assert torch.equal(kf, rf)
+    ok = kf == rf
+    assert ok.float().mean() > 0.95 and (kf > 0).any()
+    _hold(kd[ok], ki[ok], rd[ok], ri[ok], queries[ok], lambda i: corpus[i], "l2",
+          exact=integer)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_knn_stream_ties_keep_stream_order(card, metric):
+    """Duplicate candidate rows in two slots of a tile, under other ids and
+    a table not sorted by id: equal scores keep the first position of the
+    tile's stream (slot j · block_c + row), as the plain version's stable
+    sort does, whatever the ids."""
+    rng = np.random.default_rng(5)
+    dim, bc = 9, 128
+    corpus = _ties_rows(rng, (4 * bc, dim))
+    corpus[3 * bc:] = corpus[:bc]                 # block 3 repeats block 0
+    queries = _ties_rows(rng, (2 * 128, dim))
+    blk = np.array([[3, 1, 0], [0, 2, 3]], np.int32)
+    cand = (blk[:, :, None] * bc + np.arange(bc)).reshape(2, -1).astype(np.int32)
+    cand[:, ::11] = -1
+    qid = np.full(256, -2, np.int32)
+    queries, corpus, blk, qid, cand = (torch.as_tensor(x, device=card)
+                                       for x in (queries, corpus, blk, qid, cand))
+    e2 = torch.tensor(1e9, device=card)
+    kw = dict(k=32, block_q=128, block_c=bc, metric=metric)
+    kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(queries, corpus, blk, qid, cand, e2, **kw)
+    rd, ri, rf = stream_ref.knn_stream_topk_prefetch_ref(queries, corpus, blk, qid, cand, e2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kf, rf) and torch.equal(kd, rd) and torch.equal(ki, ri)
+    # the tile reading block 3 first reports its ids where block 0 ties
+    assert (ki[:128] >= 3 * bc).any()
+
+
+@pytest.mark.parametrize("tc,block_c,k", [(2048, 128, 25), (384, 64, 8)])
+def test_gathered_batched_launch_matches_per_tile_plain(card, tc, block_c, k):
+    """The gathered route's batched launch — several tiles, each against
+    its own candidates, one of them all −1 — against the plain version
+    run on each tile alone; integer data, so ids agree exactly."""
+    rng = np.random.default_rng(tc + k)
+    n_tiles, dim = 5, 18
+    q = torch.as_tensor(_ties_rows(rng, (n_tiles * 128, dim)), device=card)
+    c = torch.as_tensor(_ties_rows(rng, (n_tiles, tc, dim)), device=card)
+    c[:, :128] = q.reshape(n_tiles, 128, dim)     # self pairs at d = 0
+    cid = torch.as_tensor(rng.integers(0, 10_000, size=(n_tiles, tc)).astype(np.int32),
+                          device=card)
+    cid[:, :128] = torch.arange(128, dtype=torch.int32, device=card)
+    cid[1] = -1
+    cid[3, ::5] = -1
+    qid = torch.arange(128, dtype=torch.int32, device=card).repeat(n_tiles)
+    e2 = torch.tensor(40.0, device=card)
+    kd, ki, kf = stream_kernel.knn_stream_topk_padded(q, c, qid, cid, e2, k=k,
+                                                      block_c=block_c)
+    torch.cuda.synchronize()
+    assert stream_kernel.launches["knn_stream_topk_padded"] >= 1
+    for t in range(n_tiles):
+        rows = slice(t * 128, (t + 1) * 128)
+        rd, ri, rf = stream_ref.knn_stream_topk_ref(q[rows], c[t], qid[rows], cid[t], e2, k=k)
+        assert torch.equal(kf[rows], rf), t
+        assert torch.equal(kd[rows], rd) and torch.equal(ki[rows], ri), t
+    assert (kf[128:256] == 0).all() and (kf > 0).any()
+
+
+def _pairwise_case(rng, batch, n_q, n_c, dim, far_tile):
+    q = _ties_rows(rng, (batch, n_q, dim), -3, 4)
+    c = _ties_rows(rng, (batch, n_c, dim), -3, 4)
+    if far_tile:
+        c[:, :128] += 10.0        # a far candidate block: SHORTC skips its tiles
+    return q, c
+
+
+@pytest.mark.parametrize("n_q,n_c,dim,block_d,metric,shortc", [
+    (130, 300, 1, 128, "l2", False),
+    (200, 129, 3, 128, "l2", True),
+    (128, 2048, 18, 128, "l2", True),
+    (257, 500, 33, 8, "l2", True),
+    (257, 500, 33, 10, "ip", False),
+    (140, 260, 518, 128, "l2", True),
+    (140, 260, 518, 128, "l2", False),
+    (100, 200, 518, 128, "ip", False),
+])
+def test_pairwise_sq_l2_matches_plain(card, n_q, n_c, dim, block_d, metric, shortc):
+    """The pairwise kernel against its plain version on integer data, where
+    the expansion form is exact in both: ragged rows through the padding
+    entry point, and batched tiles with their SHORTC chunk counts (equal)."""
+    from repro_torch.kernels.pairwise_l2 import kernel as pair_kernel
+    from repro_torch.kernels.pairwise_l2 import ops as pair_ops
+    from repro_torch.kernels.pairwise_l2 import ref as pair_ref
+    rng = np.random.default_rng(n_q + n_c + dim)
+    q, c = _pairwise_case(rng, 2, n_q, n_c, dim, shortc)
+    n_chunks = -(-dim // block_d)
+    # ε² between the near and the far blocks' first-chunk sums
+    e2 = float(np.median(((q[0, :, None, :block_d] - c[0, None, 128:, :block_d]) ** 2)
+                         .sum(-1))) * n_chunks if shortc else None
+    kw = dict(block_d=block_d, metric=metric, shortc_eps2=e2)
+    got = pair_ops.pairwise_sq_l2(torch.as_tensor(q[0], device=card),
+                                  torch.as_tensor(c[0], device=card), **kw)
+    want = pair_ops.pairwise_sq_l2(torch.as_tensor(q[0]), torch.as_tensor(c[0]), **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (n_q, n_c) and torch.equal(got.cpu(), want)
+
+    qp = np.zeros((2, -(-n_q // 128) * 128, dim), np.float32)
+    cp = np.zeros((2, -(-n_c // 128) * 128, dim), np.float32)
+    qp[:, :n_q], cp[:, :n_c] = q, c
+    qt, ct = torch.as_tensor(qp, device=card), torch.as_tensor(cp, device=card)
+    shape = (2, qp.shape[1] // 128, cp.shape[1] // 128)
+    ck = torch.zeros(shape, dtype=torch.int32, device=card)
+    cr = torch.zeros_like(ck)
+    got = pair_kernel.pairwise_sq_l2(qt, ct, e2, block_d=block_d, metric=metric,
+                                     chunks_out=ck)
+    want = pair_ref.pairwise_sq_l2_matmul_ref(qt, ct, shortc_eps2=e2, block_d=block_d,
+                                              metric=metric, chunks_out=cr)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cr) and torch.equal(got, want)
+    if shortc and n_chunks > 1:
+        assert (ck < n_chunks).any(), "SHORTC skipped no tile"

@@ -188,7 +188,7 @@ def _covers_once(chunks, dim):
     return (seen == 1).all()
 
 
-@pytest.mark.parametrize("width", [topk_kernel.CHUNK_D, stream_kernel.WIDE_D,
+@pytest.mark.parametrize("width", [topk_kernel.CHUNK_D, stream_kernel.CHUNK_D,
                                    hist_kernel.WIDE_D])
 def test_d_chunk_plan_covers_every_dim_once(width):
     for dim in range(1, 1025):
@@ -199,21 +199,22 @@ def test_d_chunk_plan_covers_every_dim_once(width):
 
 
 def test_smem_plans_fit_at_every_width():
-    """No width is refused on shared-memory grounds: at the block sizes the
-    main path passes (and at the largest block each wrapper accepts) every
-    plan fits one H100 block for every width from 1 to 1,024."""
+    """No width is refused on shared-memory grounds: the top-k plans have
+    no width term and fit one H100 block at every k (two blocks share an
+    SM), and at the block sizes the main path passes (and at the largest
+    block the wrapper accepts) the histogram plan fits for every width from
+    1 to 1,024."""
     lim = _build.SMEM_LIMIT
     for k in range(1, topk_kernel.MAX_UNROLLED_K + 1):
         assert topk_kernel.smem_bytes(k) <= lim      # no width term at all
-    # two blocks of the widest top-k plan share one SM (228 KB)
+        assert stream_kernel.smem_bytes(k) <= lim
+    # two blocks of the widest top-k plans share one SM (228 KB)
     assert 2 * (topk_kernel.smem_bytes(32) + 1024) <= 228 * 1024
+    assert 2 * (stream_kernel.smem_bytes(32) + 1024) <= 228 * 1024
     for dim in range(1, 1025):
-        for block_q in (128, 1024):
-            assert stream_kernel.smem_bytes(dim, block_q, 128) <= lim, (dim, block_q)
         for block_p in (256, 1024):
             assert hist_kernel.smem_bytes(dim, 256, block_p) <= lim, (dim, block_p)
-    # the narrow plans are the whole-row ones, as before
-    assert stream_kernel.smem_bytes(18, 128, 128) == 4 * (128 * 24 + 2 * 128)
+    # the narrow histogram plan is the whole-row one, as before
     assert hist_kernel.smem_bytes(18, 256, 256) == 4 * (18 * 256 + 64 * 18 + 128 + 256)
 
 
