@@ -38,6 +38,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          (``knn_stream`` at 518 dims, the brute lane's ``knn_topk``) and the
          ``pallas`` self-join on the same grid (``pairwise_sq_l2``), 2048
          rows of each held against float64;
+  (j)    the brute lane past the kernel's k: ``brute_knn`` at K = 40 for
+         1,024 sampled queries over the SuSy corpus, streamed in
+         ``corpus_chunk`` = 4,096 pieces (each ``knn_topk`` call rerouted
+         to the plain version, counted: one per chunk; no kernel runs),
+         every row held against float64; wall time and peak memory;
   (f)    ``dense_join`` with ``backend="pallas"`` against ``"fused"`` on the
          first dense batch of the 5M index, and on 16,384 sparse-split
          queries at budgets growing until at least half their tiles fit
@@ -56,8 +61,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          also held on R≠S tiles of a second FMA cloud, where SHORTC must
          skip tiles.
 
-Each path — (b)–(d), (e), (g), (h), (i) — sets the kernel launch counters
-to 0 just before it and reads them just after.  The last lines are the
+Each path — (b)–(d), (e), (g), (h), (i), (j) — sets the kernel launch
+counters to 0 just before it and reads them just after.  The last lines are the
 card's name and power limit, one JSON line with every kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -84,6 +89,9 @@ K_BF16 = 16                         # k + 8 ≤ 32: the bf16 streaming kernel ru
 ORACLE_ROWS = 2048
 FOREIGN_QUERIES = 65_536
 BRUTE_QUERIES = 4096
+K_PAST = 40                         # > MAX_UNROLLED_K: the brute lane's streamed route
+PAST_QUERIES = 1024
+PAST_CHUNK = 4096                   # the reference's corpus_chunk
 FMA_POINTS = 107_000                # FMA's published |D| (data/pointclouds.py)
 
 
@@ -424,14 +432,15 @@ def main(argv=None) -> int:
         hist_kernel.launches = 0
         stream_ops.oversized_k_reroutes = topk_ops.oversized_k_reroutes = 0
 
-    def read_counts(what):
+    def read_counts(what, topk_reroutes=0):
         counts = {**stream_kernel.launches, **topk_kernel.launches,
                   **pair_kernel.launches, "distance_bin_histogram": hist_kernel.launches}
         reroutes = {"knn_stream": stream_ops.oversized_k_reroutes,
                     "knn_topk": topk_ops.oversized_k_reroutes}
         log(json.dumps({"path": what, "launch_counters": counts,
                         "oversized_k_reroutes": reroutes}))
-        assert not any(reroutes.values()), f"{what}: oversized-k reroutes {reroutes}"
+        assert reroutes == {"knn_stream": 0, "knn_topk": topk_reroutes}, \
+            f"{what}: oversized-k reroutes {reroutes}, expected {topk_reroutes} of knn_topk"
         return counts
 
     # -- build ------------------------------------------------------------
@@ -582,8 +591,8 @@ def main(argv=None) -> int:
 
     # -- path 5: (i) FMA end to end at 518 dims ---------------------------------
     # The paper's FMA workload at its published 107,000 × 518: ε selected on
-    # the card (the bin_hist kernel's wide path), the fused self-join
-    # (knn_stream's wide path, the brute lane's knn_topk) and the pallas
+    # the card (the bin_hist kernel at 518 dims), the fused self-join
+    # (knn_stream at 518 dims, the brute lane's knn_topk) and the pallas
     # self-join on the same grid (pairwise_sq_l2), each held against float64.
     reset_counts()
     fma = pointclouds.load("fma", n_override=FMA_POINTS)
@@ -615,6 +624,32 @@ def main(argv=None) -> int:
     for name in ("distance_bin_histogram", "knn_stream_topk_prefetch", "knn_tile_topk",
                  "pairwise_sq_l2"):
         assert launches_i.get(name, 0) > 0, f"the FMA path never launched {name}"
+
+    # -- path 6: (j) the brute lane at K = 40 > MAX_UNROLLED_K ---------------
+    # The corpus streams in corpus_chunk pieces, as the reference streams it;
+    # each piece's knn_topk call reroutes to the plain version (as the JAX
+    # ops reroute it), so the path launches no kernel.  Its queries are drawn
+    # after every other path's rows, which stay as they were before it.
+    reset_counts()
+    prows = torch.as_tensor(rng.choice(len(pts), PAST_QUERIES, replace=False), device=dev)
+    pq, pqid = pts_d[prows].contiguous(), prows.to(torch.int32)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    jd, ji = brute_lib.brute_knn(pts_d, pq, pqid, k=K_PAST, corpus_chunk=PAST_CHUNK)
+    torch.cuda.synchronize()
+    t_past = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_chunks = -(-len(pts) // PAST_CHUNK)
+    log(f"[j] brute K={K_PAST}: {PAST_QUERIES} queries × {len(pts)} in {t_past:.3f}s "
+        f"({PAST_QUERIES / t_past:.1f} queries/s), corpus_chunk={PAST_CHUNK} "
+        f"({n_chunks} chunks); peak device memory {peak / 2**30:.3f} GiB, "
+        f"{(peak - mem0) / 2**20:.1f} MiB above the {mem0 / 2**30:.3f} GiB held before")
+    check_exact(pts_d, pq, prows, torch.sqrt(jd), ji, f"brute K={K_PAST}")
+    launches_j = read_counts(f"(j) brute K={K_PAST}", topk_reroutes=n_chunks)
+    assert not any(launches_j.values()), f"(j) launched a kernel at K={K_PAST}: {launches_j}"
+    del jd, ji, pq, pqid
 
     kernels = []
     bq, bc = cfg.query_block, cfg.block_c
@@ -949,7 +984,7 @@ def main(argv=None) -> int:
     # -- (a) at FMA width, on (i)'s own inputs ----------------------------------
     fpr = fidx.points_r
     fdim = fpr.shape[1]
-    # knn_stream_topk_prefetch, wide path: the fused index's first dense batch.
+    # knn_stream_topk_prefetch at 518 dims: the fused index's first dense batch.
     fb = first_dense_batch(fidx, K)
     fops, _, _, _ = dense_lib.fused_prefetch_operands(
         fidx.grid, fpr, _pad_ids(fb, bq, dev), cfg.dense_budget, bq, bc)

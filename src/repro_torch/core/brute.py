@@ -1,18 +1,31 @@
 """Brute-force KNN (the paper's GPU-JOINLINEAR baseline, §VI-D) and the
 exact fallback for the sparse engine's certification misses, in PyTorch.
 
-Port of ``repro/core/brute.py``.  On the card one ``knn_topk`` kernel call
-takes the whole corpus: the kernel splits the candidates across thread
-blocks and keeps each running top-k in registers.  On the CPU the plain
-version streams the corpus in fixed chunks merged into a running (Q, K)
-buffer, so memory stays O(Q·K + Q·chunk) whatever |D| is."""
+Port of ``repro/core/brute.py``.  On the card, for k within the
+``knn_topk`` kernel's reach, one kernel call takes the whole corpus: the
+kernel splits the candidates across thread blocks and keeps each running
+top-k on chip.  Otherwise — on the CPU, and on the card for larger k,
+where each call reroutes to the plain version as the JAX ops do — the
+corpus is streamed in fixed chunks merged into a running (Q, K) buffer,
+the reference's plan, so memory stays O(Q·K + Q·chunk) whatever |D| is."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import dense_join as dense_lib
+from repro_torch.kernels.knn_topk import kernel as topk_kernel
 from repro_torch.kernels.knn_topk import ops as topk_ops
 from repro_torch.utils import round_up
+
+
+def corpus_chunk_plan(device, n_corpus: int, k: int, corpus_chunk: int):
+    """Corpus rows per ``knn_topk`` call: None for one call over the whole
+    corpus (a CUDA device and k ≤ ``MAX_UNROLLED_K``), else the width of
+    the streamed chunks, ``corpus_chunk`` cut to the corpus size rounded
+    up to 8 as the reference cuts it."""
+    if torch.device(device).type == "cuda" and k <= topk_kernel.MAX_UNROLLED_K:
+        return None
+    return min(corpus_chunk, round_up(n_corpus, 8))
 
 
 def brute_knn(corpus: torch.Tensor, queries: torch.Tensor,
@@ -22,15 +35,16 @@ def brute_knn(corpus: torch.Tensor, queries: torch.Tensor,
     Returns (dists (Q, k) ascending raw scores — squared L2, or the negated
     inner product −q·c under ``metric="ip"`` — and ids (Q, k), −1-padded);
     ``query_ids`` carries the self-exclusion (−1 = padding row).
-    ``corpus_chunk`` bounds the CPU path's memory only; a CUDA corpus goes
-    to the kernel in one call (ties still resolve in corpus order)."""
+    ``corpus_chunk`` bounds the memory of the streamed route
+    (``corpus_chunk_plan``); equal scores keep the lower corpus row first
+    on either route."""
     dense_lib.check_engine_args(metric, "fp32")
     n_corpus = corpus.shape[0]
     dev = corpus.device
     ids = torch.arange(n_corpus, dtype=torch.int32, device=dev)
-    if corpus.is_cuda:
+    chunk = corpus_chunk_plan(dev, n_corpus, k, corpus_chunk)
+    if chunk is None:
         return topk_ops.knn_topk(queries, corpus, query_ids, ids, k=k, metric=metric)
-    chunk = min(corpus_chunk, round_up(n_corpus, 8))
     run_d = torch.full((queries.shape[0], k), float("inf"), device=dev)
     run_i = torch.full((queries.shape[0], k), -1, dtype=torch.int32, device=dev)
     for c0 in range(0, n_corpus, chunk):

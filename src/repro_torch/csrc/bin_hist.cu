@@ -10,242 +10,163 @@
 //
 // What bounds it on an H100: operations.  The whole corpus is read once
 // (N * dim * 4 bytes) while every point meets all S sampled queries, so
-// the fp32 FMA pipe, the sqrt/divide per pair and the shared-memory atomic
-// per counted pair dominate.
+// the fp32 FMAs of the dots, then the root, the divide and the count of
+// each pair dominate.
 //
-// What the design does about it: the TPU kernel accumulated a (1, n_bins)
-// f32 block across a sequential grid.  Here each thread block owns blockDim
-// points (one per thread) and counts into shared-memory int bins; one
-// atomicAdd per bin per block folds them into 64-bit global counters.
-// Counting in integers keeps the result exact at any sample size (the JAX
-// f32 sum is exact only below 2^24 per bin); the wrapper converts to f32 at
-// the end.  Two kernels share that skeleton:
-//  - narrow rows (dim <= 32): the block's points are stored whole,
-//    transposed in shared memory (bank-conflict free), and the sampled
-//    queries are walked in QTILE-row shared-memory tiles read as broadcasts;
-//  - wide rows (any dim > 32): block (x, y) takes TP points and the y-th
-//    group of HG sampled queries; points and queries are staged in d-chunks
-//    of HD dims, transposed, the next chunk loading into registers while
-//    the current one is scored; each thread keeps the partial dots of 4
-//    points with 8 of the group's queries in registers across the chunks
-//    (a register tile: three float4 shared loads per 32 FMAs).  Shared
-//    memory is HD * (TP + HG + 8) + TP + 2 HG floats plus the bins at any
-//    width.  Both kernels sum every dot, norm and distance in the same
-//    order, so they count the same bins.
+// What the design does about it:
+//  - One kernel for every width, on the 128 x 128 register score tile of
+//    score_tile.cuh: tile rows are sampled queries, tile columns points;
+//    the d axis is staged in double-buffered transposed 8-dim chunks, each
+//    thread does 64 FMAs per four float4 shared loads (a ragged last chunk
+//    only over its own dims).  Every dot and norm is the fmaf sum over d
+//    ascending from 0.
+//  - Persistent blocks: block (x, y) takes row tile y and walks the x-th
+//    contiguous split of 128-point tiles (the wrapper sizes the splits to
+//    fill whole waves of two blocks per SM), so the bins are flushed to
+//    device memory once per split, not once per tile.
+//  - Counting: each warp counts into its own shared int sub-histogram, so
+//    the warps' atomics never meet; at the block's end the sub-histograms
+//    are summed and folded into the 64-bit global counters, one atomicAdd
+//    per non-zero bin.  Integer counts stay exact at any sample size (the
+//    JAX f32 sum is exact only below 2^24 per bin); the wrapper converts to
+//    f32 at the end.
+//  - The epilogue keeps the plain version's per-pair arithmetic (IEEE root
+//    and divide) and runs the same steps for every pair: only the count is
+//    predicated.  A warp's pairs mix in- and out-of-range distances, so a
+//    branch around the root and the divide saved nothing and cost the
+//    branch.
 #include <cuda_runtime.h>
 
-#define QTILE 64
+#include "score_tile.cuh"
 
-__global__ void bin_hist_kernel(const float* __restrict__ queries,
-                                const float* __restrict__ points,
-                                const int* __restrict__ query_ids,
-                                const float* __restrict__ bw_ptr,
-                                unsigned long long* __restrict__ counts,
-                                int n_q, int n_p, int dim, int n_bins) {
-  extern __shared__ float smem[];
-  const int tp = blockDim.x;
-  float* p_s = smem;                        // [dim][tp] (transposed)
-  float* q_s = p_s + dim * tp;              // [QTILE][dim]
-  float* qq_s = q_s + QTILE * dim;          // [QTILE]
-  int* qid_s = reinterpret_cast<int*>(qq_s + QTILE);  // [QTILE]
-  int* bins = qid_s + QTILE;                // [n_bins]
+namespace {
 
-  const int t = threadIdx.x;
-  const long long p0 = (long long)blockIdx.x * tp;
-  const long long pid = p0 + t;
-  const bool active = pid < n_p;
+using namespace tile;
 
-  for (int b = t; b < n_bins; b += tp) bins[b] = 0;
-  for (int e = t; e < tp * dim; e += tp) {
-    const int r = e / dim;
-    const int d = e - r * dim;
-    p_s[d * tp + r] = (p0 + r < n_p) ? points[(p0 + r) * dim + d] : 0.f;
-  }
-  __syncthreads();
-  float pp = 0.f;
-  for (int d = 0; d < dim; ++d) {
-    const float v = p_s[d * tp + t];
-    pp = fmaf(v, v, pp);
-  }
-  const float bw = *bw_ptr;
+constexpr int WARPS = THREADS / 32;
 
-  for (int s0 = 0; s0 < n_q; s0 += QTILE) {
-    const int ns = min(QTILE, n_q - s0);
-    __syncthreads();  // the previous query tile's readers are done
-    for (int e = t; e < ns * dim; e += tp) q_s[e] = queries[(long long)s0 * dim + e];
-    for (int s = t; s < ns; s += tp) qid_s[s] = query_ids[s0 + s];
-    __syncthreads();
-    for (int s = t; s < ns; s += tp) {
-      float v = 0.f;
-      for (int d = 0; d < dim; ++d) v = fmaf(q_s[s * dim + d], q_s[s * dim + d], v);
-      qq_s[s] = v;
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int s = 0; s < ns; ++s) {
-      const int qid = qid_s[s];
-      if (qid < 0 || qid == pid) continue;
-      float dot = 0.f;
-      for (int d = 0; d < dim; ++d) dot = fmaf(q_s[s * dim + d], p_s[d * tp + t], dot);
-      const float dist = sqrtf(fmaxf(qq_s[s] + pp - 2.f * dot, 0.f));
-      const float b = floorf(dist / bw);
-      if (b >= 0.f && b < (float)n_bins) atomicAdd(&bins[(int)b], 1);
-    }
-  }
-  __syncthreads();
-  for (int b = t; b < n_bins; b += tp) {
-    if (bins[b]) atomicAdd(&counts[b], (unsigned long long)bins[b]);
-  }
-}
-
-constexpr int HG = 32;      // sampled queries per group
-constexpr int HD = 32;      // dims per staged chunk
-constexpr int TP = 256;     // points (threads) per block
-constexpr int LP = TP + 4;  // row stride of the transposed point chunk
-constexpr int LQ = HG + 4;  // row stride of the transposed query chunk
-
-// Block (x, y) scores TP points against the y-th group of HG sampled
-// queries; thread t holds the 4 points 4 * (t / 4) .. + 3 against the 8
-// queries 8 * (t % 4) .. + 7: a 4 x 8 register tile fed by one float4 of
-// points and two of queries per dim.  While a chunk is scored, the next
-// one is already loading into registers.
-__global__ void __launch_bounds__(TP)
-bin_hist_wide_kernel(const float* __restrict__ queries,
-                     const float* __restrict__ points,
-                     const int* __restrict__ query_ids,
-                     const float* __restrict__ bw_ptr,
-                     unsigned long long* __restrict__ counts, int n_q, int n_p,
-                     int dim, int n_bins) {
+__global__ void __launch_bounds__(THREADS, 2)
+bin_hist_kernel(const float* __restrict__ queries, const float* __restrict__ points,
+                const int* __restrict__ query_ids, const float* __restrict__ bw_ptr,
+                unsigned long long* __restrict__ counts, int n_q, int n_p, int dim,
+                int n_bins, long long per_split) {
   extern __shared__ __align__(16) float smem[];
-  float* p_s = smem;                        // [HD][LP] transposed point chunk
-  float* q_s = p_s + HD * LP;               // [HD][LQ] transposed query chunk
-  float* pp_s = q_s + HD * LQ;              // [TP] point norms
-  float* qq_s = pp_s + TP;                  // [HG] query norms
-  int* qid_s = reinterpret_cast<int*>(qq_s + HG);  // [HG]
-  int* bins = qid_s + HG;                   // [n_bins]
+  float* qs = smem;                         // [2][BK][LD] query chunks
+  float* cs = qs + 2 * CHUNK;               // [2][BK][LD] point chunks
+  float* qq_s = cs + 2 * CHUNK;             // [TQ] query norms
+  float* pp_s = qq_s + TQ;                  // [TC] point norms
+  int* qid_s = reinterpret_cast<int*>(pp_s + TC);  // [TQ]
+  int* bins = qid_s + TQ;                   // [WARPS][n_bins]
 
   const int t = threadIdx.x;
-  const int pq = (t >> 2) * 4;   // this thread's first point (of the block)
-  const int sq = (t & 3) * 8;    // its first query (of the group)
-  const long long p0 = (long long)blockIdx.x * TP;
-  const int s0 = blockIdx.y * HG;
-  const int ns = min(HG, n_q - s0);
+  const int tx = t & 15;
+  const int ty = t >> 4;
+  int* my_bins = bins + (t >> 5) * n_bins;
+  const long long q0 = (long long)blockIdx.y * TQ;
+  const long long c_begin = blockIdx.x * per_split;
+  const long long c_end = min((long long)n_p, c_begin + per_split);
 
-  // Staging: thread t moves dims d8, d8 + 8, d8 + 16, d8 + 24 (d8 = t % 8)
-  // of point rows t / 8 + 32 k (k < 8) and of query row t / 8, so 8 lanes
-  // read 32 contiguous bytes of a row and the transposed stores hit 32
-  // distinct banks.
-  static_assert(TP == 256 && HG == 32 && HD == 32, "staging map");
-  const int d8 = t & 7;
-  const int r8 = t >> 3;
-  float p_reg[8][4], q_reg[4];
-  auto load = [&](int d0) {
-    const int nd = min(HD, dim - d0);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const long long r = p0 + r8 + 32 * k;
-      const float* src = points + r * dim + d0 + d8;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_reg[k][j] = (r < n_p && d8 + 8 * j < nd) ? src[8 * j] : 0.f;
-    }
-    const float* src = queries + (long long)(s0 + r8) * dim + d0 + d8;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q_reg[j] = (r8 < ns && d8 + 8 * j < nd) ? src[8 * j] : 0.f;
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(d8 + 8 * j) * LP + r8 + 32 * k] = p_reg[k][j];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) q_s[(d8 + 8 * j) * LQ + r8] = q_reg[j];
-  };
-
-  for (int b = t; b < n_bins; b += TP) bins[b] = 0;
+  for (int b = t; b < WARPS * n_bins; b += THREADS) bins[b] = 0;
+  if (t < TQ) qid_s[t] = q0 + t < n_q ? query_ids[q0 + t] : -1;
   const float bw = *bw_ptr;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float pp = 0.f;  // |p|^2 of point t
-  float qq = 0.f;  // thread g < HG: |q|^2 of the group's query g
+  const float nb = (float)n_bins;
 
-  load(0);
-  for (int d0 = 0; d0 < dim; d0 += HD) {
-    const int nd = min(HD, dim - d0);
-    __syncthreads();  // the previous chunk's readers are done
-    store();
+  float reg_q[4], reg_c[4];
+  if (c_begin < c_end) {
+    load_chunk(queries, dim, q0, n_q, 0, dim, reg_q);
+    load_chunk(points, dim, c_begin, c_end, 0, dim, reg_c);
+    store_chunk(qs, reg_q);
+    store_chunk(cs, reg_c);
+  }
+  __syncthreads();
+  int buf = 0;
+
+  for (long long c0 = c_begin; c0 < c_end; c0 += TC) {
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    float norm = 0.f;  // threads < 128: |p|^2 of column t; others |q|^2 of row t - 128
+
+    for (int d0 = 0; d0 < dim; d0 += BK) {
+      // Prefetch the next chunk (of this tile, or the first of the next).
+      const bool more_d = d0 + BK < dim;
+      const bool next = more_d || c0 + TC < c_end;
+      if (next) {
+        const int nd0 = more_d ? d0 + BK : 0;
+        load_chunk(queries, dim, q0, n_q, nd0, dim, reg_q);
+        load_chunk(points, dim, more_d ? c0 : c0 + TC, c_end, nd0, dim, reg_c);
+      }
+      fma_chunk<true>(qs + buf * CHUNK, cs + buf * CHUNK, min(BK, dim - d0), acc, norm);
+      if (next) {
+        store_chunk(qs + (buf ^ 1) * CHUNK, reg_q);
+        store_chunk(cs + (buf ^ 1) * CHUNK, reg_c);
+      }
+      __syncthreads();
+      buf ^= 1;
+    }
+
+    if (t < TC) {
+      pp_s[t] = norm;
+    } else {
+      qq_s[t - TC] = norm;
+    }
     __syncthreads();
-    if (d0 + HD < dim) load(d0 + HD);
-    for (int d = 0; d < nd; ++d) pp = fmaf(p_s[d * LP + t], p_s[d * LP + t], pp);
-    if (t < HG) {
-      for (int d = 0; d < nd; ++d) qq = fmaf(q_s[d * LQ + t], q_s[d * LQ + t], qq);
-    }
-#pragma unroll 4
-    for (int d = 0; d < nd; ++d) {
-      const float4 p = *reinterpret_cast<const float4*>(p_s + d * LP + pq);
-      const float4 qa = *reinterpret_cast<const float4*>(q_s + d * LQ + sq);
-      const float4 qb = *reinterpret_cast<const float4*>(q_s + d * LQ + sq + 4);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+    const int n_cols = (int)min((long long)TC, c_end - c0);  // points of this tile
+    float pp[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) pp[j] = pp_s[slot_of(tx, j)];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[j], pv[i], acc[i][j]);
+    for (int i = 0; i < 8; ++i) {
+      const int row = slot_of(ty, i);
+      const int qid = qid_s[row];
+      if (qid < 0) continue;
+      const long long self = (long long)qid - c0;  // the query's own column, if here
+      const int self_col = (self >= 0 && self < TC) ? (int)self : -1;
+      const float qq = qq_s[row];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = slot_of(tx, j);
+        const float b = floorf(sqrtf(fmaxf(qq + pp[j] - 2.f * acc[i][j], 0.f)) / bw);
+        if (col < n_cols && col != self_col && b >= 0.f && b < nb) {
+          atomicAdd(&my_bins[(int)b], 1);
+        }
+      }
     }
+    // The next tile writes qq_s / pp_s only after its d loop's barriers.
   }
-  pp_s[t] = pp;
-  if (t < HG) {
-    qq_s[t] = qq;
-    qid_s[t] = t < ns ? query_ids[s0 + t] : -1;
-  }
+
   __syncthreads();
+  for (int b = t; b < n_bins; b += THREADS) {
+    unsigned long long sum = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long pid = p0 + pq + i;
-    if (pid >= n_p) continue;
-    const float ppi = pp_s[pq + i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qid = qid_s[sq + j];
-      if (qid < 0 || qid == pid) continue;
-      const float dist = sqrtf(fmaxf(qq_s[sq + j] + ppi - 2.f * acc[i][j], 0.f));
-      const float b = floorf(dist / bw);
-      if (b >= 0.f && b < (float)n_bins) atomicAdd(&bins[(int)b], 1);
-    }
-  }
-  __syncthreads();
-  for (int b = t; b < n_bins; b += TP) {
-    if (bins[b]) atomicAdd(&counts[b], (unsigned long long)bins[b]);
+    for (int w = 0; w < WARPS; ++w) sum += (unsigned)bins[w * n_bins + b];
+    if (sum) atomicAdd(&counts[b], sum);
   }
 }
 
 // Dynamic shared memory of one block (the wrapper's plan mirrors it).
-static size_t smem_bytes(int dim, int n_bins, int block_p) {
-  if (dim <= 32)
-    return sizeof(float) * ((size_t)dim * block_p + QTILE * dim + QTILE) +
-           sizeof(int) * (QTILE + (size_t)n_bins);
-  return sizeof(float) * ((size_t)HD * LP + HD * LQ + TP + HG) +
-         sizeof(int) * (HG + (size_t)n_bins);
+size_t smem_bytes(int n_bins) {
+  return sizeof(float) * (4 * CHUNK + 3 * TQ) + sizeof(int) * (size_t)WARPS * n_bins;
 }
 
+}  // namespace
+
+// Splits are per_split points wide (a multiple of 128); the grid is
+// (n_splits, ceil(n_q / 128)).
 extern "C" int bin_hist_launch(const float* queries, const float* points,
                                const int* query_ids, const float* bin_width,
                                unsigned long long* counts, int n_q, int n_p,
-                               int dim, int n_bins, int block_p, void* stream) {
+                               int dim, int n_bins, int n_splits,
+                               long long per_split, void* stream) {
   if (n_p == 0 || n_q == 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(dim, n_bins, block_p);
-  const bool narrow = dim <= 32;
-  auto kern = narrow ? bin_hist_kernel : bin_hist_wide_kernel;
-  const int threads = narrow ? block_p : TP;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((n_p + threads - 1) / threads, narrow ? 1 : (n_q + HG - 1) / HG);
-  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      queries, points, query_ids, bin_width, counts, n_q, n_p, dim, n_bins);
+  const size_t smem = smem_bytes(n_bins);
+  cudaError_t err = cudaFuncSetAttribute(
+      bin_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_splits, (n_q + TQ - 1) / TQ);
+  bin_hist_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      queries, points, query_ids, bin_width, counts, n_q, n_p, dim, n_bins, per_split);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,6 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("knn_stream", "knn_topk", "bin_hist", "pairwise_l2")
 SMEM_LIMIT = 232448           # dynamic shared memory one H100 block may use
-NARROW_DIM = 32               # widest row a narrow (whole-row) kernel stages
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -272,6 +272,44 @@ def test_brute_matches_jax_and_oracle(k, chunk):
     np.testing.assert_array_equal(si.numpy(), ti.numpy())
 
 
+@pytest.mark.parametrize("device,n_corpus,k,corpus_chunk,want", [
+    ("cuda", 5_000_000, 25, 4096, None),     # k within the kernel: one call
+    ("cuda", 5_000_000, 32, 4096, None),
+    ("cuda", 5_000_000, 33, 4096, 4096),     # past the kernel: streamed chunks
+    ("cuda", 107_000, 40, 4096, 4096),
+    ("cuda", 100, 64, 4096, 104),            # chunk cut to the corpus, rounded up to 8
+    ("cpu", 5_000_000, 25, 4096, 4096),      # the CPU always streams
+    ("cpu", 300, 3, 4096, 304),
+])
+def test_brute_corpus_chunk_plan(device, n_corpus, k, corpus_chunk, want):
+    """One ``knn_topk`` call over the whole corpus only for a CUDA device
+    with k ≤ MAX_UNROLLED_K; otherwise the reference's chunked stream."""
+    assert brute_lib.corpus_chunk_plan(torch.device(device), n_corpus, k,
+                                       corpus_chunk) == want
+    assert brute_lib.corpus_chunk_plan(device, n_corpus, k, corpus_chunk) == want
+
+
+@pytest.mark.parametrize("k", [33, 40])
+def test_brute_past_kernel_k_matches_jax_and_oracle(k):
+    """k > MAX_UNROLLED_K (the route the card now streams in chunks) on
+    integer-valued rows, where many distances tie: fp32 distances, ids
+    equal except where the realized distances tie, and the exact oracle's
+    distances."""
+    r = np.random.default_rng(k)
+    pts = r.integers(-3, 4, size=(400, 5)).astype(np.float32)
+    ids = np.arange(len(pts), dtype=np.int32)
+    jd, ji = jax_brute.brute_knn(jnp.asarray(pts), jnp.asarray(pts), jnp.asarray(ids),
+                                 k=k, corpus_chunk=96, kernel_mode="interpret")
+    td, ti = brute_lib.brute_knn(_t(pts), _t(pts), _t(ids), k=k, corpus_chunk=96)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL, atol=ATOL)
+    _ids_match_mod_ties(pts, ti.numpy(), np.asarray(ji), np.ones(len(pts), bool))
+    od, oi = oracle_knn(pts, k=k, exclude_self=True, squared=True)
+    np.testing.assert_allclose(td.numpy(), od, rtol=1e-4, atol=1e-5)
+    # The stable oracle breaks ties toward the lower id, as both chunked
+    # merges must (within and across chunks).
+    np.testing.assert_array_equal(ti.numpy(), oi)
+
+
 # ---------------------------------------------------------------------------
 # the scheduler, with the JAX suite's numpy stub engines
 # ---------------------------------------------------------------------------

@@ -171,12 +171,18 @@ def test_knn_stream_prefetch_matches_plain(card, dim, k, metric, dtype, integer)
     assert (kf > 0).any() and (kf[ok] == rf[ok]).all()
 
 
-@pytest.mark.parametrize("dim,n_q", [(18, 70), (518, 45), (1100, 33)])
+@pytest.mark.parametrize("dim,n_q", [
+    (18, 70), (518, 45), (1100, 33),
+    # widths around the 8-dim chunk, and one, two or a ragged second
+    # 128-query row tile; 3,000 points end in a ragged 128-point tile
+    (1, 1), (8, 128), (9, 129), (33, 1), (33, 128), (33, 129),
+])
 def test_bin_hist_matches_plain(card, dim, n_q):
     rng = np.random.default_rng(dim)
     pts = torch.as_tensor(rng.integers(-3, 4, size=(3000, dim)).astype(np.float32), device=card)
     qidx = torch.as_tensor(rng.integers(0, 3000, size=n_q).astype(np.int32), device=card)
-    qidx[-2:] = -1
+    if n_q > 2:
+        qidx[-2:] = -1
     q = pts[qidx.clamp(min=0).long()].contiguous()
     bw, n_bins = torch.tensor(4.0, device=card), 64
     got = hist_kernel.distance_bin_histogram(q, pts, qidx, bw, n_bins=n_bins)
@@ -186,6 +192,35 @@ def test_bin_hist_matches_plain(card, dim, n_q):
     # distance on a bin edge is an exact square root in both.
     assert torch.equal(got, want)
     assert got.sum() > 0
+
+
+@pytest.mark.parametrize("k", [33, 64])
+def test_brute_past_kernel_k_streams_corpus_chunks(card, k):
+    """brute_knn at k > MAX_UNROLLED_K streams the corpus in corpus_chunk
+    pieces (each call rerouted to the plain version, counted), against the
+    plain version over the whole corpus: equal on integer data (ties keep
+    the lower corpus row across chunks too).  Its peak memory above its
+    inputs stays under three (Q, chunk, D) f32 difference tensors; the
+    whole-corpus plain version needs two of (rows, 200,000, D) at once."""
+    from repro_torch.core import brute as brute_lib
+    n, dim, n_q, chunk = 200_000, 18, 256, 4096
+    rng = np.random.default_rng(k)
+    pts = torch.as_tensor(rng.integers(-3, 4, size=(n, dim)).astype(np.float32), device=card)
+    qid = torch.as_tensor(rng.choice(n, n_q, replace=False).astype(np.int32), device=card)
+    q = pts[qid.long()].contiguous()
+    ids = torch.arange(n, dtype=torch.int32, device=card)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reroutes = topk_ops.oversized_k_reroutes
+    kd, ki = brute_lib.brute_knn(pts, q, qid, k=k, corpus_chunk=chunk)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert topk_ops.oversized_k_reroutes - reroutes == -(-n // chunk)
+    assert peak <= 3 * n_q * chunk * dim * 4, peak
+    rd, ri = topk_ref.knn_topk_ref(q, pts, qid, ids, k=k)
+    _hold(kd, ki, rd, ri, q, lambda i: pts[i], "l2", exact=True)
+    assert not (ki == qid[:, None]).any(), "self pair returned"
 
 
 def _ties_rows(rng, shape, lo=-2, hi=3):

@@ -222,6 +222,20 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_building():
     assert not stream_kernel.launches and not topk_kernel.launches
 
 
+@pytest.mark.parametrize("n_bins", [7_000, 1 << 20])
+def test_bin_hist_refuses_a_plan_past_shared_memory(n_bins):
+    """An n_bins whose per-warp sub-histograms exceed one H100 block's
+    shared memory is refused with the plan's size, before anything is
+    built."""
+    from repro_torch.kernels.bin_hist import kernel as hist_kernel
+    q = torch.zeros((128, 6))
+    ids = torch.zeros((128,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        hist_kernel.distance_bin_histogram(q, q, ids, 0.1, n_bins=n_bins)
+    assert hist_kernel.smem_bytes(6_000) <= 232448 < hist_kernel.smem_bytes(7_000)
+    assert hist_kernel.launches == 0
+
+
 @pytest.mark.parametrize("n_q,n_c", [(4096, 4096), (5, 5_000_000), (5_000_000, 5_000_000),
                                      (300, 100)])
 def test_knn_topk_split_plan_covers_every_candidate(n_q, n_c):

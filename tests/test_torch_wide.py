@@ -189,7 +189,7 @@ def _covers_once(chunks, dim):
 
 
 @pytest.mark.parametrize("width", [topk_kernel.CHUNK_D, stream_kernel.CHUNK_D,
-                                   hist_kernel.WIDE_D])
+                                   hist_kernel.CHUNK_D])
 def test_d_chunk_plan_covers_every_dim_once(width):
     for dim in range(1, 1025):
         chunks = _build.d_chunks(dim, width)
@@ -199,11 +199,9 @@ def test_d_chunk_plan_covers_every_dim_once(width):
 
 
 def test_smem_plans_fit_at_every_width():
-    """No width is refused on shared-memory grounds: the top-k plans have
-    no width term and fit one H100 block at every k (two blocks share an
-    SM), and at the block sizes the main path passes (and at the largest
-    block the wrapper accepts) the histogram plan fits for every width from
-    1 to 1,024."""
+    """No width is refused on shared-memory grounds: the top-k and
+    histogram plans have no width term and fit one H100 block at every k
+    and at the main path's 256 bins (two blocks share an SM)."""
     lim = _build.SMEM_LIMIT
     for k in range(1, topk_kernel.MAX_UNROLLED_K + 1):
         assert topk_kernel.smem_bytes(k) <= lim      # no width term at all
@@ -211,11 +209,13 @@ def test_smem_plans_fit_at_every_width():
     # two blocks of the widest top-k plans share one SM (228 KB)
     assert 2 * (topk_kernel.smem_bytes(32) + 1024) <= 228 * 1024
     assert 2 * (stream_kernel.smem_bytes(32) + 1024) <= 228 * 1024
-    for dim in range(1, 1025):
-        for block_p in (256, 1024):
-            assert hist_kernel.smem_bytes(dim, 256, block_p) <= lim, (dim, block_p)
-    # the narrow histogram plan is the whole-row one, as before
-    assert hist_kernel.smem_bytes(18, 256, 256) == 4 * (18 * 256 + 64 * 18 + 128 + 256)
+    for n_bins in range(1, 1025):
+        assert hist_kernel.smem_bytes(n_bins) <= lim, n_bins
+    assert 2 * (hist_kernel.smem_bytes(256) + 1024) <= 228 * 1024
+    # the histogram plan: two double-buffered 8-dim chunks of 128 rows
+    # (stride 132) for queries and points, 3 × 128 norms and ids, and one
+    # int sub-histogram per warp
+    assert hist_kernel.smem_bytes(256) == 4 * (4 * 8 * 132 + 3 * 128 + 8 * 256)
 
 
 @pytest.mark.parametrize("n_q,n_c", [(4096, 5_000_000), (65_536, 5_000_000),
