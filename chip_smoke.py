@@ -37,7 +37,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          the card (the ``bin_hist`` kernel at 518 dims), the fused self-join
          (``knn_stream`` at 518 dims, the brute lane's ``knn_topk``) and the
          ``pallas`` self-join on the same grid (``pairwise_sq_l2``), 2048
-         rows of each held against float64;
+         rows of each held against float64, each row to its own fp32
+         expansion-form bound (``check_exact(fp32_bound=True)``); the
+         fused self-join also on the rows a draw of (j)'s queries first
+         would give;
   (j)    the brute lane past the kernel's k: ``brute_knn`` at K = 40 for
          1,024 sampled queries over the SuSy corpus, streamed in
          ``corpus_chunk`` = 4,096 pieces (each ``knn_topk`` call rerouted
@@ -57,11 +60,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          plain / library times from CUDA events, and the bound from bytes
          and FLOPs.  The inputs of the ip brute call of (g), of the first
          batched gathered-route launch of (h) and of (i)'s ε selection and
-         brute-lane call are kept as those paths make them.  The pairwise kernel is
+         brute-lane call are kept as those paths make them, and (k) holds
+         the kernel on its delta buffer's call.  The pairwise kernel is
          also held on R≠S tiles of a second FMA cloud, where SHORTC must
          skip tiles.
+  (k)    the mutable, durable index: (b)'s index takes 4,096 inserts and
+         16 + 16 deletes (base ids (c) returned, inserted ids), serves the
+         R≠S batch at K = 16 through the delta buffer (``knn_tile_topk``)
+         and the merge-time fold (exact against float64 over the net
+         corpus), is saved and loaded on the card (bit-identical answers)
+         and compacted (bit-identical to ``KNNIndex.build`` on
+         ``net_points()``); step times, save size and peak memory;
+  (l)    ``refimpl_knn`` on the FMA cloud at four ranks (ε selection, the
+         sparse engine and the ``knn_tile_topk`` backstop), exact at 518
+         dims; rank times and Σ t / max t.
 
-Each path — (b)–(d), (e), (g), (h), (i), (j) — sets the kernel launch
+Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l) — sets the kernel launch
 counters to 0 just before it and reads them just after.  The last lines are the
 card's name and power limit, one JSON line with every kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
@@ -69,10 +83,12 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -93,6 +109,10 @@ K_PAST = 40                         # > MAX_UNROLLED_K: the brute lane's streame
 PAST_QUERIES = 1024
 PAST_CHUNK = 4096                   # the reference's corpus_chunk
 FMA_POINTS = 107_000                # FMA's published |D| (data/pointclouds.py)
+K_MUT = 16                          # (k): k_main = 16 + 16 headroom stays on the kernels
+N_INSERT = 4096
+N_DELETE = 16                       # base ids, and as many inserted ids
+REFIMPL_RANKS = 4
 
 
 def log(msg: str) -> None:
@@ -167,14 +187,26 @@ def oracle64(points, queries, query_ids, k: int, metric: str = "l2",
     return best_d, best_i
 
 
-def check_exact(points, queries, query_ids, got_d, got_i, what: str, metric: str = "l2"):
+def check_exact(points, queries, query_ids, got_d, got_i, what: str, metric: str = "l2",
+                fp32_bound: bool = False):
     """Reported distances and ids against the float64 oracle: the returned
     set's float64 scores equal the true k best (up to fp32 rounding of
     near-ties) and each reported distance is its id's (Euclidean for l2,
-    1 − cos for cosine, −q·c for ip)."""
+    1 − cos for cosine, −q·c for ip).
+
+    Tolerances: the set's scores within 1e-5 · scale, scale = max(1,
+    largest oracle score), and reported distances within 1e-4 · scale.  With ``fp32_bound`` (rows
+    wider than 32 dims, where the brute lane's expansion form
+    |q|² + |c|² − 2q·c errs by up to ``expansion_bound``, which grows with
+    the width) each row r is held to its own: the set to
+    e_r = max over c of expansion_bound(|q_r|, |c|, D), c over the row's
+    returned and oracle ids, and each reported distance d to that bound
+    carried to d, min(e_r / d, √e_r) — or the fixed tolerance where that is
+    larger.  Prints how many rows exceeded the fixed tolerance and the
+    largest ratio of a row's error to its bound."""
     import torch
     k = got_i.shape[1]
-    od2, _ = oracle64(points, queries, query_ids, k, metric)
+    od2, oi = oracle64(points, queries, query_ids, k, metric)
     gi = torch.as_tensor(got_i, device=points.device).long()
     assert (gi >= 0).all(), f"{what}: missing neighbors"
     if query_ids is not None:
@@ -190,13 +222,26 @@ def check_exact(points, queries, query_ids, got_d, got_i, what: str, metric: str
         want_d = od2
     rd2 = torch.sort(realized, dim=1).values
     scale = max(1.0, od2.abs().max().item())
-    set_err = (rd2 - od2).abs().max().item()
     gd = torch.as_tensor(got_d, device=points.device).double()
-    dist_err = (gd - want_d).abs().max().item()
+    set_err = (rd2 - od2).abs()                                    # (Q, k)
+    dist_err = (gd - want_d).abs()
+    set_tol = torch.full_like(set_err, 1e-5 * scale)
+    dist_tol = torch.full_like(dist_err, 1e-4 * scale)
+    past_old = ((set_err > set_tol) | (dist_err > dist_tol)).any(1)
+    if fp32_bound:
+        cn = torch.maximum(c.norm(dim=-1).max(1).values,
+                           points[oi].double().norm(dim=-1).max(1).values)
+        e = expansion_bound(q.norm(dim=1), cn, q.shape[1])[:, None]   # (Q, 1)
+        set_tol = torch.maximum(set_tol, e.expand_as(set_err))
+        carried = torch.minimum(e / want_d.clamp(min=1e-300), torch.sqrt(e))
+        dist_tol = torch.maximum(dist_tol, carried)
+    ratio = torch.maximum(set_err / set_tol, dist_err / dist_tol).max(1).values
     log(f"  {what}: {len(gi)} rows vs float64 ({metric}): max |score(ids) − score_oracle| "
-        f"{set_err:.3e}, max |d − d_oracle| {dist_err:.3e}")
-    assert set_err <= 1e-5 * scale, f"{what}: returned ids are not the exact k best"
-    assert dist_err <= 1e-4 * scale, f"{what}: reported distances disagree with float64"
+        f"{set_err.max().item():.3e}, max |d − d_oracle| {dist_err.max().item():.3e}; rows past "
+        f"the fixed tolerance {int(past_old.sum())}, largest row error / bound "
+        f"{ratio.max().item():.3f}" + (" (fp32 expansion bound per row)" if fp32_bound else ""))
+    assert (set_err <= set_tol).all(), f"{what}: returned ids are not the exact k best"
+    assert (dist_err <= dist_tol).all(), f"{what}: reported distances disagree with float64"
 
 
 def bin_edge_pairs(queries, points, bw, n_bins: int, chunk: int = 262_144):
@@ -342,13 +387,17 @@ def pairwise_bound(qpts, cpts, chunks, block_q, block_c, block_d=128):
 class FirstCall:
     """Within ``with``, keep the arguments of the first call of
     ``module.name`` that ``want(*args, **kwargs)`` accepts, and
-    ``note(*args, **kwargs)`` of every call in ``notes``; every call goes
-    through unchanged, so the launch counters stay the callee's own."""
+    ``note(*args, **kwargs)`` of every call in ``notes``; with ``count`` (a
+    counter read before and after each call) sum what the calls added in
+    ``counted``.  Every call goes through unchanged, so the launch counters
+    stay the callee's own."""
 
-    def __init__(self, module, name, want=lambda *a, **kw: True, note=None):
+    def __init__(self, module, name, want=lambda *a, **kw: True, note=None, count=None):
         self.module, self.name, self.want, self.note = module, name, want, note
+        self.count = count
         self.args = None
         self.notes = []
+        self.counted = 0
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
@@ -358,7 +407,12 @@ class FirstCall:
                 self.args = (a, kw)
             if self.note is not None:
                 self.notes.append(self.note(*a, **kw))
-            return fn(*a, **kw)
+            if self.count is None:
+                return fn(*a, **kw)
+            n0 = self.count()
+            out = fn(*a, **kw)
+            self.counted += self.count() - n0
+            return out
 
         setattr(self.module, self.name, spy)
         return self
@@ -395,7 +449,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    from repro_torch.core import HybridConfig
+    from repro_torch.core import HybridConfig, refimpl_knn
     from repro_torch.core import brute as brute_lib
     from repro_torch.core import dense_join as dense_lib
     from repro_torch.core import epsilon as eps_lib
@@ -418,6 +472,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pairwise_l2 import ref as pair_ref
     from repro_torch.retrieval import normalize_rows
     from repro_torch.runtime import KNNIndex
+    from repro_torch.runtime import mutation as mut_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float64 oracle / yardsticks
     torch.backends.cudnn.allow_tf32 = False
@@ -597,6 +652,12 @@ def main(argv=None) -> int:
     reset_counts()
     fma = pointclouds.load("fma", n_override=FMA_POINTS)
     fma_d = torch.as_tensor(fma, device=dev)
+    # The rows a development draw gave (i) when (j)'s queries were drawn
+    # first: a copy of the generator draws (j)'s, then (i)'s, so no other
+    # phase's draws move.
+    rng_alt = copy.deepcopy(rng)
+    rng_alt.choice(len(pts), PAST_QUERIES, replace=False)
+    frows_alt = torch.as_tensor(rng_alt.choice(len(fma), ORACLE_ROWS, replace=False), device=dev)
     frows = torch.as_tensor(rng.choice(len(fma), ORACLE_ROWS, replace=False), device=dev)
     frows_np = frows.cpu().numpy()
     t0 = time.perf_counter()
@@ -610,7 +671,10 @@ def main(argv=None) -> int:
     log(f"[i] FMA fused self-join: {stats_line(res, len(fma))} "
         f"sources={np.bincount(res.source, minlength=3).tolist()}")
     check_exact(fma_d, fma_d[frows], frows, res.dists[frows_np], res.ids[frows_np],
-                "FMA self-join")
+                "FMA self-join", fp32_bound=True)
+    alt_np = frows_alt.cpu().numpy()
+    check_exact(fma_d, fma_d[frows_alt], frows_alt, res.dists[alt_np], res.ids[alt_np],
+                "FMA self-join, rows of the (j)-first draw", fp32_bound=True)
     t0 = time.perf_counter()
     fidx_p = KNNIndex.build(fma, dataclasses.replace(cfg, backend="pallas"), fidx.eps,
                             device="cuda")
@@ -618,7 +682,7 @@ def main(argv=None) -> int:
     log(f"[i] FMA pallas build+self-join {time.perf_counter() - t0:.2f}s: "
         f"{stats_line(res, len(fma))} sources={np.bincount(res.source, minlength=3).tolist()}")
     check_exact(fma_d, fma_d[frows], frows, res.dists[frows_np], res.ids[frows_np],
-                "FMA pallas self-join")
+                "FMA pallas self-join", fp32_bound=True)
     del res
     launches_i = read_counts("(i) FMA")
     for name in ("distance_bin_histogram", "knn_stream_topk_prefetch", "knn_tile_topk",
@@ -854,31 +918,31 @@ def main(argv=None) -> int:
     # plain version takes the corpus in chunks merged with merge_running_topk,
     # as the CPU brute lane does; the library yardstick too, in chunks of 2^30
     # scores, since the full (Q, |D|) matrix would not fit.
-    def topk_check(name, q3, c3, qid3, cids, metric, launch_n, fp32_bound=False):
-        kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric)
+    def topk_check(name, q3, c3, qid3, cids, metric, launch_n, fp32_bound=False, k=K):
+        kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric)
 
         def chunked(topk_of_chunk, chunk):
-            run_d = torch.full((q3.shape[0], K), float("inf"), device=dev)
-            run_i = torch.full((q3.shape[0], K), -1, dtype=torch.int32, device=dev)
+            run_d = torch.full((q3.shape[0], k), float("inf"), device=dev)
+            run_i = torch.full((q3.shape[0], k), -1, dtype=torch.int32, device=dev)
             for c0 in range(0, c3.shape[0], chunk):
                 nd, ni = topk_of_chunk(c3[c0:c0 + chunk], cids[c0:c0 + chunk])
-                run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=K)
+                run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=k)
             return run_d, run_i
 
         def library_topk(c, cid):
             score = -(q3 @ c.T) if metric == "ip" else torch.cdist(q3, c)
-            vd, vi = torch.topk(score, K, dim=1, largest=False)
+            vd, vi = torch.topk(score, k, dim=1, largest=False)
             return vd, cid[vi]
 
         (rd, ri_), plain_ms = timed(lambda: chunked(
-            lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=K, metric=metric), 8192))
+            lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=k, metric=metric), 8192))
         err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(c3.shape)}",
                               c3, q3, kd, ki, rd, ri_, metric=metric, fp32_bound=fp32_bound)
         del kd, ki, rd, ri_
-        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=K, metric=metric), reps=3)
+        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric), reps=3)
         lib_ms = cuda_ms(lambda: chunked(library_topk, (1 << 30) // q3.shape[0]), reps=1)
         d3 = q3.shape[1]
-        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + q3.shape[0] * K * 8
+        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + q3.shape[0] * k * 8
         b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * d3 + (3 if metric == "l2" else 1)))
         log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
             f"bound {b[0]:.3f} ms ({b[1]})")
@@ -979,7 +1043,7 @@ def main(argv=None) -> int:
     kernels.append(kernel_entry("pairwise_sq_l2", PAIRWISE_CU,
                                 "src/repro/kernels/pairwise_l2/kernel.py:151",
                                 launches_p.get("pairwise_sq_l2", 0), err, ms, plain_ms, b, lib_ms))
-    del qpts5, cpts5, tiles, index, pr
+    del qpts5, cpts5, tiles, pr
 
     # -- (a) at FMA width, on (i)'s own inputs ----------------------------------
     fpr = fidx.points_r
@@ -1050,6 +1114,115 @@ def main(argv=None) -> int:
             break
         scale /= 4
     assert skipped + skip_r > 0, "SHORTC never skipped a tile at FMA width"
+
+    # -- path 7: (k) the mutable, durable SuSy index -------------------------
+    # (b)'s fused index (ε selected, so compact() selects it anew on the net
+    # corpus): inserts, deletes of base and inserted ids, the R≠S batch at
+    # K_MUT through the delta buffer and the fold, a save / load round trip
+    # and a compaction, each held bit-identical to what it must equal.
+    del fidx_p
+    reset_counts()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_k = time.perf_counter()
+    n_base = len(pts)
+    ins = (pointclouds.load("susy", n_override=N_INSERT)
+           + rng.normal(0, 0.01, (N_INSERT, pts.shape[1]))).astype(np.float32)
+    t0 = time.perf_counter()
+    gids = index.insert(ins)
+    t_ins = time.perf_counter() - t0
+    # The base ids deleted are nearest neighbours (c) returned, so the fold
+    # must mask them; the inserted ids are the first inserted rows.
+    base_del = np.unique(r2.ids[sub, 0])[:N_DELETE]
+    t0 = time.perf_counter()
+    deleted = np.concatenate([base_del, gids[:N_DELETE]])
+    index.delete(deleted)
+    t_del = time.perf_counter() - t0
+    assert index.n_points == n_base + N_INSERT - 2 * N_DELETE and not index.is_clean
+    with FirstCall(mut_lib, "delta_topk",
+                   count=lambda: topk_kernel.launches["knn_tile_topk"]) as delta_call:
+        t0 = time.perf_counter()
+        rk = index.query(foreign, k=K_MUT)
+        t_q = time.perf_counter() - t0
+        k_main = K_MUT + mut_lib.headroom_bucket(N_DELETE, False)
+        log(f"[k] mutated R≠S K={K_MUT} (k_main={k_main}): {stats_line(rk, FOREIGN_QUERIES)} "
+            f"t_delta={rk.stats.t_delta:.3f}s in {t_q:.3f}s; engine buckets "
+            f"{index.compile_counts}; entries from the delta buffer "
+            f"{int((rk.ids >= n_base).sum())}")
+        assert "delta" in index.compile_counts and "merge" in index.compile_counts, \
+            "(k) the delta and merge engines did not run"
+        # The net corpus, built here from what was inserted and deleted.
+        live = np.ones(n_base + N_INSERT, bool)
+        live[deleted] = False
+        net_gids = np.flatnonzero(live)
+        net_d = torch.cat([pts_d, torch.as_tensor(ins, device=dev)])[torch.as_tensor(live, device=dev)]
+        pos = np.searchsorted(net_gids, rk.ids[sub])
+        assert (net_gids[np.clip(pos, 0, len(net_gids) - 1)] == rk.ids[sub]).all(), \
+            "(k) a returned id is not live"
+        check_exact(net_d, fq[sub], None, rk.dists[sub], pos, f"mutated R≠S K={K_MUT}")
+        del net_d
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            step = index.save(ckpt)
+            t_save = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ckpt) for f in fs)
+            t0 = time.perf_counter()
+            loaded = KNNIndex.load(ckpt, device="cuda")
+            t_load = time.perf_counter() - t0
+        rl = loaded.query(foreign, k=K_MUT)
+        assert not loaded.is_clean and np.array_equal(rl.ids, rk.ids) \
+            and np.array_equal(rl.dists, rk.dists), "(k) the loaded index answers differently"
+        del loaded, rl
+    log(f"[k] insert {N_INSERT} {t_ins:.3f}s, delete {2 * N_DELETE} {t_del:.3f}s, save step "
+        f"{step} {t_save:.3f}s ({size / 2**20:.1f} MiB on disk), load {t_load:.3f}s; the loaded "
+        f"index's answers are bit-identical")
+    net_pts = index.net_points()
+    t0 = time.perf_counter()
+    remap = index.compact()
+    t_compact = time.perf_counter() - t0
+    assert index.is_clean and (remap[base_del] == -1).all()
+    rc = index.query(foreign, k=K_MUT)
+    fresh = KNNIndex.build(net_pts, cfg, None, device="cuda")
+    rf = fresh.query(foreign, k=K_MUT)
+    assert np.array_equal(rc.ids, rf.ids) and np.array_equal(rc.dists, rf.dists), \
+        "(k) the compacted index differs from a fresh build on net_points()"
+    moved = int((rc.ids != remap[rk.ids]).sum())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[k] compact {t_compact:.3f}s (ε selected anew: {index.eps:.6g}, "
+        f"t_select_eps={index.t_select_eps:.3f}s t_build={index.t_build:.3f}s); the compacted "
+        f"index's answers equal a fresh build's bit for bit ({moved} of {rc.ids.size} entries "
+        f"name another id than the remapped dirty answer); phase {time.perf_counter() - t_k:.2f}s, "
+        f"peak device memory {peak / 2**30:.3f} GiB ({(peak - mem0) / 2**20:.1f} MiB above the "
+        f"{mem0 / 2**30:.3f} GiB held before)")
+    del fresh, rc, rf, net_pts
+    launches_k = read_counts("(k) mutable index")
+    log(f"[k] knn_tile_topk launches inside delta_topk: {delta_call.counted}")
+    assert delta_call.counted > 0, "(k) the delta buffer never launched knn_tile_topk"
+    for name in ("knn_tile_topk", "distance_bin_histogram"):
+        assert launches_k.get(name, 0) > 0, f"(k) never launched {name}"
+    (q6, c6, excl6, gid6), kw6 = delta_call.args
+    local6 = torch.where(gid6 >= 0, torch.arange(len(gid6), device=dev, dtype=torch.int32),
+                         gid6)
+    kernels.append(topk_check("knn_tile_topk (delta buffer)", q6, c6, excl6, local6, "l2",
+                              delta_call.counted, k=kw6["k"]))
+    del q6, c6, excl6, gid6, local6, delta_call, index
+
+    # -- path 8: (l) refimpl_knn on FMA, four simulated ranks ------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    rres, rank_times = refimpl_knn(fma, K, cfg, n_ranks=REFIMPL_RANKS, device="cuda")
+    t_ref = time.perf_counter() - t0
+    log(f"[l] refimpl FMA {fma.shape}, {REFIMPL_RANKS} ranks in {t_ref:.3f}s: eps="
+        f"{rres.stats.epsilon:.6g}, rank times {[round(t, 4) for t in rank_times]} s, "
+        f"Σt / max t = {sum(rank_times) / max(rank_times):.3f}")
+    check_exact(fma_d, fma_d[frows], frows, rres.dists[frows_np], rres.ids[frows_np],
+                "refimpl FMA", fp32_bound=True)
+    launches_l = read_counts("(l) refimpl")
+    for name in ("knn_tile_topk", "distance_bin_histogram"):
+        assert launches_l.get(name, 0) > 0, f"(l) never launched {name}"
+    del rres
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -1,14 +1,16 @@
 """The hybrid KNN self-join (paper Algorithm 1), ported to PyTorch.
 
 Public API: HybridConfig, HybridKNNJoin, JoinStats, KNNResult;
-brute_knn / self_join_brute (the GPU-JOINLINEAR baseline); the work-queue
+refimpl_knn (the REFIMPL baseline, §VI-C); brute_knn / self_join_brute
+(the GPU-JOINLINEAR baseline); the work-queue
 scheduler (AsyncEngineCall, QueueReport, WorkQueue, run_work_queue)."""
 from repro_torch.core.hybrid import HybridConfig, HybridKNNJoin, JoinStats, KNNResult
+from repro_torch.core.refimpl import refimpl_knn
 from repro_torch.core.brute import brute_knn, self_join_brute
 from repro_torch.core.queue import AsyncEngineCall, QueueReport, WorkQueue, run_work_queue
 
 __all__ = [
     "HybridConfig", "HybridKNNJoin", "JoinStats", "KNNResult",
-    "brute_knn", "self_join_brute",
+    "refimpl_knn", "brute_knn", "self_join_brute",
     "AsyncEngineCall", "QueueReport", "WorkQueue", "run_work_queue",
 ]

@@ -169,6 +169,12 @@ def neighbor_ranges(index: GridIndex, coords: torch.Tensor, offs=None):
     return starts, torch.where(valid, counts, torch.zeros_like(counts))
 
 
+def neighborhood_counts(index: GridIndex, coords: torch.Tensor) -> torch.Tensor:
+    """Total candidate count in the 3^m neighborhood of each query (Q,)."""
+    _, counts = neighbor_ranges(index, coords)
+    return counts.sum(-1)
+
+
 def gather_candidates(index: GridIndex, starts: torch.Tensor,
                       counts: torch.Tensor, budget: int):
     """Expand per-query candidate ranges (Q, R) into fixed-budget tiles.

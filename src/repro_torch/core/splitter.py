@@ -41,13 +41,22 @@ class WorkSplit(NamedTuple):
 
 
 def split_from_counts(home_counts: torch.Tensor, k: int, m: int, gamma: float,
-                      rho: float) -> WorkSplit:
+                      rho: float, net_adjust: torch.Tensor = None) -> WorkSplit:
     """Engine assignment from per-query home-cell populations: the density
     rule, then the ρ floor as a rank threshold on home-cell counts (dense
-    queries from the least-populated cells are demoted first)."""
+    queries from the least-populated cells are demoted first).
+
+    ``net_adjust`` (optional, (|Q|,) i32) corrects each query's home-cell
+    population for pending index mutations — +inserted, −tombstoned points
+    in the cell, clamped at 0 — so classification and the ρ-floor ranking
+    see the net corpus density; the returned ``home_counts`` are the
+    adjusted ones."""
     nq = home_counts.shape[0]
     dev = home_counts.device
     home_counts = home_counts.to(torch.int32)
+    if net_adjust is not None:
+        home_counts = torch.clamp(
+            home_counts + torch.as_tensor(net_adjust, device=dev).to(torch.int32), min=0)
     thresh = torch.tensor(n_thresh(k, m, gamma), dtype=torch.float32, device=dev)
     dense0 = home_counts.to(torch.float32) >= thresh
 
@@ -73,9 +82,10 @@ def split_work(index: grid_lib.GridIndex, k: int, gamma: float, rho: float) -> W
 
 
 def split_queries(index: grid_lib.GridIndex, q_coords: torch.Tensor, k: int,
-                  gamma: float, rho: float) -> WorkSplit:
+                  gamma: float, rho: float, net_adjust: torch.Tensor = None) -> WorkSplit:
     """Foreign-query (R≠S) split by the reference-grid density around each
-    query; queries in empty reference cells count 0 and go sparse."""
+    query; queries in empty reference cells count 0 and go sparse.
+    ``net_adjust`` as in ``split_from_counts``."""
     ids = grid_lib.linearize(q_coords, index.radices)
     _, home_counts = grid_lib.lookup_cells(index, ids)
-    return split_from_counts(home_counts, k, index.m, gamma, rho)
+    return split_from_counts(home_counts, k, index.m, gamma, rho, net_adjust=net_adjust)

@@ -1,4 +1,5 @@
-"""Runtime of the port: the index/query serving API and join sessions."""
+"""Runtime of the port: the index/query serving API (mutable and durable)
+and join sessions."""
 from repro_torch.runtime.knn_index import (
     KNNIndex, clear_engine_cache, validate_k, validate_points,
 )

@@ -1,7 +1,7 @@
 """Index/query serving API: build once, query many — in PyTorch.
 
-Port of ``repro/runtime/knn_index.py`` for one device, a clean (never
-mutated) index and exact results in the l2, ip or cosine metric:
+Port of ``repro/runtime/knn_index.py`` for one device and exact results in
+the l2, ip or cosine metric:
 
   * ``KNNIndex.build(points, config, device=...)`` runs the per-database
     steps once — REORDER by variance (§IV-D), ε selection (§V-C, the
@@ -9,7 +9,11 @@ mutated) index and exact results in the l2, ip or cosine metric:
   * ``index.query(queries, k=None, exclude_self=False)`` runs the hybrid
     dense/sparse/brute pipeline through the §V-A work queue for an
     arbitrary (R≠S) query set; ``index.query(exclude_self=True)`` is the
-    classic self-join.
+    classic self-join;
+  * ``insert`` / ``delete`` absorb corpus changes into a delta buffer and
+    tombstones that queries fold in exactly (``runtime/mutation.py``),
+    ``compact()`` rebuilds a fresh generation, and ``save`` / ``load``
+    write and replay a generation (``runtime/persistence.py``).
 
 Metrics (``retrieval/metrics.py``): cosine runs the l2 engines over unit
 rows; an ip index serves every query through the exact brute lane (ip has
@@ -42,6 +46,7 @@ from repro_torch.core import queue as queue_lib
 from repro_torch.core import sparse_knn as sparse_lib
 from repro_torch.core import splitter as split_lib
 from repro_torch.retrieval import metrics as met_lib
+from repro_torch.runtime import mutation as mut_lib
 from repro_torch.utils import pad_to, pow2_bucket, resolve_device, unported
 
 # Process-global engine shape-bucket keys (the JAX AOT cache's keys).
@@ -140,7 +145,11 @@ def _sync(device: torch.device) -> None:
 
 @dataclasses.dataclass
 class _Generation:
-    """The built snapshot of the reference cloud that ``query`` reads."""
+    """One immutable built snapshot of the reference cloud — everything
+    ``query`` reads that ``compact()`` replaces.  The index holds
+    ``self._live = (generation, mutations)`` and swaps that one reference
+    atomically, so an in-flight query (which snapshots the pair once at
+    entry) is unharmed by a concurrent compaction."""
 
     points_ref: object
     points_r: torch.Tensor
@@ -158,6 +167,14 @@ class _Generation:
     def n_base(self) -> int:
         return int(self.points_r.shape[0])
 
+    def points_np(self) -> np.ndarray:
+        """The base cloud in original dim order as float32 numpy."""
+        p = self.points_ref
+        return np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p, np.float32)
+
+    def dim_perm_np(self) -> Optional[np.ndarray]:
+        return None if self.dim_perm is None else self.dim_perm.cpu().numpy()
+
 
 class KNNIndex:
     """A built reference cloud plus everything needed to serve queries.
@@ -165,16 +182,32 @@ class KNNIndex:
     >>> index = KNNIndex.build(db_points, HybridConfig(k=10), device="cuda")
     >>> r = index.query(batch)                     # R≠S join, k=10
     >>> r = index.query(exclude_self=True)         # the classic self-join
+
+    The index is mutable (DESIGN.md §6): ``insert(points)`` /
+    ``delete(ids)`` absorb corpus changes that queries fold in exactly,
+    and ``compact()`` rebuilds into a fresh generation (auto-triggered when
+    either side outgrows ``config.mutation_compact_frac``·|D|).  Global
+    ids: build row i is id i; the j-th insert since the last compaction is
+    ``n_base + j``; compaction renumbers (it returns the remap).
     """
 
     def __init__(self, config, *, backend: str, device: torch.device,
                  generation: _Generation, t_select_eps: float = 0.0,
                  t_build: float = 0.0,
-                 compile_counts: Optional[Dict[str, int]] = None):
+                 compile_counts: Optional[Dict[str, int]] = None,
+                 epsilon_arg: Optional[float] = None):
         self.config = config
         self.backend = backend
         self.device = device
-        self._gen = generation
+        # The atomic (generation, mutations) pair; delta rows arrive in the
+        # corpus' original dim order.
+        self._live: Tuple[_Generation, mut_lib.MutationState] = (
+            generation, mut_lib.MutationState.empty(int(generation.points_r.shape[1])))
+        self.generation = 0
+        # The ε argument build() was given (None = re-select), replayed by
+        # compact() so a rebuilt generation is bit-identical to
+        # KNNIndex.build(net_corpus, config, epsilon_arg).
+        self._epsilon_arg = epsilon_arg
         self.t_select_eps = t_select_eps
         self.t_build = t_build
         self.compile_counts = (
@@ -186,11 +219,16 @@ class KNNIndex:
     @classmethod
     def build(cls, points, config, epsilon: Optional[float] = None, *,
               device="cuda", backend: Optional[str] = None,
-              compile_counts: Optional[Dict[str, int]] = None, mesh=None):
+              compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+              _prebuilt: Optional[tuple] = None):
         """Steps 1–3 of Algorithm 1, once per database: REORDER, ε
         selection (skipped when ``epsilon`` is pinned), grid + pyramid.
         Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU;
-        a missing card raises)."""
+        a missing card raises).
+
+        ``_prebuilt`` is internal (``load``): a ``(points_r, dim_perm, eps,
+        eps_beta)`` tuple replaying a saved generation's REORDER and ε
+        verbatim, so a load never recomputes either."""
         if mesh is not None:
             raise unported("KNNIndex.build(mesh=...)", "queue A item 15")
         dev = resolve_device(device)
@@ -202,13 +240,20 @@ class KNNIndex:
         validate_k(cfg.k, npts - 1, what="config.k",
                    context=" (build needs k < |D|)")
 
-        pts = torch.as_tensor(pts_np, device=dev)
-        if cfg.reorder:
-            points_r, dim_perm = grid_lib.reorder_by_variance(pts)
-            points_r = points_r.contiguous()
+        if _prebuilt is not None:
+            points_r, dim_perm, eps, eps_beta = _prebuilt
+            points_r = torch.as_tensor(np.asarray(points_r, np.float32), device=dev)
+            if dim_perm is not None:
+                dim_perm = torch.as_tensor(np.asarray(dim_perm), device=dev).long()
+            t_select = 0.0
         else:
-            points_r, dim_perm = pts, None
-        eps, eps_beta, t_select = select_epsilon(points_r, cfg, epsilon, npts)
+            pts = torch.as_tensor(pts_np, device=dev)
+            if cfg.reorder:
+                points_r, dim_perm = grid_lib.reorder_by_variance(pts)
+                points_r = points_r.contiguous()
+            else:
+                points_r, dim_perm = pts, None
+            eps, eps_beta, t_select = select_epsilon(points_r, cfg, epsilon, npts)
         m = min(cfg.m, ndim)
 
         t0 = time.perf_counter()
@@ -227,66 +272,169 @@ class KNNIndex:
                    backend=dense_lib.resolve_backend(
                        backend if backend is not None else cfg.backend, dev),
                    device=dev, generation=gen, t_select_eps=t_select,
-                   t_build=t_build, compile_counts=compile_counts)
+                   t_build=t_build, compile_counts=compile_counts,
+                   epsilon_arg=epsilon)
+
 
     # -- introspection -----------------------------------------------------
+    # Generation-owned state reads the LIVE generation, so it moves when
+    # compact() swaps it.
 
     @property
     def points(self):
-        """The array ``build`` was given (original dim order)."""
-        return self._gen.points_ref
+        """The live generation's base cloud in original dim order (the array
+        passed to ``build``, or the net corpus of the last compaction); with
+        mutations pending, prefer ``net_points()``."""
+        return self._live[0].points_ref
 
     @property
     def points_r(self):
-        return self._gen.points_r
+        return self._live[0].points_r
 
     @property
     def dim_perm(self):
-        return self._gen.dim_perm
+        return self._live[0].dim_perm
 
     @property
     def eps(self) -> float:
-        return self._gen.eps
+        return self._live[0].eps
 
     @property
     def eps_beta(self) -> float:
-        return self._gen.eps_beta
+        return self._live[0].eps_beta
 
     @property
     def grid(self):
-        return self._gen.grid
+        return self._live[0].grid
+
+    @property
+    def pyramid(self):
+        return self._live[0].pyramid
 
     @property
     def home_counts(self):
-        return self._gen.home_counts
+        return self._live[0].home_counts
 
     @property
     def n_dims(self) -> int:
-        return int(self._gen.points_r.shape[1])
+        return int(self._live[0].points_r.shape[1])
+
+    @property
+    def n_base(self) -> int:
+        """Base-corpus size of the live generation (grid/pyramid rows)."""
+        return self._live[0].n_base
+
+    @property
+    def n_points(self) -> int:
+        """Live corpus size: |base| − tombstones + live delta rows."""
+        gen, mut = self._live
+        return mut.n_live(gen.n_base)
+
+    @property
+    def n_delta(self) -> int:
+        """Live (non-tombstoned) delta-buffer rows."""
+        return self._live[1].n_delta_live
+
+    @property
+    def n_tombstones(self) -> int:
+        """Tombstoned base rows."""
+        return self._live[1].n_base_tombs
+
+    @property
+    def is_clean(self) -> bool:
+        """True iff no mutations are pending against the live generation —
+        queries take the unmodified path."""
+        return self._live[1].is_clean
 
     @property
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
 
-    # -- not in this slice ---------------------------------------------------
+    # -- persistence (DESIGN.md §7) ----------------------------------------
 
-    def insert(self, points):
-        raise unported("KNNIndex.insert", "queue A item 12")
-
-    def delete(self, ids):
-        raise unported("KNNIndex.delete", "queue A item 12")
-
-    def compact(self):
-        raise unported("KNNIndex.compact", "queue A item 12")
-
-    def save(self, directory, **kw):
-        raise unported("KNNIndex.save", "queue A item 12")
+    def save(self, directory: str, *, manager=None) -> int:
+        """Checkpoint the live generation (points, REORDER permutation, ε,
+        mutation state) as the next step of ``directory``; returns the step
+        written.  ``KNNIndex.load`` answers bit-identically."""
+        from repro_torch.runtime import persistence
+        return persistence.save_index(self, directory, manager=manager)
 
     @classmethod
-    def load(cls, directory, **kw):
-        raise unported("KNNIndex.load", "queue A item 12")
+    def load(cls, directory: str, *, step: Optional[int] = None, device="cuda",
+             backend: Optional[str] = None,
+             compile_counts: Optional[Dict[str, int]] = None, mesh=None):
+        """Rebuild a served index from a saved generation on ``device``:
+        REORDER and ε selection are replayed, not recomputed."""
+        from repro_torch.runtime import persistence
+        return persistence.load_index(directory, step=step, device=device,
+                                      backend=backend, compile_counts=compile_counts,
+                                      mesh=mesh)
+
+    # -- mutations (DESIGN.md §6) ------------------------------------------
+
+    def insert(self, points) -> np.ndarray:
+        """Add points to the corpus (delta buffer).  Returns the global ids
+        assigned to them, valid as of this call's return (post-compaction
+        ids when the insert tripped the auto-compact threshold)."""
+        points = met_lib.prepare_rows(
+            validate_points(points, self.n_dims, what="inserted points"),
+            self.config.metric, "inserted points", context="KNNIndex.insert")
+        gen, mut = self._live
+        new_mut, gids = mut.with_insert(points, gen.n_base, self.n_dims)
+        self._live = (gen, new_mut)
+        remap = self._maybe_autocompact()
+        if remap is not None:
+            gids = remap[gids]
+        return gids
+
+    def delete(self, ids) -> None:
+        """Remove points by global id (tombstones).  Raises ValueError on
+        unknown or already-deleted ids."""
+        gen, mut = self._live
+        self._live = (gen, mut.with_delete(ids, gen.n_base))
+        self._maybe_autocompact()
+
+    def net_points(self) -> np.ndarray:
+        """The live corpus in original dim order, ascending global id —
+        ``KNNIndex.build(index.net_points(), config)`` is the index
+        ``compact()`` swaps in."""
+        gen, mut = self._live
+        return mut.net_corpus(gen.points_np())[0]
+
+    def _maybe_autocompact(self) -> Optional[np.ndarray]:
+        gen, mut = self._live
+        frac = self.config.mutation_compact_frac
+        if mut.n_delta_rows > frac * gen.n_base or mut.n_base_tombs > frac * gen.n_base:
+            return self.compact()
+        return None
+
+    def compact(self) -> np.ndarray:
+        """Fold all pending mutations into a fresh generation: REORDER, ε
+        selection (replaying build()'s ε argument) and grid/pyramid over the
+        net corpus, then swap the (generation, mutations) pair atomically.
+
+        Returns the id remap: ``remap[old_gid]`` is the point's id in the
+        new generation, −1 if deleted.  Later queries are bit-identical to
+        ``KNNIndex.build(net_points, config, ε_arg)``."""
+        gen, mut = self._live
+        if mut.is_clean:
+            return np.arange(gen.n_base, dtype=np.int64)
+        net, _ = mut.net_corpus(gen.points_np())
+        if self.config.k >= len(net):
+            raise ValueError(f"cannot compact: k={self.config.k} needs more than the "
+                             f"{len(net)} live points")
+        remap = mut.remap_after_compact(gen.n_base)
+        fresh = KNNIndex.build(net, self.config, self._epsilon_arg, device=self.device,
+                               backend=self.backend, compile_counts=self.compile_counts)
+        self._live = (fresh._live[0], mut_lib.MutationState.empty(self.n_dims))
+        self.generation += 1
+        self.t_select_eps = fresh.t_select_eps
+        self.t_build = fresh.t_build
+        return remap
 
     # -- engine callables for the work queue -------------------------------
+    # Each closure binds one _Generation explicitly, so a compact() mid-query
+    # cannot mix generations' state.
 
     def _grid_metric(self) -> str:
         """The kernel metric of the grid-space engines: cosine rides the l2
@@ -374,7 +522,7 @@ class KNNIndex:
 
     def _self_split(self, gen: _Generation, k: int, rho: float):
         """Dense/sparse assignment of the indexed cloud itself (cached per
-        (k, ρ): home-cell densities never change)."""
+        (k, ρ): home-cell densities never change between compactions)."""
         hit = gen.self_splits.get((k, rho))
         if hit is not None:
             return hit
@@ -388,7 +536,71 @@ class KNNIndex:
         gen.self_splits[(k, rho)] = out
         return out
 
+    def _query_split(self, gen: _Generation, queries_r, k: int, net_cells=None):
+        """The §V-D split of a foreign query batch by reference-grid
+        density: (dense_ids, sparse_ids, home_counts, threshold).
+        ``net_cells`` — (live delta rows, tombstoned base rows), both in the
+        REORDER frame — corrects the densities to the net corpus."""
+        cfg = self.config
+        q_coords = grid_lib.compute_cell_coords(gen.grid, queries_r[:, : gen.grid.m])
+        net_adjust = None
+        if net_cells is not None:
+            q_cells = grid_lib.linearize(q_coords, gen.grid.radices).cpu().numpy()
+            net_adjust = torch.as_tensor(
+                mut_lib.net_cell_adjustment(gen.grid, q_cells, *net_cells), device=self.device)
+        split = split_lib.split_queries(gen.grid, q_coords, k, cfg.gamma, cfg.rho,
+                                        net_adjust=net_adjust)
+        to_dense = split.to_dense.cpu().numpy()
+        return (np.nonzero(to_dense)[0].astype(np.int32),
+                np.nonzero(~to_dense)[0].astype(np.int32),
+                split.home_counts.cpu().numpy(), float(split.threshold))
+
     # -- the query pipeline ------------------------------------------------
+
+    def _drain(self, gen: _Generation, kq: int, n_q: int, queries_rp, dense_ids,
+               sparse_ids, home_counts, exclude_self: bool):
+        """Steps 5–8 of Algorithm 1: the §V-A work queue over the three
+        engines.  Returns raw scores (squared L2 / −q·c), so merge-time
+        folds compare like with like."""
+        cfg = self.config
+        return queue_lib.run_work_queue(
+            npts=n_q, k=kq, dense_ids=dense_ids, sparse_ids=sparse_ids,
+            home_counts=home_counts,
+            dense_fn=self._dense_fn(gen, kq, queries_rp, exclude_self),
+            sparse_fn=self._sparse_fn(gen, kq, queries_rp, exclude_self),
+            brute_fn=self._brute_fn(gen, kq, queries_rp, exclude_self),
+            n_batches=cfg.n_batches, online_rebalance=cfg.online_rebalance,
+            sync_t1_after=cfg.rebalance_sync_batches,
+            min_sparse=int(math.ceil(cfg.rho * n_q)), demote_quantum=cfg.query_block,
+        )
+
+    def _stats(self, gen: _Generation, n_dense: int, n_sparse: int, threshold: float,
+               report, compiles_before: int, t_delta: float = 0.0):
+        return hybrid_lib.JoinStats(
+            epsilon=gen.eps, epsilon_beta=gen.eps_beta,
+            n_dense=n_dense, n_sparse=n_sparse,
+            n_failed=report.n_failed, n_uncertified=report.n_uncertified,
+            n_thresh=threshold,
+            t_dense=report.t_dense, t_sparse=report.t_sparse,
+            t_brute=report.t_brute, t_delta=t_delta, t_wall=report.t_wall + t_delta,
+            t1_per_query=report.t1_per_query, t2_per_query=report.t2_per_query,
+            rho_model=split_lib.rho_model(report.t1_per_query, report.t2_per_query),
+            n_batches=report.n_dense_batches,
+            batch_sizes=list(report.batch_sizes),
+            t_dense_batches=list(report.t_batches),
+            n_rebalanced=report.n_rebalanced,
+            n_sparse_rounds=report.n_sparse_rounds,
+            n_sparse_engine_total=report.n_sparse_engine_total,
+            rho_online=report.rho_online,
+            n_engine_compiles=self.total_compiles - compiles_before,
+        )
+
+    def _reordered(self, gen: _Generation, q_np: np.ndarray):
+        """(queries in the REORDER frame, the same rows padded to the
+        query-shape bucket) on the index's device."""
+        q = torch.as_tensor(q_np, device=self.device)
+        queries_r = q[:, gen.dim_perm] if gen.dim_perm is not None else q
+        return queries_r, pad_rows_pow2(queries_r, self.config.query_block).contiguous()
 
     def query(self, queries=None, k: Optional[int] = None,
               exclude_self: bool = False) -> "hybrid_lib.KNNResult":
@@ -397,10 +609,14 @@ class KNNIndex:
         indexed reference cloud: the §V-D split by reference-grid density,
         the §V-A work queue over both engines, §V-E failure reassignment
         and the brute backstop.  ``exclude_self`` masks reference point i
-        for query row i."""
-        gen = self._gen
+        for query row i (with ``queries=None`` on a mutated index, each
+        live point's own global id).  With mutations pending the delta
+        buffer and tombstones fold in at merge time (``_query_mutated``);
+        a clean index takes this path untouched."""
+        gen, mut = self._live
+        if not mut.is_clean:
+            return self._query_mutated(gen, mut, queries, k, exclude_self)
         cfg = self.config
-        rho = cfg.rho
         npts_ref = gen.n_base
         max_k = npts_ref - 1 if exclude_self else npts_ref
         kq = validate_k(cfg.k if k is None else k, max_k,
@@ -415,53 +631,22 @@ class KNNIndex:
             q_np = met_lib.prepare_rows(validate_points(queries, self.n_dims),
                                         cfg.metric, "queries", context="KNNIndex.query")
             n_q = int(q_np.shape[0])
-            q = torch.as_tensor(q_np, device=self.device)
-            queries_r = q[:, gen.dim_perm] if gen.dim_perm is not None else q
-            queries_rp = pad_rows_pow2(queries_r, cfg.query_block).contiguous()
+            queries_r, queries_rp = self._reordered(gen, q_np)
         if cfg.metric == "ip":
             return self._query_brute_all(gen, kq, n_q, queries_rp, exclude_self,
                                          compiles_before)
 
         if is_self:
-            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, rho)
+            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, cfg.rho)
             home_counts = gen.home_counts
         else:
-            q_coords = grid_lib.compute_cell_coords(gen.grid, queries_r[:, : gen.grid.m])
-            split = split_lib.split_queries(gen.grid, q_coords, kq, cfg.gamma, rho)
-            to_dense = split.to_dense.cpu().numpy()
-            dense_ids = np.nonzero(to_dense)[0].astype(np.int32)
-            sparse_ids = np.nonzero(~to_dense)[0].astype(np.int32)
-            home_counts = split.home_counts.cpu().numpy()
-            threshold = float(split.threshold)
+            dense_ids, sparse_ids, home_counts, threshold = self._query_split(
+                gen, queries_r, kq)
 
-        final_d, final_i, source, report = queue_lib.run_work_queue(
-            npts=n_q, k=kq, dense_ids=dense_ids, sparse_ids=sparse_ids,
-            home_counts=home_counts,
-            dense_fn=self._dense_fn(gen, kq, queries_rp, exclude_self),
-            sparse_fn=self._sparse_fn(gen, kq, queries_rp, exclude_self),
-            brute_fn=self._brute_fn(gen, kq, queries_rp, exclude_self),
-            n_batches=cfg.n_batches, online_rebalance=cfg.online_rebalance,
-            sync_t1_after=cfg.rebalance_sync_batches,
-            min_sparse=int(math.ceil(rho * n_q)), demote_quantum=cfg.query_block,
-        )
-        stats = hybrid_lib.JoinStats(
-            epsilon=gen.eps, epsilon_beta=gen.eps_beta,
-            n_dense=len(dense_ids), n_sparse=len(sparse_ids),
-            n_failed=report.n_failed, n_uncertified=report.n_uncertified,
-            n_thresh=threshold,
-            t_dense=report.t_dense, t_sparse=report.t_sparse,
-            t_brute=report.t_brute, t_wall=report.t_wall,
-            t1_per_query=report.t1_per_query, t2_per_query=report.t2_per_query,
-            rho_model=split_lib.rho_model(report.t1_per_query, report.t2_per_query),
-            n_batches=report.n_dense_batches,
-            batch_sizes=list(report.batch_sizes),
-            t_dense_batches=list(report.t_batches),
-            n_rebalanced=report.n_rebalanced,
-            n_sparse_rounds=report.n_sparse_rounds,
-            n_sparse_engine_total=report.n_sparse_engine_total,
-            rho_online=report.rho_online,
-            n_engine_compiles=self.total_compiles - compiles_before,
-        )
+        final_d, final_i, source, report = self._drain(
+            gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+        stats = self._stats(gen, len(dense_ids), len(sparse_ids), threshold, report,
+                            compiles_before)
         return hybrid_lib.KNNResult(
             dists=met_lib.finalize(final_d, cfg.metric), ids=final_i,
             source=source, stats=stats)
@@ -481,3 +666,94 @@ class KNNIndex:
         return hybrid_lib.KNNResult(
             dists=met_lib.finalize(d, self.config.metric), ids=i,
             source=np.full((n_q,), 2, np.int32), stats=stats)
+
+    def _query_mutated(self, gen: _Generation, mut: mut_lib.MutationState, queries,
+                       k: Optional[int], exclude_self: bool) -> "hybrid_lib.KNNResult":
+        """The dirty-index query path: the main hybrid pipeline over the
+        base corpus at tombstone-headroomed k (no engine-level exclusion),
+        a brute top-K over the delta buffer (engine kind ``"delta"``), then
+        one merge-time fold (kind ``"merge"``) that masks tombstones and
+        self by global id and folds the delta block in — exact for any
+        mutation state."""
+        cfg = self.config
+        n_base = gen.n_base
+        n_live = mut.n_live(n_base)
+        max_k = n_live - 1 if exclude_self else n_live
+        kq = validate_k(cfg.k if k is None else k, max_k,
+                        context=(" (live, after self-exclusion)" if exclude_self
+                                 else " (live)"))
+        compiles_before = self.total_compiles
+
+        if queries is None:
+            q_np, net_gids = mut.net_corpus(gen.points_np())
+            excl = (net_gids.astype(np.int32) if exclude_self
+                    else np.full((len(q_np),), -2, np.int32))
+        else:
+            q_np = met_lib.prepare_rows(validate_points(queries, self.n_dims),
+                                        cfg.metric, "queries", context="KNNIndex.query")
+            excl = (np.arange(q_np.shape[0], dtype=np.int32) if exclude_self
+                    else np.full((q_np.shape[0],), -2, np.int32))
+        n_q = int(q_np.shape[0])
+        queries_r, queries_rp = self._reordered(gen, q_np)
+        qb = int(queries_rp.shape[0])
+        dim_perm = gen.dim_perm_np()
+
+        # Main pipeline, widened so merge-time masking cannot starve the
+        # top-k; engine-level exclusion is off (exclusion is by global id in
+        # the fold: the engines' positional identity means nothing against
+        # net-corpus queries).
+        k_main = min(kq + mut_lib.headroom_bucket(mut.n_base_tombs, exclude_self), n_base)
+        if cfg.metric == "ip":
+            # No triangle inequality: the widened main pipeline IS the brute lane.
+            dense_ids = sparse_ids = np.empty((0,), np.int32)
+            threshold = 0.0
+            t0 = time.perf_counter()
+            final_d, final_i = self._brute_fn(gen, k_main, queries_rp, False)(
+                np.arange(n_q, dtype=np.int32))
+            dt = time.perf_counter() - t0
+            source = np.full((n_q,), 2, np.int32)
+            report = queue_lib.QueueReport(t_brute=dt, t_wall=dt)
+        else:
+            # §V-D split against the NET density: base grid counts corrected
+            # by the delta / tombstone cell populations.
+            tombs = torch.as_tensor(mut.base_tombs, device=self.device).long()
+            net_cells = (mut.delta_r(dim_perm)[mut.delta_live],
+                         gen.points_r[tombs].cpu().numpy())
+            dense_ids, sparse_ids, home_counts, threshold = self._query_split(
+                gen, queries_r, kq, net_cells)
+            final_d, final_i, source, report = self._drain(
+                gen, k_main, n_q, queries_rp, dense_ids, sparse_ids, home_counts, False)
+
+        # Delta top-K + fold, over the padded query bucket as the engine
+        # shapes are keyed.
+        t0 = time.perf_counter()
+        dev = self.device
+        delta_pts_p, delta_gids = mut.padded_delta(dim_perm, n_base)
+        k_delta = min(kq, delta_pts_p.shape[0])
+        excl_p = np.full((qb,), -2, np.int32)
+        excl_p[:n_q] = excl
+        excl_t = torch.as_tensor(excl_p, device=dev)
+        dargs = (queries_rp, torch.as_tensor(delta_pts_p, device=dev), excl_t,
+                 torch.as_tensor(delta_gids, device=dev))
+        dkw = dict(k=k_delta, metric=self._grid_metric())
+        run_engine(self, "delta", dargs, dkw)
+        dd, di = mut_lib.delta_topk(*dargs, **dkw)
+
+        md = np.full((qb, k_main), np.inf, np.float32)
+        mi = np.full((qb, k_main), -1, np.int32)
+        md[:n_q] = final_d
+        mi[:n_q] = final_i
+        fargs = (torch.as_tensor(md, device=dev), torch.as_tensor(mi, device=dev), dd, di,
+                 torch.as_tensor(mut.tombstone_table(), device=dev), excl_t)
+        fkw = dict(k=kq)
+        run_engine(self, "merge", fargs, fkw)
+        fd, fi = mut_lib.fold_topk(*fargs, **fkw)
+        fd, fi = fd[:n_q].cpu().numpy(), fi[:n_q].cpu().numpy()
+        t_delta = time.perf_counter() - t0
+
+        stats = self._stats(gen, len(dense_ids), len(sparse_ids), threshold, report,
+                            compiles_before, t_delta=t_delta)
+        # Source labels the main-pipeline engine; delta-buffer hits don't
+        # relabel (the fold is uniform merge work).
+        return hybrid_lib.KNNResult(dists=met_lib.finalize(fd, cfg.metric), ids=fi,
+                                    source=source, stats=stats)

@@ -46,7 +46,11 @@ class JoinSession:
 
     def _get_index(self, points, epsilon: Optional[float]) -> Tuple[KNNIndex, bool]:
         idx = self._index
-        if idx is not None and idx.points is points and self._index_eps_arg == epsilon:
+        # A mutated index no longer answers for the corpus it was built
+        # from: pending inserts/deletes make its net corpus differ, so
+        # rebuild rather than reuse.
+        if (idx is not None and idx.points is points and self._index_eps_arg == epsilon
+                and idx.is_clean):
             return idx, False
         idx = KNNIndex.build(points, self.config, epsilon, device=self.device,
                              backend=self.backend,

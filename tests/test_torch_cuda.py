@@ -361,3 +361,72 @@ def test_pairwise_sq_l2_matches_plain(card, n_q, n_c, dim, block_d, metric, shor
     assert torch.equal(ck, cr) and torch.equal(got, want)
     if shortc and n_chunks > 1:
         assert (ck < n_chunks).any(), "SHORTC skipped no tile"
+
+
+def _delta_case(rng, n_delta, n_q, dim, integer, n_base=1000):
+    """A delta buffer of ``n_delta`` inserted rows (every fifth tombstoned)
+    as ``padded_delta`` lays it out, and queries whose exclusion ids are −2
+    (nothing), or the global id of a live delta row they duplicate."""
+    from repro_torch.runtime import mutation as mut_lib
+    draw = ((lambda s: rng.integers(-3, 4, size=s)) if integer
+            else (lambda s: rng.normal(size=s)))
+    state = mut_lib.MutationState.empty(dim)
+    state, gids = state.with_insert(draw((n_delta, dim)).astype(np.float32), n_base, dim)
+    if n_delta > 1:
+        state = state.with_delete(gids[::5], n_base)
+    pts, dgids = state.padded_delta(None, n_base)
+    q = draw((n_q, dim)).astype(np.float32)
+    excl = np.full((n_q,), -2, np.int32)
+    live = np.flatnonzero(dgids >= 0)
+    if len(live):
+        own = live[rng.integers(0, len(live), n_q // 3)]
+        q[: n_q // 3] = pts[own]
+        excl[: n_q // 3] = dgids[own]
+    return q, pts, excl, dgids
+
+
+@pytest.mark.parametrize("n_delta,integer", [(1, False), (32, False), (33, True),
+                                             (4096, False), (4096, True)])
+def test_delta_topk_matches_plain(card, n_delta, integer):
+    """The delta buffer's top-K (``mutation.delta_topk``, the knn_tile_topk
+    kernel on the card) against its plain version on the CPU, on ragged
+    buffers padded to DELTA_BLOCK buckets: tombstoned and padding rows
+    never return, an excluded id (a query's own) never returns, −2
+    excludes nothing; on integer data ids agree exactly (ties keep the
+    lower buffer position)."""
+    from repro_torch.runtime import mutation as mut_lib
+    n_base, k = 1000, 16
+    rng = np.random.default_rng(n_delta + integer)
+    q, pts, excl, dgids = _delta_case(rng, n_delta, 300, 18, integer, n_base)
+    k = min(k, len(pts))
+    kd, ki = mut_lib.delta_topk(*(torch.as_tensor(x, device=card)
+                                  for x in (q, pts, excl, dgids)), k=k)
+    rd, ri = mut_lib.delta_topk(*(torch.as_tensor(x) for x in (q, pts, excl, dgids)), k=k)
+    torch.cuda.synchronize()
+    pts_d = torch.as_tensor(pts, device=card)
+    _hold(kd, ki, rd.to(card), ri.to(card), torch.as_tensor(q, device=card),
+          lambda i: pts_d[(i - n_base).clamp(min=0)], "l2", exact=integer)
+    got = ki.cpu().numpy()
+    assert np.isin(got[got >= 0], dgids[dgids >= 0]).all(), "a tombstoned row returned"
+    assert not (got == excl[:, None]).any(), "an excluded id returned"
+
+
+def test_fold_topk_on_card_equals_cpu(card):
+    """The merge-time fold on the card equals its CPU result bit for bit:
+    tombstones and the excluded id masked, equal scores keep the main block
+    first and the lower position within a block."""
+    from repro_torch.runtime import mutation as mut_lib
+    rng = np.random.default_rng(5)
+    n_q, k_main, k_delta, k = 257, 32, 16, 16
+    main_d = np.sort(rng.integers(0, 40, (n_q, k_main)).astype(np.float32), 1)
+    main_i = rng.integers(0, 500, (n_q, k_main)).astype(np.int32)
+    main_d[:, -3:], main_i[:, -3:] = np.inf, -1
+    delta_d = np.sort(rng.integers(0, 40, (n_q, k_delta)).astype(np.float32), 1)
+    delta_i = rng.integers(500, 600, (n_q, k_delta)).astype(np.int32)
+    state = mut_lib.MutationState.empty(2).with_delete(rng.choice(500, 37, replace=False), 500)
+    tombs = state.tombstone_table()
+    excl = np.where(rng.random(n_q) < 0.5, main_i[:, 0], -2).astype(np.int32)
+    args = (main_d, main_i, delta_d, delta_i, tombs, excl)
+    gd, gi = mut_lib.fold_topk(*(torch.as_tensor(x, device=card) for x in args), k=k)
+    wd, wi = mut_lib.fold_topk(*(torch.as_tensor(x) for x in args), k=k)
+    assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
