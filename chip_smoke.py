@@ -73,10 +73,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          ``net_points()``); step times, save size and peak memory;
   (l)    ``refimpl_knn`` on the FMA cloud at four ranks (ε selection, the
          sparse engine and the ``knn_tile_topk`` backstop), exact at 518
-         dims; rank times and Σ t / max t.
+         dims; rank times and Σ t / max t;
+  (m)    the projection front stage on FMA: the first 102,904 rows indexed
+         through a 6-dim PCA (``projection_dim=6``, K = 10), the last 4,096
+         foreign queries that calibration never sees; l2 at
+         ``recall_target`` 0.9 and 1.0, ip over the MIPS fit at 0.9, and the
+         l2 self-join at 0.9.  Each run prints the calibrated rung (or the
+         full-dimension brute fallback), the estimate, recall@10 against a
+         float64 oracle in the index's metric, ``t_wall`` and the rescore
+         time; where a rung served, recall ≥ target − 0.01, where the
+         fallback served, exact; every distance is its id's float64 score;
+         a repeat adds no bucket; the l2 index survives save / load with
+         bit-identical answers.  Plain versions run only through the
+         counted k > 32 reroute (k_cand = 40 and 80 rungs);
+  (n)    the grid lean pass on SuSy: (b)'s points with (b)'s ε pinned and
+         ``recall_target=0.9`` serve (c)'s batch: the calibrated ε scale (or
+         the exact fallback, then bit-identical to (c)), the estimate and
+         recall on 2,048 rows against float64; an index at
+         ``recall_target=1.0`` answers bit-identically to (c).
 
-Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l) — sets the kernel launch
-counters to 0 just before it and reads them just after.  The last lines are the
+(a) also holds the kernel shapes (m) first launched: ``knn_stream_topk_prefetch``
+and ``knn_tile_topk`` at the projected 6 dims, ``distance_bin_histogram`` over
+the projected corpus, ``knn_tile_topk[ip]`` at 518 dims.
+
+Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n) — sets the
+kernel launch counters to 0 just before it and reads them just after.  The last lines are the
 card's name and power limit, one JSON line with every kernel's numbers,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -113,6 +134,9 @@ K_MUT = 16                          # (k): k_main = 16 + 16 headroom stays on th
 N_INSERT = 4096
 N_DELETE = 16                       # base ids, and as many inserted ids
 REFIMPL_RANKS = 4
+K_PROJ = 10                         # the paper's FMA K (benchmarks/common.py)
+PROJ_QUERIES = 4096                 # (m): FMA's last rows, foreign to the corpus
+PROJ_DIM = 6
 
 
 def log(msg: str) -> None:
@@ -471,6 +495,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pairwise_l2 import kernel as pair_kernel
     from repro_torch.kernels.pairwise_l2 import ref as pair_ref
     from repro_torch.retrieval import normalize_rows
+    from repro_torch.retrieval.calibrate import recall_at_k
     from repro_torch.runtime import KNNIndex
     from repro_torch.runtime import mutation as mut_lib
 
@@ -487,16 +512,25 @@ def main(argv=None) -> int:
         hist_kernel.launches = 0
         stream_ops.oversized_k_reroutes = topk_ops.oversized_k_reroutes = 0
 
-    def read_counts(what, topk_reroutes=0):
+    def read_counts(what, topk_reroutes=0, stream_reroutes=0):
         counts = {**stream_kernel.launches, **topk_kernel.launches,
                   **pair_kernel.launches, "distance_bin_histogram": hist_kernel.launches}
         reroutes = {"knn_stream": stream_ops.oversized_k_reroutes,
                     "knn_topk": topk_ops.oversized_k_reroutes}
         log(json.dumps({"path": what, "launch_counters": counts,
                         "oversized_k_reroutes": reroutes}))
-        assert reroutes == {"knn_stream": 0, "knn_topk": topk_reroutes}, \
-            f"{what}: oversized-k reroutes {reroutes}, expected {topk_reroutes} of knn_topk"
+        want = {"knn_stream": stream_reroutes, "knn_topk": topk_reroutes}
+        assert reroutes == want, f"{what}: oversized-k reroutes {reroutes}, expected {want}"
         return counts
+
+    def past_k_calls():
+        """Spies that note the k of every knn_topk and gathered-route call:
+        each call past the kernels' k must be one counted reroute."""
+        return (FirstCall(topk_ops, "knn_topk", note=lambda *a, **kw: kw["k"]),
+                FirstCall(stream_ops, "knn_stream_topk_tiles", note=lambda *a, **kw: kw["k"]))
+
+    def past_k(spy):
+        return sum(k > topk_kernel.MAX_UNROLLED_K for k in spy.notes)
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -528,6 +562,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     index = KNNIndex.build(pts, cfg, device="cuda")
+    eps_b = index.eps
     log(f"[b] build {time.perf_counter() - t0:.2f}s: eps={index.eps:.6g} "
         f"t_select_eps={index.t_select_eps:.3f}s t_build={index.t_build:.3f}s "
         f"backend={index.backend}")
@@ -1223,6 +1258,196 @@ def main(argv=None) -> int:
     for name in ("knn_tile_topk", "distance_bin_histogram"):
         assert launches_l.get(name, 0) > 0, f"(l) never launched {name}"
     del rres
+
+    # -- path 9: (m) the projection front stage on FMA -----------------------
+    # The first 102,904 rows are the corpus; the last 4,096 are foreign
+    # queries that calibration never samples.  Each run serves its rung, or
+    # exact full-dimension brute where no rung met the target on the
+    # held-out sample (the reference's contract).
+    del fidx
+    n_corpus = FMA_POINTS - PROJ_QUERIES
+    corpus_m, fq_m = fma[:n_corpus], fma[n_corpus:]
+    corpus_md, fq_md = fma_d[:n_corpus], fma_d[n_corpus:]
+    mrows = torch.as_tensor(rng.choice(n_corpus, ORACLE_ROWS, replace=False), device=dev)
+    mrows_np = mrows.cpu().numpy()
+    cfg_m = HybridConfig(k=K_PROJ, m=6, gamma=0.4, rho=0.2, online_rebalance=False,
+                         projection_dim=PROJ_DIM, projection_kind="pca", recall_target=0.9)
+
+    def check_scores(points, queries, ids, dists, metric, what):
+        """Each reported distance against the float64 true-metric score of
+        its returned id: within 1e-4 · scale, or the expansion form's fp32
+        bound carried to the distance where that is larger (the
+        full-dimension brute scores through knn_tile_topk)."""
+        gi = torch.as_tensor(ids, device=dev).long()
+        assert (gi >= 0).all(), f"{what}: missing neighbours"
+        q, c = queries.double(), points[gi].double()
+        if metric == "ip":
+            want = -(c * q[:, None, :]).sum(-1)
+        else:
+            want = ((c - q[:, None, :]) ** 2).sum(-1).sqrt()
+        e = expansion_bound(q.norm(dim=1)[:, None], c.norm(dim=-1), q.shape[1])
+        carried = e if metric == "ip" else torch.minimum(e / want.clamp(min=1e-300), e.sqrt())
+        tol = torch.maximum(carried, torch.full_like(e, 1e-4 * max(1.0, want.abs().max().item())))
+        err = (torch.as_tensor(dists, device=dev).double() - want).abs()
+        log(f"  {what}: {gi.shape[0]} rows, max |d − score64(id)| {err.max().item():.3e}, "
+            f"largest error / tolerance {(err / tol).max().item():.3f}")
+        assert (err <= tol).all(), f"{what}: a distance is not its id's score"
+
+    def serve_projected(what, idx, queries, q_d, metric, target, exclude_self=False):
+        """One projected run: serve, measure recall against float64, check
+        the served branch, repeat (no new bucket, same answer)."""
+        t0 = time.perf_counter()
+        res = idx.query(queries, exclude_self=exclude_self)
+        t_call = time.perf_counter() - t0
+        cm, est = idx._live[0].calib[("proj", K_PROJ, target)]
+        if exclude_self:
+            sel, qids, q_rows = mrows_np, mrows, corpus_md[mrows]
+        else:
+            sel, qids, q_rows = np.arange(len(queries)), None, q_d
+        _, oi = oracle64(corpus_md, q_rows, qids, K_PROJ, metric)
+        rec = recall_at_k(res.ids[sel], oi.cpu().numpy())
+        branch = (f"cand_mult={cm} (k_cand={cm * K_PROJ})" if cm is not None
+                  else "full-dim brute (no rung met the target)")
+        s = res.stats
+        log(f"[m] {what}: {branch}; recall_estimate={res.recall_estimate:.4f}; recall@{K_PROJ} "
+            f"vs float64 over {len(sel)} queries {rec:.4f}; t_wall={s.t_wall:.3f}s "
+            f"t_merge (rescore)={s.t_merge:.4f}s in {t_call:.3f}s; n_dense={s.n_dense} "
+            f"n_sparse={s.n_sparse} n_failed={s.n_failed} n_uncertified={s.n_uncertified} "
+            f"sources={np.bincount(res.source, minlength=3).tolist()} "
+            f"n_engine_compiles={s.n_engine_compiles}")
+        if cm is None:
+            assert res.recall_estimate == 1.0
+            check_exact(corpus_md, q_rows, qids, res.dists[sel], res.ids[sel], f"(m) {what}",
+                        metric, fp32_bound=True)
+        else:
+            assert rec >= target - 0.01, f"(m) {what}: recall {rec:.4f} below {target} − 0.01"
+            check_scores(corpus_md, q_rows, res.ids[sel], res.dists[sel], metric, f"(m) {what}")
+        counts = dict(idx.compile_counts)
+        again = idx.query(queries, exclude_self=exclude_self)
+        assert again.stats.n_engine_compiles == 0 and idx.compile_counts == counts, \
+            f"(m) {what}: the repeat added engine buckets"
+        assert again.recall_estimate == res.recall_estimate
+        assert np.array_equal(again.ids, res.ids) and np.array_equal(again.dists, res.dists)
+        return res
+
+    reset_counts()
+    t_m = time.perf_counter()
+    topk_k, tiles_k = past_k_calls()
+    with topk_k, tiles_k, \
+            FirstCall(hist_ops, "distance_bin_histogram") as m_hist_call, \
+            FirstCall(stream_ops, "knn_stream_topk_prefetch",
+                      lambda *a, **kw: a[0].shape[1] == PROJ_DIM) as m_stream_call, \
+            FirstCall(topk_ops, "knn_topk", lambda *a, **kw: a[0].shape[1] == PROJ_DIM
+                      and kw["k"] <= topk_kernel.MAX_UNROLLED_K) as m_topk6_call, \
+            FirstCall(topk_ops, "knn_topk", lambda *a, **kw: kw.get("metric") == "ip"
+                      and a[0].shape[0] >= PROJ_QUERIES) as m_ip_call:
+        t0 = time.perf_counter()
+        pidx = KNNIndex.build(corpus_m, cfg_m, device="cuda")
+        log(f"[m] FMA {corpus_m.shape} projected build {time.perf_counter() - t0:.2f}s: PCA fit + "
+            f"projection {pidx.t_project:.3f}s, projected eps={pidx.eps:.6g} "
+            f"t_select_eps={pidx.t_select_eps:.3f}s t_build={pidx.t_build:.3f}s, "
+            f"grid m={pidx.grid.m}")
+        rm = serve_projected("l2 R≠S, recall_target=0.9", pidx, fq_m, fq_md, "l2", 0.9)
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            pidx.save(ckpt)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ploaded = KNNIndex.load(ckpt, device="cuda")
+            t_load = time.perf_counter() - t0
+        rl = ploaded.query(fq_m)
+        assert np.array_equal(ploaded.projection.matrix, pidx.projection.matrix)
+        assert np.array_equal(rl.ids, rm.ids) and np.array_equal(rl.dists, rm.dists) \
+            and rl.recall_estimate == rm.recall_estimate, "(m) the loaded index answers differently"
+        log(f"[m] save {t_save:.3f}s, load {t_load:.3f}s: the loaded projected index's answers "
+            f"are bit-identical")
+        del ploaded, rl
+        pidx1 = KNNIndex.build(corpus_m, dataclasses.replace(cfg_m, recall_target=1.0), pidx.eps,
+                               device="cuda")
+        serve_projected("l2 R≠S, recall_target=1.0", pidx1, fq_m, fq_md, "l2", 1.0)
+        del pidx1
+        t0 = time.perf_counter()
+        pidx_ip = KNNIndex.build(corpus_m, dataclasses.replace(cfg_m, metric="ip"), device="cuda")
+        log(f"[m] ip (MIPS fit, mips_m={pidx_ip.projection.mips_m:.6g}) build "
+            f"{time.perf_counter() - t0:.2f}s: projected eps={pidx_ip.eps:.6g}")
+        serve_projected("ip R≠S, recall_target=0.9", pidx_ip, fq_m, fq_md, "ip", 0.9)
+        del pidx_ip
+        serve_projected("l2 self-join, recall_target=0.9", pidx, None, None, "l2", 0.9,
+                        exclude_self=True)
+    launches_m = read_counts("(m) projection front stage", topk_reroutes=past_k(topk_k),
+                             stream_reroutes=past_k(tiles_k))
+    log(f"[m] phase {time.perf_counter() - t_m:.2f}s; knn_topk calls at k > "
+        f"{topk_kernel.MAX_UNROLLED_K}: {past_k(topk_k)}, gathered-route calls: {past_k(tiles_k)}")
+    for name in ("knn_stream_topk_prefetch", "knn_tile_topk", "knn_tile_topk[ip]",
+                 "distance_bin_histogram"):
+        assert launches_m.get(name, 0) > 0, f"(m) never launched {name}"
+
+    # -- (a) the shapes (m) launched -------------------------------------------
+    (q1m, c1m, blk1m, qid1m, cand1m, e1m), kw1m = m_stream_call.args
+    err, ms, plain_ms, b = stream_check(
+        f"knn_stream_topk_prefetch projected FMA, D={PROJ_DIM}, k={kw1m['k']}",
+        (q1m, c1m, blk1m, qid1m, cand1m), e1m, kw1m["k"], "l2", pidx.points_r, q1m)
+    kernels.append(kernel_entry("knn_stream_topk_prefetch (projected, D=6)", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:220",
+                                launches_m.get("knn_stream_topk_prefetch", 0), err, ms,
+                                plain_ms, b, None))
+    (q3m, c3m, qid3m, cid3m), kw3m = m_topk6_call.args
+    kernels.append(topk_check(f"knn_tile_topk projected brute lane, D={PROJ_DIM}", q3m, c3m,
+                              qid3m, cid3m, "l2", launches_m.get("knn_tile_topk", 0),
+                              k=kw3m["k"]))
+    (q3i, c3i, qid3i, cid3i), kw3i = m_ip_call.args
+    kernels.append(topk_check("knn_tile_topk[ip] (FMA width, projected index's full-dim brute)",
+                              q3i, c3i, qid3i, cid3i, "ip",
+                              launches_m.get("knn_tile_topk[ip]", 0), fp32_bound=True,
+                              k=kw3i["k"]))
+    (q4m, p4m, bwm, nbm), kw4m = m_hist_call.args
+    kernels.append(hist_check(f"distance_bin_histogram projected FMA, D={PROJ_DIM}", q4m, p4m,
+                              kw4m["self_indices"], bwm, nbm,
+                              launches_m["distance_bin_histogram"]))
+    del pidx, m_stream_call, m_topk6_call, m_ip_call, m_hist_call, q1m, c1m, q3m, c3m, q3i, c3i
+    del q4m, p4m
+
+    # -- path 10: (n) the grid lean pass on SuSy ---------------------------------
+    # (b)'s points with (b)'s ε pinned (the same grid) at recall_target=0.9
+    # serve (c)'s batch; an index at recall_target=1.0 must answer as (c).
+    reset_counts()
+    t_n = time.perf_counter()
+    topk_k, tiles_k = past_k_calls()
+    with topk_k, tiles_k:
+        t0 = time.perf_counter()
+        lean = KNNIndex.build(pts, dataclasses.replace(cfg, recall_target=0.9), eps_b,
+                              device="cuda")
+        t_lean_build = time.perf_counter() - t0
+        rn = lean.query(foreign)
+        scale, est = lean._live[0].calib[("grid", K, 0.9)]
+        _, oi = oracle64(pts_d, fq[sub], None, K)
+        rec = recall_at_k(rn.ids[sub], oi.cpu().numpy())
+        log(f"[n] lean index build {t_lean_build:.2f}s (ε pinned to (b)'s {eps_b:.6g}); R≠S "
+            f"{FOREIGN_QUERIES} queries: "
+            + (f"eps_scale={scale}" if scale is not None
+               else "exact fallback (no lean tier met 0.9)")
+            + f", recall_estimate={rn.recall_estimate:.4f}, recall@{K} on {ORACLE_ROWS} rows vs "
+            f"float64 {rec:.4f}; {stats_line(rn, FOREIGN_QUERIES)} (c): t_wall="
+            f"{r2.stats.t_wall:.3f}s")
+        if scale is None:
+            assert np.array_equal(rn.ids, r2.ids) and np.array_equal(rn.dists, r2.dists), \
+                "(n) the exact fallback differs from (c)"
+        else:
+            assert rec >= 0.9 - 0.01, f"(n) lean recall {rec:.4f} below 0.89"
+            check_scores(pts_d, fq[sub], rn.ids[sub], rn.dists[sub], "l2", "(n) lean R≠S")
+        again = lean.query(foreign)
+        assert again.stats.n_engine_compiles == 0 and again.recall_estimate == rn.recall_estimate
+        assert np.array_equal(again.ids, rn.ids) and np.array_equal(again.dists, rn.dists)
+        del lean, rn, again
+        exact1 = KNNIndex.build(pts, dataclasses.replace(cfg, recall_target=1.0), eps_b,
+                                device="cuda")
+        re1 = exact1.query(foreign)
+        assert np.array_equal(re1.ids, r2.ids) and np.array_equal(re1.dists, r2.dists) \
+            and re1.recall_estimate == 1.0, "(n) recall_target=1.0 differs from (c)"
+        log(f"[n] recall_target=1.0 index: bit-identical to (c); t_wall={re1.stats.t_wall:.3f}s")
+        del exact1, re1
+    read_counts("(n) lean pass", topk_reroutes=past_k(topk_k), stream_reroutes=past_k(tiles_k))
+    log(f"[n] phase {time.perf_counter() - t_n:.2f}s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

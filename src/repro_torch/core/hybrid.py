@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.retrieval.metrics import validate_metric
-from repro_torch.utils import pow2_bucket, unported
+from repro_torch.utils import pow2_bucket
 
 BACKENDS = ("ref", "pallas", "interpret", "fused", "auto")
 DISTANCE_DTYPES = ("fp32", "bf16")
@@ -25,9 +25,10 @@ class HybridConfig:
     """All paper parameters (Table II) plus execution knobs; see the JAX
     ``HybridConfig`` for each field's meaning.  ``backend`` "pallas" is the
     cell-tiled dense path (its ``pairwise_l2`` kernel on the card),
-    "interpret" an alias of it for CPU tensors.  Values the port
-    does not run yet raise ``NotImplementedError`` naming the ROADMAP item
-    that brings them."""
+    "interpret" an alias of it for CPU tensors.  ``recall_target < 1``
+    serves the calibrated approximate pass and ``projection_dim > 0`` the
+    projection front stage (``retrieval/calibrate.py``,
+    ``retrieval/projection.py``)."""
 
     k: int
     m: int = 6
@@ -88,10 +89,6 @@ class HybridConfig:
                 "kernel_mode names a JAX execution mode; the port dispatches "
                 f"kernels by the tensor's device, so it must be 'auto', got "
                 f"{self.kernel_mode!r}")
-        if self.recall_target < 1.0:
-            raise unported("recall_target < 1", "queue A item 13")
-        if self.projection_dim > 0:
-            raise unported("projection_dim > 0", "queue A item 13")
 
 
 @dataclasses.dataclass

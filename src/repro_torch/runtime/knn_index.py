@@ -16,9 +16,17 @@ the l2, ip or cosine metric:
     write and replay a generation (``runtime/persistence.py``).
 
 Metrics (``retrieval/metrics.py``): cosine runs the l2 engines over unit
-rows; an ip index serves every query through the exact brute lane (ip has
-no triangle inequality to bound a grid search); raw scores become reported
-distances once, in ``finalize``, at this boundary.
+rows; an un-projected ip index serves every query through the exact brute
+lane (ip has no triangle inequality to bound a grid search); raw scores
+become reported distances once, in ``finalize``, at this boundary.
+
+Approximate paths (DESIGN.md §9.3–9.4): ``recall_target < 1`` serves the
+calibrated lean pass of the grid engines (``_query_approx``), and
+``projection_dim > 0`` runs the exact pipeline over a fitted ≤ 8-dim
+projection of the corpus for a candidate pool that the ``"rescore"``
+engine reduces in the full dimension and the true metric
+(``_query_projected``); ``retrieval/calibrate.py`` measures either against
+exact answers on a held-out sample of corpus rows.
 
 Engine "compiles": the JAX package caches AOT executables per shape
 bucket.  PyTorch runs eagerly and the CUDA sources build once per
@@ -45,12 +53,19 @@ from repro_torch.core import grid as grid_lib
 from repro_torch.core import queue as queue_lib
 from repro_torch.core import sparse_knn as sparse_lib
 from repro_torch.core import splitter as split_lib
+from repro_torch.retrieval import calibrate as cal_lib
 from repro_torch.retrieval import metrics as met_lib
+from repro_torch.retrieval import projection as proj_lib
 from repro_torch.runtime import mutation as mut_lib
 from repro_torch.utils import pad_to, pow2_bucket, resolve_device, unported
 
 # Process-global engine shape-bucket keys (the JAX AOT cache's keys).
 _ENGINE_CACHE: set = set()
+
+# Bytes of gathered candidate rows the rescore engine holds at once: the
+# reference gathers every (query, candidate, dim) at once, 21.7 GB for an
+# FMA self-join at K = 10 and rescore_mult 8; here query rows go in chunks.
+RESCORE_CHUNK_BYTES = 1 << 28
 
 
 def clear_engine_cache() -> None:
@@ -143,6 +158,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def rescore_topk(points_full: torch.Tensor, queries_f: torch.Tensor,
+                 cand_ids: torch.Tensor, excl: torch.Tensor, *, k: int, metric: str,
+                 chunk_bytes: int = RESCORE_CHUNK_BYTES):
+    """Full-dimension exact rescore of the projection front stage's
+    candidate pools (engine kind ``"rescore"``, the reference's
+    ``_rescore_engine``): gather each query's candidate rows, score them in
+    the true kernel metric (squared L2 in the difference form, or −q·c),
+    and keep the k best.  Invalid candidates (id −1) and the query's
+    excluded id score +inf and come back as −1.  Among equal scores the
+    lower pool position comes first, as ``lax.top_k`` orders them.  Query
+    rows go in chunks of at most ``chunk_bytes`` of gathered rows; a row's
+    result does not depend on the chunk."""
+    n_q, n_cand = cand_ids.shape
+    rows = max(1, chunk_bytes // max(1, n_cand * points_full.shape[1] * 4))
+    out_d, out_i = [], []
+    for r0 in range(0, n_q, rows):
+        ci = cand_ids[r0:r0 + rows]
+        q = queries_f[r0:r0 + rows, None, :]
+        c = points_full[ci.clamp(min=0).long()]                 # (rows, n_cand, d)
+        if metric == "ip":
+            score = c.mul_(q).sum(-1).neg_()
+        else:
+            score = c.sub_(q).square_().sum(-1)
+        valid = (ci >= 0) & (ci != excl[r0:r0 + rows, None])
+        score = torch.where(valid, score, torch.full_like(score, float("inf")))
+        vals, pos = torch.sort(score, dim=1, stable=True)
+        kd = vals[:, :k]
+        out_d.append(kd)
+        out_i.append(torch.where(torch.isinf(kd), torch.full_like(ci[:, :k], -1),
+                                 ci.gather(1, pos[:, :k])))
+    return torch.cat(out_d), torch.cat(out_i)
+
+
 @dataclasses.dataclass
 class _Generation:
     """One immutable built snapshot of the reference cloud — everything
@@ -159,9 +207,18 @@ class _Generation:
     grid: grid_lib.GridIndex
     pyramid: sparse_lib.Pyramid
     home_counts: np.ndarray                 # (|D|,) self-cloud densities
+    # Projection front stage: when set, ``points_r``, the grid and the
+    # pyramid live in the projected (≤ 8-dim) space and ``points_full``
+    # holds the full-dimension corpus the rescore engine reads.
+    projection: Optional[proj_lib.Projection] = None
+    points_full: Optional[torch.Tensor] = None
     # Self-split cache per (k, ρ): (dense_ids, sparse_ids, threshold).
     self_splits: Dict[Tuple[int, float], Tuple[np.ndarray, np.ndarray, float]] = (
         dataclasses.field(default_factory=dict))
+    # Calibration cache: (path, k, target) -> (tier, recall_estimate),
+    # measured once per generation on a held-out corpus sample.
+    calib: Dict[tuple, Tuple[Optional[float], float]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def n_base(self) -> int:
@@ -174,6 +231,14 @@ class _Generation:
 
     def dim_perm_np(self) -> Optional[np.ndarray]:
         return None if self.dim_perm is None else self.dim_perm.cpu().numpy()
+
+    @property
+    def n_dims(self) -> int:
+        """Query-facing width: the full corpus width, also on a projected
+        generation."""
+        if self.projection is not None:
+            return self.projection.in_dim
+        return int(self.points_r.shape[1])
 
 
 class KNNIndex:
@@ -193,7 +258,7 @@ class KNNIndex:
 
     def __init__(self, config, *, backend: str, device: torch.device,
                  generation: _Generation, t_select_eps: float = 0.0,
-                 t_build: float = 0.0,
+                 t_build: float = 0.0, t_project: float = 0.0,
                  compile_counts: Optional[Dict[str, int]] = None,
                  epsilon_arg: Optional[float] = None):
         self.config = config
@@ -202,7 +267,7 @@ class KNNIndex:
         # The atomic (generation, mutations) pair; delta rows arrive in the
         # corpus' original dim order.
         self._live: Tuple[_Generation, mut_lib.MutationState] = (
-            generation, mut_lib.MutationState.empty(int(generation.points_r.shape[1])))
+            generation, mut_lib.MutationState.empty(generation.n_dims))
         self.generation = 0
         # The ε argument build() was given (None = re-select), replayed by
         # compact() so a rebuilt generation is bit-identical to
@@ -210,6 +275,9 @@ class KNNIndex:
         self._epsilon_arg = epsilon_arg
         self.t_select_eps = t_select_eps
         self.t_build = t_build
+        # Seconds of the projection's fit and of projecting the corpus (0 on
+        # a direct index or a load, which replays the saved map).
+        self.t_project = t_project
         self.compile_counts = (
             compile_counts if compile_counts is not None
             else {"dense": 0, "sparse": 0, "brute": 0})
@@ -224,12 +292,22 @@ class KNNIndex:
         """Steps 1–3 of Algorithm 1, once per database: REORDER, ε
         selection (skipped when ``epsilon`` is pinned), grid + pyramid.
         Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU;
-        a missing card raises).
+        a missing card raises).  With ``projection_dim > 0`` the projection
+        is fitted and applied on the host (numpy, as the reference does)
+        and REORDER is skipped: the grid indexes the projected rows, and
+        the full-width corpus stays on the device for the rescore.
 
         ``_prebuilt`` is internal (``load``): a ``(points_r, dim_perm, eps,
-        eps_beta)`` tuple replaying a saved generation's REORDER and ε
-        verbatim, so a load never recomputes either."""
+        eps_beta[, projection])`` tuple replaying a saved generation's
+        REORDER, ε and fitted projection verbatim, so a load never
+        recomputes any of them."""
         if mesh is not None:
+            if config.projection_dim > 0:
+                raise ValueError(
+                    "projection_dim > 0 is single-device in this release — the "
+                    "projection front stage and the sharded cell-order partition "
+                    "do not compose yet.  Build without a mesh, or drop the "
+                    "projection.")
             raise unported("KNNIndex.build(mesh=...)", "queue A item 15")
         dev = resolve_device(device)
         cfg = config
@@ -240,21 +318,37 @@ class KNNIndex:
         validate_k(cfg.k, npts - 1, what="config.k",
                    context=" (build needs k < |D|)")
 
+        projection = None
+        t_project = 0.0
         if _prebuilt is not None:
-            points_r, dim_perm, eps, eps_beta = _prebuilt
+            points_r, dim_perm, eps, eps_beta = _prebuilt[:4]
+            if len(_prebuilt) > 4:
+                projection = _prebuilt[4]
             points_r = torch.as_tensor(np.asarray(points_r, np.float32), device=dev)
             if dim_perm is not None:
                 dim_perm = torch.as_tensor(np.asarray(dim_perm), device=dev).long()
             t_select = 0.0
         else:
-            pts = torch.as_tensor(pts_np, device=dev)
-            if cfg.reorder:
-                points_r, dim_perm = grid_lib.reorder_by_variance(pts)
+            if cfg.projection_dim > 0:
+                # An ip index fits over the MIPS→L2 augmented corpus, so
+                # projected-l2 ranking tracks inner-product ranking.
+                t0 = time.perf_counter()
+                projection = proj_lib.fit_projection(
+                    pts_np, cfg.projection_dim, kind=cfg.projection_kind,
+                    seed=cfg.seed, mips=(cfg.metric == "ip"))
+                points_r = torch.as_tensor(projection.apply(pts_np, corpus=True),
+                                           device=dev)
+                dim_perm = None
+                t_project = time.perf_counter() - t0
+            elif cfg.reorder:
+                points_r, dim_perm = grid_lib.reorder_by_variance(
+                    torch.as_tensor(pts_np, device=dev))
                 points_r = points_r.contiguous()
             else:
-                points_r, dim_perm = pts, None
+                points_r, dim_perm = torch.as_tensor(pts_np, device=dev), None
             eps, eps_beta, t_select = select_epsilon(points_r, cfg, epsilon, npts)
-        m = min(cfg.m, ndim)
+        points_full = None if projection is None else torch.as_tensor(pts_np, device=dev)
+        m = min(cfg.m, int(points_r.shape[1]))
 
         t0 = time.perf_counter()
         eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
@@ -267,13 +361,14 @@ class KNNIndex:
         home_counts = grid.cell_counts[grid.point_cell_pos.long()].cpu().numpy()
         gen = _Generation(points_ref=points, points_r=points_r, dim_perm=dim_perm,
                           eps=eps, eps_beta=eps_beta, grid=grid, pyramid=pyramid,
-                          home_counts=home_counts)
+                          home_counts=home_counts, projection=projection,
+                          points_full=points_full)
         return cls(cfg,
                    backend=dense_lib.resolve_backend(
                        backend if backend is not None else cfg.backend, dev),
                    device=dev, generation=gen, t_select_eps=t_select,
-                   t_build=t_build, compile_counts=compile_counts,
-                   epsilon_arg=epsilon)
+                   t_build=t_build, t_project=t_project,
+                   compile_counts=compile_counts, epsilon_arg=epsilon)
 
 
     # -- introspection -----------------------------------------------------
@@ -317,7 +412,14 @@ class KNNIndex:
 
     @property
     def n_dims(self) -> int:
-        return int(self._live[0].points_r.shape[1])
+        """Query-facing width: what ``query`` / ``insert`` rows must have —
+        the full corpus width even when the grid lives in projected space."""
+        return self._live[0].n_dims
+
+    @property
+    def projection(self) -> Optional[proj_lib.Projection]:
+        """The live generation's fitted projection (None on a direct index)."""
+        return self._live[0].projection
 
     @property
     def n_base(self) -> int:
@@ -376,6 +478,7 @@ class KNNIndex:
         """Add points to the corpus (delta buffer).  Returns the global ids
         assigned to them, valid as of this call's return (post-compaction
         ids when the insert tripped the auto-compact threshold)."""
+        self._check_mutable()
         points = met_lib.prepare_rows(
             validate_points(points, self.n_dims, what="inserted points"),
             self.config.metric, "inserted points", context="KNNIndex.insert")
@@ -390,9 +493,18 @@ class KNNIndex:
     def delete(self, ids) -> None:
         """Remove points by global id (tombstones).  Raises ValueError on
         unknown or already-deleted ids."""
+        self._check_mutable()
         gen, mut = self._live
         self._live = (gen, mut.with_delete(ids, gen.n_base))
         self._maybe_autocompact()
+
+    def _check_mutable(self) -> None:
+        if self._live[0].projection is not None:
+            raise ValueError(
+                "insert/delete are not supported on a projection-fronted index "
+                "(the fitted projection would go stale against a drifting corpus) "
+                "— rebuild with KNNIndex.build(...) on the updated points, or set "
+                "projection_dim=0")
 
     def net_points(self) -> np.ndarray:
         """The live corpus in original dim order, ascending global id —
@@ -436,14 +548,21 @@ class KNNIndex:
     # Each closure binds one _Generation explicitly, so a compact() mid-query
     # cannot mix generations' state.
 
-    def _grid_metric(self) -> str:
+    def _grid_metric(self, gen: _Generation) -> str:
         """The kernel metric of the grid-space engines: cosine rides the l2
-        kernels over unit rows."""
+        kernels over unit rows, and a projected grid is always l2 space —
+        the true metric returns at rescore time."""
+        if gen.projection is not None:
+            return "l2"
         return met_lib.kernel_metric(self.config.metric)
 
-    def _dense_fn(self, gen: _Generation, k: int, queries_rp, exclude_self: bool):
+    def _dense_fn(self, gen: _Generation, k: int, queries_rp, exclude_self: bool,
+                  eps_scale: Optional[float] = None):
         cfg = self.config
-        eps_arg = torch.tensor(gen.eps, dtype=torch.float32, device=self.device)
+        # ε is a device operand: the lean pass's scaled ε reuses the exact
+        # path's engine bucket.
+        eps_arg = torch.tensor(gen.eps if eps_scale is None else gen.eps * eps_scale,
+                               dtype=torch.float32, device=self.device)
 
         def dense_fn(ids: np.ndarray):
             qp = hybrid_lib._pad_ids(ids, cfg.query_block, self.device)
@@ -453,7 +572,7 @@ class KNNIndex:
             kwargs = dict(
                 k=k, budget=cfg.dense_budget, query_block=cfg.query_block,
                 block_c=cfg.block_c, backend=self.backend,
-                exclude_self=exclude_self, metric=self._grid_metric(),
+                exclude_self=exclude_self, metric=self._grid_metric(gen),
                 distance_dtype=cfg.distance_dtype,
             )
             run_engine(self, "dense", args, kwargs)
@@ -478,7 +597,7 @@ class KNNIndex:
             kwargs = dict(
                 k=k, budget=cfg.sparse_budget, query_block=cfg.query_block,
                 sel_factor=cfg.sel_factor, backend=self.backend,
-                exclude_self=exclude_self, metric=self._grid_metric(),
+                exclude_self=exclude_self, metric=self._grid_metric(gen),
                 distance_dtype=cfg.distance_dtype,
             )
             run_engine(self, "sparse", args, kwargs)
@@ -495,14 +614,16 @@ class KNNIndex:
 
         return sparse_fn
 
-    def _brute_fn(self, gen: _Generation, k: int, queries_rp, exclude_self: bool):
+    def _brute_over(self, corpus: torch.Tensor, metric: str, k: int, queries_p,
+                    exclude_self: bool):
+        """The brute engine over ``corpus`` (its own rows as the queries when
+        ``queries_p`` is None) in kernel metric ``metric``."""
         cfg = self.config
 
         def brute_fn(ids: np.ndarray):
             qp = hybrid_lib._pad_ids(ids, cfg.query_block, self.device)
-            queries = gen.points_r if queries_rp is None else queries_rp
-            args = (gen.points_r, qp) + (() if queries_rp is None else (queries_rp,))
-            metric = self._grid_metric()
+            queries = corpus if queries_p is None else queries_p
+            args = (corpus, qp) + (() if queries_p is None else (queries_p,))
             kwargs = dict(k=k, corpus_chunk=cfg.brute_chunk,
                           exclude_self=exclude_self, metric=metric)
             run_engine(self, "brute", args, kwargs)
@@ -511,12 +632,23 @@ class KNNIndex:
             live = qp[: len(ids)]
             safe = torch.clamp(live, 0, queries.shape[0] - 1).long()
             d, i = brute_lib.brute_knn(
-                gen.points_r, queries[safe],
-                dense_lib._exclusion_ids(live, exclude_self),
+                corpus, queries[safe], dense_lib._exclusion_ids(live, exclude_self),
                 k=k, corpus_chunk=cfg.brute_chunk, metric=metric)
             return d.cpu().numpy(), i.cpu().numpy()
 
         return brute_fn
+
+    def _brute_fn(self, gen: _Generation, k: int, queries_rp, exclude_self: bool):
+        return self._brute_over(gen.points_r, self._grid_metric(gen), k, queries_rp,
+                                exclude_self)
+
+    def _full_brute_fn(self, gen: _Generation, k: int, queries_fp, exclude_self: bool):
+        """Brute engine over the full-dimension corpus in the true kernel
+        metric — the projected path's exact fallback and its calibration
+        reference (the projected grid's own brute lane runs in projected l2
+        space)."""
+        return self._brute_over(gen.points_full, met_lib.kernel_metric(self.config.metric),
+                                k, queries_fp, exclude_self)
 
     # -- work split --------------------------------------------------------
 
@@ -604,15 +736,23 @@ class KNNIndex:
 
     def query(self, queries=None, k: Optional[int] = None,
               exclude_self: bool = False) -> "hybrid_lib.KNNResult":
-        """Exact hybrid KNN of ``queries`` (original dim order; ``None`` or
-        the indexed array itself selects the self-join path) against the
+        """Hybrid KNN of ``queries`` (original dim order; ``None`` or the
+        indexed array itself selects the self-join path) against the
         indexed reference cloud: the §V-D split by reference-grid density,
         the §V-A work queue over both engines, §V-E failure reassignment
-        and the brute backstop.  ``exclude_self`` masks reference point i
-        for query row i (with ``queries=None`` on a mutated index, each
-        live point's own global id).  With mutations pending the delta
-        buffer and tombstones fold in at merge time (``_query_mutated``);
-        a clean index takes this path untouched."""
+        and the brute backstop — exact for arbitrary R≠S query sets.
+        ``exclude_self`` masks reference point i for query row i (with
+        ``queries=None`` on a mutated index, each live point's own global
+        id).
+
+        Routing, in the reference's order: a mutated index folds the delta
+        buffer and tombstones in at merge time (``_query_mutated``, exact);
+        a projected generation runs the projection front stage and the
+        full-dimension rescore (``_query_projected``); an un-projected ip
+        index serves through the exact brute lane; ``recall_target < 1``
+        serves the calibrated lean pass (``_query_approx``); everything
+        else takes the exact path, which ``recall_target=1.0`` leaves
+        bit-identical."""
         gen, mut = self._live
         if not mut.is_clean:
             return self._query_mutated(gen, mut, queries, k, exclude_self)
@@ -624,13 +764,18 @@ class KNNIndex:
         compiles_before = self.total_compiles
 
         is_self = queries is None or queries is gen.points_ref
+        q_np = None
+        queries_rp = None
         if is_self:
             n_q = npts_ref
-            queries_rp = None
         else:
             q_np = met_lib.prepare_rows(validate_points(queries, self.n_dims),
                                         cfg.metric, "queries", context="KNNIndex.query")
             n_q = int(q_np.shape[0])
+        if gen.projection is not None:
+            return self._query_projected(gen, kq, n_q, q_np, exclude_self,
+                                         compiles_before)
+        if not is_self:
             queries_r, queries_rp = self._reordered(gen, q_np)
         if cfg.metric == "ip":
             return self._query_brute_all(gen, kq, n_q, queries_rp, exclude_self,
@@ -642,6 +787,10 @@ class KNNIndex:
         else:
             dense_ids, sparse_ids, home_counts, threshold = self._query_split(
                 gen, queries_r, kq)
+        if cfg.recall_target < 1.0:
+            return self._query_approx(gen, kq, n_q, queries_rp, dense_ids, sparse_ids,
+                                      home_counts, threshold, exclude_self,
+                                      compiles_before)
 
         final_d, final_i, source, report = self._drain(
             gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
@@ -651,21 +800,169 @@ class KNNIndex:
             dists=met_lib.finalize(final_d, cfg.metric), ids=final_i,
             source=source, stats=stats)
 
-    def _query_brute_all(self, gen: _Generation, kq: int, n_q: int, queries_rp,
-                         exclude_self: bool, compiles_before: int):
-        """Raw inner-product serving: neither the grid's routing nor the
-        sparse certificates bound ip, so every query serves through the
-        exact brute lane (one padded batch), source 2."""
-        t0 = time.perf_counter()
-        d, i = self._brute_fn(gen, kq, queries_rp, exclude_self)(
-            np.arange(n_q, dtype=np.int32))
-        dt = time.perf_counter() - t0
+    def _brute_result(self, gen: _Generation, n_q: int, d, i, dt: float,
+                      compiles_before: int) -> "hybrid_lib.KNNResult":
+        """A result served whole by one brute engine call, source 2."""
         stats = hybrid_lib.JoinStats(
             epsilon=gen.eps, epsilon_beta=gen.eps_beta, t_brute=dt, t_wall=dt,
             n_engine_compiles=self.total_compiles - compiles_before)
         return hybrid_lib.KNNResult(
             dists=met_lib.finalize(d, self.config.metric), ids=i,
             source=np.full((n_q,), 2, np.int32), stats=stats)
+
+    def _query_brute_all(self, gen: _Generation, kq: int, n_q: int, queries_rp,
+                         exclude_self: bool, compiles_before: int):
+        """Raw inner-product serving: neither the grid's routing nor the
+        sparse certificates bound ip, so every query serves through the
+        exact brute lane (one padded batch).  Approximate ip wants the
+        projection front stage."""
+        t0 = time.perf_counter()
+        d, i = self._brute_fn(gen, kq, queries_rp, exclude_self)(
+            np.arange(n_q, dtype=np.int32))
+        return self._brute_result(gen, n_q, d, i, time.perf_counter() - t0,
+                                  compiles_before)
+
+    def _query_full_brute(self, gen: _Generation, kq: int, n_q: int, q_np,
+                          exclude_self: bool, compiles_before: int):
+        """The projected path's exact fallback: no candidate rung met
+        ``recall_target`` on the held-out sample, so serve exact
+        full-dimension brute (estimate 1.0) — the engine calibration used
+        for its reference."""
+        qfp = (None if q_np is None else pad_rows_pow2(
+            torch.as_tensor(q_np, device=self.device), self.config.query_block).contiguous())
+        t0 = time.perf_counter()
+        d, i = self._full_brute_fn(gen, kq, qfp, exclude_self)(
+            np.arange(n_q, dtype=np.int32))
+        return self._brute_result(gen, n_q, d, i, time.perf_counter() - t0,
+                                  compiles_before)
+
+    def _lean_pass(self, gen: _Generation, kq: int, n_q: int, queries_rp,
+                   dense_ids: np.ndarray, sparse_ids: np.ndarray, exclude_self: bool,
+                   eps_scale: float):
+        """One-shot approximate candidate stage: the sparse engine dispatched
+        first, the dense engine once at scaled ε (a device operand: the
+        exact path's bucket), then no failure reassignment and no brute
+        certification — the missing backstops are what the calibrated
+        tier's measured recall pays for."""
+        d_out = np.full((n_q, kq), np.inf, np.float32)
+        i_out = np.full((n_q, kq), -1, np.int32)
+        source = np.zeros((n_q,), np.int32)
+        t0 = time.perf_counter()
+        t_dense = t_sparse = 0.0
+        n_failed = n_uncert = 0
+        call = None
+        if len(sparse_ids):
+            call = self._sparse_fn(gen, kq, queries_rp, exclude_self)(sparse_ids)
+        if len(dense_ids):
+            dd, di, dfail, t_dense = self._dense_fn(
+                gen, kq, queries_rp, exclude_self, eps_scale=eps_scale)(dense_ids)
+            d_out[dense_ids] = dd
+            i_out[dense_ids] = di
+            n_failed = int(np.sum(dfail))
+        if call is not None:
+            sd, si, cert = call.get()
+            t_sparse = call.elapsed or 0.0
+            d_out[sparse_ids] = sd
+            i_out[sparse_ids] = si
+            source[sparse_ids] = 1
+            n_uncert = int(np.sum(~cert))
+        report = queue_lib.QueueReport(
+            batch_sizes=[len(dense_ids)] if len(dense_ids) else [],
+            t_batches=[t_dense] if len(dense_ids) else [],
+            n_dense_batches=1 if len(dense_ids) else 0,
+            n_sparse_rounds=1 if len(sparse_ids) else 0,
+            n_failed=n_failed, n_uncertified=n_uncert,
+            n_sparse_engine_total=len(sparse_ids),
+            t_dense=t_dense, t_sparse=t_sparse, t_wall=time.perf_counter() - t0)
+        return d_out, i_out, source, report
+
+    def _query_approx(self, gen: _Generation, kq: int, n_q: int, queries_rp, dense_ids,
+                      sparse_ids, home_counts, threshold: float, exclude_self: bool,
+                      compiles_before: int) -> "hybrid_lib.KNNResult":
+        """``recall_target < 1``: serve the calibrated lean tier, or the
+        exact pipeline (estimate 1.0) when no lean tier met the target on
+        the held-out sample."""
+        eps_scale, est = cal_lib.grid_tier(self, gen, kq)
+        if eps_scale is None:
+            final_d, final_i, source, report = self._drain(
+                gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+        else:
+            final_d, final_i, source, report = self._lean_pass(
+                gen, kq, n_q, queries_rp, dense_ids, sparse_ids, exclude_self, eps_scale)
+        stats = self._stats(gen, len(dense_ids), len(sparse_ids), threshold, report,
+                            compiles_before)
+        return hybrid_lib.KNNResult(
+            dists=met_lib.finalize(final_d, self.config.metric), ids=final_i,
+            source=source, stats=stats, recall_estimate=est)
+
+    def _projected_pass(self, gen: _Generation, kq: int, k_cand: int, n_q: int,
+                        queries_rp, qf: torch.Tensor, exclude_self: bool):
+        """Projection front stage, one batch: the full exact pipeline (work
+        queue and brute certification) in projected space at ``k_cand``,
+        then the ``"rescore"`` engine reduces each candidate pool to the k
+        best in the full dimension.  ``queries_rp`` is the padded projected
+        batch (None = the self-join over the projected corpus); ``qf`` the
+        full-width query rows the rescore reads."""
+        cfg = self.config
+        if queries_rp is None:
+            dense_ids, sparse_ids, threshold = self._self_split(gen, k_cand, cfg.rho)
+            home_counts = gen.home_counts
+        else:
+            dense_ids, sparse_ids, home_counts, threshold = self._query_split(
+                gen, queries_rp[:n_q], k_cand)
+        _, ci, source, report = self._drain(
+            gen, k_cand, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+        t0 = time.perf_counter()
+        dev = self.device
+        metric = met_lib.kernel_metric(cfg.metric)
+        qb = pow2_bucket(n_q, cfg.query_block)
+
+        def meta(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        # The bucket is keyed on the padded batch, as the reference's
+        # engine is; only the real rows are rescored.
+        run_engine(self, "rescore", (gen.points_full, meta(qb, gen.n_dims),
+                                     meta(qb, k_cand, dtype=torch.int32),
+                                     meta(qb, dtype=torch.int32)),
+                   dict(k=kq, metric=metric))
+        excl = (torch.arange(n_q, dtype=torch.int32, device=dev) if exclude_self
+                else torch.full((n_q,), -2, dtype=torch.int32, device=dev))
+        rd, ri = rescore_topk(gen.points_full, qf, torch.as_tensor(ci, device=dev), excl,
+                              k=kq, metric=metric)
+        rd, ri = rd.cpu().numpy(), ri.cpu().numpy()
+        t_rescore = time.perf_counter() - t0
+        return (rd, ri, source, report, threshold, len(dense_ids), len(sparse_ids),
+                t_rescore)
+
+    def _query_projected(self, gen: _Generation, kq: int, n_q: int, q_np,
+                         exclude_self: bool, compiles_before: int) -> "hybrid_lib.KNNResult":
+        """Projection-fronted query: the candidate pool's size comes from
+        the calibrated rung ladder (``retrieval/calibrate.py``); when no
+        rung met the target on the held-out sample, serve exact
+        full-dimension brute instead."""
+        cfg = self.config
+        cand_mult, est = cal_lib.projected_tier(self, gen, kq)
+        if cand_mult is None:
+            return self._query_full_brute(gen, kq, n_q, q_np, exclude_self,
+                                          compiles_before)
+        if q_np is None:
+            queries_rp = None
+            qf = gen.points_full
+        else:
+            qproj = torch.as_tensor(gen.projection.apply(q_np), device=self.device)
+            queries_rp = pad_rows_pow2(qproj, cfg.query_block).contiguous()
+            qf = torch.as_tensor(q_np, device=self.device)
+        max_k = gen.n_base - 1 if exclude_self else gen.n_base
+        k_cand = max(kq, min(cand_mult * kq, max_k))
+        rd, ri, source, report, threshold, n_dense, n_sparse, t_rescore = (
+            self._projected_pass(gen, kq, k_cand, n_q, queries_rp, qf, exclude_self))
+        stats = self._stats(gen, n_dense, n_sparse, threshold, report, compiles_before)
+        stats.t_merge += t_rescore
+        stats.t_wall += t_rescore
+        return hybrid_lib.KNNResult(
+            dists=met_lib.finalize(rd, cfg.metric), ids=ri, source=source,
+            stats=stats, recall_estimate=est)
 
     def _query_mutated(self, gen: _Generation, mut: mut_lib.MutationState, queries,
                        k: Optional[int], exclude_self: bool) -> "hybrid_lib.KNNResult":
@@ -735,7 +1032,7 @@ class KNNIndex:
         excl_t = torch.as_tensor(excl_p, device=dev)
         dargs = (queries_rp, torch.as_tensor(delta_pts_p, device=dev), excl_t,
                  torch.as_tensor(delta_gids, device=dev))
-        dkw = dict(k=k_delta, metric=self._grid_metric())
+        dkw = dict(k=k_delta, metric=self._grid_metric(gen))
         run_engine(self, "delta", dargs, dkw)
         dd, di = mut_lib.delta_topk(*dargs, **dkw)
 

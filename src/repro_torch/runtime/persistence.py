@@ -11,14 +11,18 @@ index is rebuilt deterministically and answers bit-identically:
     delta_points / delta_live / base_tombs
                    the pending MutationState, so a dirty index restores
                    dirty (same answers, same later compaction)
+    proj_matrix / proj_mean
+                   a projected generation's fitted map (``points_r`` then
+                   holds the projected corpus), with ``projection_kind``
+                   and ``projection_mips_m`` in ``extra``
     extra          config (HybridConfig asdict), ε, ε_β, the original ε
                    *argument* (replayed by compact()), generation number
 
 Grid and pyramid are not stored: they are deterministic functions of
 ``(points_r, ε, config)``, rebuilt by the same code at load.  What load
 never redoes is the sampled or order-sensitive work: REORDER's variance
-sort and the ε selection are replayed from the stored permutation and
-scalar (``KNNIndex.build``'s ``_prebuilt``).
+sort, the ε selection and the projection's fit are replayed from the
+stored permutation, scalar and map (``KNNIndex.build``'s ``_prebuilt``).
 
 Storage goes through ``checkpoint.CheckpointManager`` — atomic tmp+rename
 step directories, crc-validated manifest, LATEST pointer with a durable
@@ -35,6 +39,7 @@ import numpy as np
 
 import repro_torch.core.hybrid as hybrid_lib
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.retrieval.projection import Projection
 from repro_torch.runtime import mutation as mut_lib
 from repro_torch.utils import unported
 
@@ -66,6 +71,11 @@ def save_index(index, directory: str, *, manager=None) -> int:
     }
     if gen.dim_perm is not None:
         tree["dim_perm"] = _host(gen.dim_perm).astype(np.int32)
+    if gen.projection is not None:
+        # Replayed verbatim at load: a re-fit could differ across BLAS
+        # builds and change which candidates the front stage surfaces.
+        tree["proj_matrix"] = np.asarray(gen.projection.matrix, np.float32)
+        tree["proj_mean"] = np.asarray(gen.projection.mean, np.float32)
     extra = {
         "format": FORMAT,
         "config": dataclasses.asdict(index.config),
@@ -74,6 +84,9 @@ def save_index(index, directory: str, *, manager=None) -> int:
         "epsilon_arg": (None if index._epsilon_arg is None else float(index._epsilon_arg)),
         "generation": int(index.generation),
     }
+    if gen.projection is not None:
+        extra["projection_kind"] = gen.projection.kind
+        extra["projection_mips_m"] = float(gen.projection.mips_m)
     latest = mgr.latest_step()
     step = 0 if latest is None else latest + 1
     mgr.save(step, tree, extra=extra)
@@ -104,12 +117,15 @@ def load_index(directory: str, *, step: Optional[int] = None, device="cuda",
             f"checkpoint at {directory} step {step} is not an index "
             f"generation (format={extra.get('format')!r}; expected "
             f"{FORMAT!r} — training checkpoints do not load as indexes)")
-    if "proj_matrix" in tree:
-        raise unported("loading a projection-fronted index generation", "queue A item 13")
-
     cfg = hybrid_lib.HybridConfig(**extra["config"])
     prebuilt = (tree["points_r"], tree.get("dim_perm"), float(extra["eps"]),
                 float(extra["eps_beta"]))
+    if "proj_matrix" in tree:
+        prebuilt = prebuilt + (Projection(
+            kind=extra.get("projection_kind", cfg.projection_kind),
+            matrix=np.asarray(tree["proj_matrix"], np.float32),
+            mean=np.asarray(tree["proj_mean"], np.float32),
+            mips_m=float(extra.get("projection_mips_m", 0.0))),)
     index = KNNIndex.build(tree["points_ref"], cfg, extra["epsilon_arg"], device=device,
                            backend=backend, compile_counts=compile_counts,
                            _prebuilt=prebuilt)

@@ -108,6 +108,8 @@ def _topk_case(rng, n_q, n_c, dim, integer):
     (129, 2000, 40, 32, "l2", True),
     (260, 4000, 7, 3, "ip", True),
     (64, 30, 18, 25, "l2", False),           # fewer valid candidates than k
+    (300, 20_000, 6, 10, "l2", False),       # the projected brute backstop's width
+    (129, 3000, 6, 20, "l2", True),
 ])
 def test_knn_tile_topk_matches_plain(card, n_q, n_c, dim, k, metric, integer):
     rng = np.random.default_rng(n_q + n_c + dim + k)
@@ -169,6 +171,80 @@ def test_knn_stream_prefetch_matches_plain(card, dim, k, metric, dtype, integer)
     _hold(kd[ok], ki[ok], rd[ok], ri[ok], q32[ok], lambda i: c32[i], metric,
           exact=integer)
     assert (kf > 0).any() and (kf[ok] == rf[ok]).all()
+
+
+@pytest.mark.parametrize("dim,k,integer", [(1, 10, False), (4, 20, False), (6, 10, False),
+                                           (6, 32, True), (8, 20, False)])
+def test_knn_stream_prefetch_at_projected_widths(card, dim, k, integer):
+    """The block-table kernel at the projection front stage's widths
+    (``projection_dim`` 1–8, one partial 8-dim chunk) and its candidate-pool
+    sizes k_cand ≤ 32."""
+    rng = np.random.default_rng(100 + dim + k)
+    queries, corpus, blk, qid, cand = (
+        torch.as_tensor(x, device=card)
+        for x in _stream_case(rng, dim, 3, 4, 6, integer=integer))
+    e2 = _score64(queries[:64], corpus[:512], "l2").median().float()
+    kw = dict(k=k, block_q=128, block_c=128, metric="l2")
+    kd, ki, kf = stream_kernel.knn_stream_topk_prefetch(queries, corpus, blk, qid, cand, e2, **kw)
+    rd, ri, rf = stream_ref.knn_stream_topk_prefetch_ref(queries, corpus, blk, qid, cand, e2, **kw)
+    torch.cuda.synchronize()
+    flips = (kf != rf).nonzero()[:, 0]
+    for r in flips.tolist():
+        t = r // 128
+        rows = (blk[t].long()[:, None] * 128 + torch.arange(128, device=card)).reshape(-1)
+        cs = corpus[rows][cand[t] >= 0]
+        gap = (_score64(queries[r:r + 1], cs, "l2") - e2.double()).abs().min()
+        assert gap <= _allow(queries[r:r + 1], cs).max(), f"row {r}: found flip off ε²"
+    ok = torch.ones(kf.shape[0], dtype=torch.bool, device=card)
+    ok[flips] = False
+    _hold(kd[ok], ki[ok], rd[ok], ri[ok], queries[ok], lambda i: corpus[i], "l2",
+          exact=integer)
+    assert (kf > 0).any() and (kf[ok] == rf[ok]).all()
+
+
+def _lowrank(n, seed, d=32, rank=5, noise=0.05):
+    """Low-rank cloud (``tests/test_projection_front.py``'s, mixing matrix
+    seeded 42), on which a linear projection keeps the neighbourhoods."""
+    mix = np.random.default_rng(42).standard_normal((rank, d)).astype(np.float32)
+    r = np.random.default_rng(seed)
+    lat = r.standard_normal((n, rank)).astype(np.float32)
+    return (lat @ mix + noise * r.standard_normal((n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("metric,pdim,target", [("l2", 5, 0.9), ("ip", 6, 0.9),
+                                                ("l2", 3, 0.9)])
+def test_projected_index_on_card_matches_cpu(card, metric, pdim, target):
+    """A projected index end to end on the card against the port on the
+    CPU, ε pinned: the same calibrated rung (l2 at 3 dims calibrates to
+    k_cand = 48, past the kernels' k: the counted reroute) and estimates
+    within 0.01.  The front stage is approximate, and the kernels' expansion
+    form may break a projected-space tie the other way and change a pool's
+    last member, so the two answers must overlap in at least 99 % of their
+    ids (not all); every returned distance is its id's float64 true-metric
+    score within 1e-4."""
+    from repro_torch.core import HybridConfig
+    from repro_torch.kernels.knn_stream import ops as stream_ops
+    from repro_torch.retrieval.calibrate import recall_at_k
+    from repro_torch.runtime import KNNIndex
+    pts, q = _lowrank(800, 4), _lowrank(90, 5)
+    cfg = HybridConfig(k=6, m=3, online_rebalance=False, metric=metric, projection_dim=pdim,
+                       recall_target=target)
+    reroutes = stream_ops.oversized_k_reroutes + topk_ops.oversized_k_reroutes
+    on_card = KNNIndex.build(pts, cfg, 4.0, device="cuda")
+    on_cpu = KNNIndex.build(pts, cfg, 4.0, device="cpu")
+    assert on_card.backend == "fused"
+    key = ("proj", 6, target)
+    for args, kw, rows in (((q,), {}, q), ((), dict(exclude_self=True), pts)):
+        got, want = on_card.query(*args, **kw), on_cpu.query(*args, **kw)
+        assert on_card._live[0].calib[key][0] == on_cpu._live[0].calib[key][0]
+        assert abs(got.recall_estimate - want.recall_estimate) <= 0.01
+        assert recall_at_k(got.ids, want.ids) >= 0.99
+        q64, c64 = rows.astype(np.float64)[:, None, :], pts.astype(np.float64)[got.ids]
+        real = -(q64 * c64).sum(-1) if metric == "ip" else np.sqrt(((q64 - c64) ** 2).sum(-1))
+        np.testing.assert_allclose(got.dists, real, rtol=1e-4, atol=1e-4)
+    if pdim == 3:
+        assert on_card._live[0].calib[key][0] * 6 > 32
+        assert stream_ops.oversized_k_reroutes + topk_ops.oversized_k_reroutes > reroutes
 
 
 @pytest.mark.parametrize("dim,n_q", [

@@ -22,7 +22,9 @@ from repro.runtime import KNNIndex as JaxIndex
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import HybridConfig
 from repro_torch.runtime import KNNIndex
+from test_projection_front import _lowrank
 from test_torch_mutation import _match
+from test_torch_projection import _hold
 
 
 def _db(seed=0, n=700, dim=6):
@@ -135,25 +137,36 @@ def test_corrupt_latest_step_falls_back_to_previous_durable(tmp_path):
 
 
 def test_load_of_unported_generations_and_mesh_raise(tmp_path):
+    """A mesh still raises, naming its item; projected generations (l2 over a
+    PCA fit, ip over the MIPS fit) cross between the packages in both
+    directions with their fitted map and the same answers."""
     idx = _build(_db(seed=10, n=300), k=3)
     idx.save(str(tmp_path))
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         KNNIndex.load(str(tmp_path), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         CheckpointManager(str(tmp_path)).restore({"points_r": 0}, mesh=object())
-    d = os.path.join(tmp_path, "step-000000000")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
-    arrays = dict(np.load(os.path.join(d, "arrays.npz")))
-    arrays["proj_matrix"] = np.eye(6, dtype=np.float32)
-    manifest["index"]["proj_matrix"] = {"shape": [6, 6], "dtype": "float32", "crc": 0}
-    import zlib
-    manifest["index"]["proj_matrix"]["crc"] = zlib.crc32(arrays["proj_matrix"].tobytes())
-    np.savez(os.path.join(d, "arrays.npz"), **arrays)
-    with open(os.path.join(d, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        KNNIndex.load(str(tmp_path), device="cpu")
+    db, q = _lowrank(n=800, seed=4), _lowrank(n=90, seed=5)
+    for metric, pdim in (("l2", 5), ("ip", 6)):
+        cfg = dict(k=6, m=3, online_rebalance=False, metric=metric, projection_dim=pdim,
+                   projection_kind="pca", recall_target=0.9)
+        jidx = JaxIndex.build(db, jax_hybrid.HybridConfig(**cfg), 4.0)
+        tidx = KNNIndex.build(db, HybridConfig(**cfg), 4.0, device="cpu")
+        jidx.save(str(tmp_path / f"jax_{metric}"))
+        from_jax = KNNIndex.load(str(tmp_path / f"jax_{metric}"), device="cpu")
+        for got, want in ((from_jax.projection, jidx.projection),
+                          (tidx.projection, jidx.projection)):
+            np.testing.assert_array_equal(got.matrix, want.matrix)
+            np.testing.assert_array_equal(got.mean, want.mean)
+            assert (got.kind, got.mips_m) == (want.kind, want.mips_m)
+        assert (from_jax.projection.mips_m > 0) == (metric == "ip")
+        np.testing.assert_array_equal(from_jax.points_r.numpy(), np.asarray(jidx.points_r))
+        _hold(from_jax.query(q), jidx.query(q), q, metric)
+        tidx.save(str(tmp_path / f"port_{metric}"))
+        from_port = JaxIndex.load(str(tmp_path / f"port_{metric}"))
+        np.testing.assert_array_equal(from_port.projection.matrix, tidx.projection.matrix)
+        assert from_port.projection.mips_m == tidx.projection.mips_m
+        _hold(tidx.query(q), from_port.query(q), q, metric)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's main path as a whole: ``KNNIndex.build`` + ``query`` (self-join
 and an R≠S batch) against the JAX package's fused backend with ε pinned
 and online rebalancing off, and against the float64 oracle; steady-state
-engine buckets; the CUDA default of every entry point; features the port
-does not run yet raising ``NotImplementedError``."""
+engine buckets; the CUDA default of every entry point; a mesh, which the
+port does not run yet, raising ``NotImplementedError``."""
 import numpy as np
 import pytest
 import torch
@@ -121,12 +121,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: HybridKNNJoin(cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-
-
-@pytest.mark.parametrize("kw", [dict(recall_target=0.9), dict(projection_dim=4)])
-def test_features_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HybridConfig(k=3, **kw)
 
 
 def test_interpret_backend_refuses_cuda(monkeypatch):
