@@ -90,16 +90,48 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          ``recall_target=0.9`` serve (c)'s batch: the calibrated ε scale (or
          the exact fallback, then bit-identical to (c)), the estimate and
          recall on 2,048 rows against float64; an index at
-         ``recall_target=1.0`` answers bit-identically to (c).
+         ``recall_target=1.0`` answers bit-identically to (c);
+  (o)    the serving front end (``KNNServer``) on SuSy: a clean index over
+         (b)'s points with (b)'s ε pinned; the arrivals are (c)'s first 2,048
+         rows.  Capacity as ``benchmarks/overload.py`` measures it: the 128-
+         and 256-row buckets warmed, each bucket's ``per_row`` the best of
+         three probes, the 128 bucket's the unit; deadline 4 × ``per_row`` ×
+         128, ``max_wait`` half a 128-row batch.  Open-loop Poisson traces
+         (seed 11) at 0.5×, 1× and 2× of 1 / ``per_row`` on a ``VirtualClock``
+         under the service model ``per_row`` × padded rows, checked exactly:
+         every ticket resolved, served + shed = 2,048, shed reasons and level
+         occupancy recounted from the tickets equal ``metrics()``, and at 2×
+         something shed, no deadline miss and the served p99 within the
+         deadline.  Every non-degraded batch of the 1× run replays bit for bit
+         through ``index.query``; 256 of its served rows are held against
+         float64; a second 1× run adds no engine bucket.  Then three 2× traces
+         advanced by each batch's measured service time on the card: QPS,
+         response percentiles, shed counts, levels, batches, seconds per batch
+         by bucket (printed, not gated);
+  (p)    the crash-mid-checkpoint drill on (o)'s index through
+         ``CrashingCheckpointManager`` and ``ScriptedFaults``: a durable save,
+         then for each of ``pre-arrays``, ``pre-manifest`` and ``pre-latest`` 5
+         base ids deleted (the generation stays dirty), the save crashed,
+         ``KNNIndex.load`` on the card answering 4,096 of (c)'s queries at
+         K = 16 bit-identically to the last acknowledged generation, with its
+         tombstones (after ``pre-latest`` the complete step directory exists
+         while ``LATEST`` names the acknowledged one), and the retried save
+         landing and loading bit-identically to the live index; save / load
+         times and bytes on disk.
 
-(a) also holds the kernel shapes (m) first launched: ``knn_stream_topk_prefetch``
-and ``knn_tile_topk`` at the projected 6 dims, ``distance_bin_histogram`` over
-the projected corpus, ``knn_tile_topk[ip]`` at 518 dims.
+(a) also holds the kernel shapes (m) first launched:
+``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
+``distance_bin_histogram`` over the projected corpus, ``knn_tile_topk[ip]`` at
+518 dims; and the shapes of (o)'s first 128-row micro-batch: its dense call and
+its brute call over the 5M corpus.
 
-Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n) — sets the
-kernel launch counters to 0 just before it and reads them just after.  The last lines are the
-card's name and power limit, one JSON line with every kernel's numbers,
-and ``{"ok": true, "device": {...}}``.
+Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p) —
+sets the kernel launch counters to 0 just before it and reads them just after;
+the ``kernels`` line's main ``knn_stream_topk_prefetch`` and ``knn_tile_topk``
+rows count the launches of (b)–(d); (o)'s are on its own
+``(serving micro-batch)`` rows.  The last lines are the card's name and power
+limit, one JSON line with every kernel's numbers, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -137,6 +169,16 @@ REFIMPL_RANKS = 4
 K_PROJ = 10                         # the paper's FMA K (benchmarks/common.py)
 PROJ_QUERIES = 4096                 # (m): FMA's last rows, foreign to the corpus
 PROJ_DIM = 6
+SERVE_REQUESTS = 2048              # (o): benchmarks/overload.py's trace length
+SERVE_MAX_BATCH = 256              # two pad buckets: 128 and 256 rows
+SERVE_LOADS = (0.5, 1.0, 2.0)      # offered load, × the measured 128-bucket rate
+SERVE_SEED = 11                    # Poisson arrival gaps (overload.py's TRACE_SEED)
+DEADLINE_BUCKETS = 4.0             # deadline = 4 × a 128-row batch's service
+MAX_WAIT_BUCKETS = 0.5             # micro-batch wait cap, same units
+SERVE_EXACT_ROWS = 256
+SERVE_MEASURED_RUNS = 3           # (o)'s 2× run timed on the card, repeated
+CRASH_QUERIES = 4096               # (p)
+CRASH_DELETE = 5                   # per phase: 15 tombstones, headroom 16 at K_MUT
 
 
 def log(msg: str) -> None:
@@ -496,8 +538,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pairwise_l2 import ref as pair_ref
     from repro_torch.retrieval import normalize_rows
     from repro_torch.retrieval.calibrate import recall_at_k
-    from repro_torch.runtime import KNNIndex
+    from repro_torch.runtime import (CheckpointCrash, CrashingCheckpointManager, KNNIndex,
+                                     KNNServer, Rejected, ScriptedFaults, Served, ServerConfig,
+                                     VirtualClock, open_loop_trace)
     from repro_torch.runtime import mutation as mut_lib
+    from repro_torch.utils import pow2_bucket
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float64 oracle / yardsticks
     torch.backends.cudnn.allow_tf32 = False
@@ -1448,6 +1493,244 @@ def main(argv=None) -> int:
         del exact1, re1
     read_counts("(n) lean pass", topk_reroutes=past_k(topk_k), stream_reroutes=past_k(tiles_k))
     log(f"[n] phase {time.perf_counter() - t_n:.2f}s")
+
+    # -- path 11: (o) the serving front end on SuSy ------------------------------
+    # A clean index over (b)'s points with (b)'s ε pinned ((k) mutated and
+    # compacted (b)'s index); single-query arrivals are (c)'s first 2,048
+    # rows.  Capacity is measured as benchmarks/overload.py measures it: the
+    # 128- and 256-row buckets warmed, each one's best of three probes.
+    reset_counts()
+    t_o = time.perf_counter()
+    t0 = time.perf_counter()
+    sidx = KNNIndex.build(pts, cfg, eps_b, device="cuda")
+    log(f"[o] clean index build {time.perf_counter() - t0:.2f}s (ε pinned to (b)'s {eps_b:.6g})")
+    qb = cfg.query_block
+    arrivals = foreign[:SERVE_REQUESTS]
+    spare = foreign[SERVE_REQUESTS:]
+    # The 128-row warm-up's brute and dense calls are the micro-batch shapes
+    # held against their plain versions after the phase.
+    with FirstCall(topk_ops, "knn_topk") as o_topk_call, \
+            FirstCall(stream_ops, "knn_stream_topk_prefetch") as o_stream_call:
+        sidx.query(spare[:qb])
+    sidx.query(spare[:SERVE_MAX_BATCH])
+    per_row_by_bucket = {}
+    for size in (qb, SERVE_MAX_BATCH):
+        probe = spare[SERVE_MAX_BATCH:SERVE_MAX_BATCH + size]
+        probes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res_probe = sidx.query(probe.copy())
+            probes.append(time.perf_counter() - t0)
+        per_row_by_bucket[size] = min(probes) / size
+        log(f"[o] {size}-row probes {[round(t, 6) for t in probes]} s: per_row "
+            f"{per_row_by_bucket[size] * 1e6:.3f} µs, {1.0 / per_row_by_bucket[size]:.1f} "
+            f"queries/s at this bucket; the last probe: {stats_line(res_probe, size)}")
+    probe = spare[SERVE_MAX_BATCH:SERVE_MAX_BATCH + qb]
+    per_row = per_row_by_bucket[qb]
+    deadline = DEADLINE_BUCKETS * per_row * qb
+    max_wait = MAX_WAIT_BUCKETS * per_row * qb
+    per_row_c = r2.stats.t_wall / FOREIGN_QUERIES
+    log(f"[o] per_row (128 bucket) {per_row * 1e6:.3f} µs: the 128-bucket rate "
+        f"{1.0 / per_row:.1f} queries/s against (c)'s {FOREIGN_QUERIES}-row batch "
+        f"{per_row_c * 1e6:.3f} µs/row ({1.0 / per_row_c:.1f} queries/s), "
+        f"{per_row / per_row_c:.2f}× its per-row time; deadline {deadline * 1e3:.3f} ms, "
+        f"max_wait {max_wait * 1e3:.3f} ms")
+
+    def serve(factor, model=True):
+        """One open-loop Poisson trace of the arrivals at factor × the
+        128-bucket rate on a VirtualClock: under the linear service model,
+        or (model=False) advanced by each batch's measured service time on
+        the card."""
+        srv = KNNServer(sidx, ServerConfig(deadline=deadline, max_wait=max_wait,
+                                           max_batch=SERVE_MAX_BATCH, record_batches=True),
+                        clock=VirtualClock(),
+                        service_model=(lambda n: per_row * n) if model else None)
+        srv.prime_service_estimate(per_row)
+        buckets0 = sidx.total_compiles
+        t0 = time.perf_counter()
+        tickets = srv.run_trace(open_loop_trace(arrivals, qps=factor / per_row,
+                                                seed=SERVE_SEED))
+        return srv, tickets, sidx.total_compiles - buckets0, time.perf_counter() - t0
+
+    def serve_line(what, factor, srv, new_buckets, wall):
+        m = srv.metrics()
+        makespan = srv.clock.now
+        log(f"[o] {what} {factor:g}×: offered {factor / per_row:.1f} queries/s, served "
+            f"{m['n_served'] / makespan:.1f} queries/s ({m['n_served']} of {m['n_submitted']} "
+            f"over {makespan:.4f} s); response p50 {m['p50_response_s'] * 1e3:.3f} ms, p99 "
+            f"{m['p99_response_s'] * 1e3:.3f} ms, max {m['max_response_s'] * 1e3:.3f} ms; shed "
+            f"{m['n_shed']} (rate {m['shed_rate']:.4f}); deadline misses "
+            f"{m['n_deadline_misses']}; levels {m['level_occupancy']}; {m['n_batches']} "
+            f"batches, mean {m['mean_batch_rows']:.1f} rows; new engine buckets {new_buckets}; "
+            f"wall {wall:.3f} s")
+        return m
+
+    for factor in SERVE_LOADS:
+        srv, tickets, new_buckets, wall = serve(factor)
+        m = serve_line("modelled", factor, srv, new_buckets, wall)
+        assert all(t.done for t in tickets), f"(o) {factor}×: a ticket was never resolved"
+        assert m["n_submitted"] == SERVE_REQUESTS
+        assert m["n_served"] + m["n_shed_total"] == SERVE_REQUESTS, f"(o) {factor}×: accounting"
+        shed, occupancy = {}, {}
+        for t in tickets:
+            if isinstance(t.outcome, Rejected):
+                shed[t.outcome.reason] = shed.get(t.outcome.reason, 0) + 1
+            else:
+                occupancy[t.outcome.level_name] = occupancy.get(t.outcome.level_name, 0) + 1
+        assert {r: c for r, c in m["n_shed"].items() if c} == shed, f"(o) {factor}×: shed counts"
+        assert {n: c for n, c in m["level_occupancy"].items() if c} == occupancy, \
+            f"(o) {factor}×: level occupancy"
+        if factor >= 2.0:
+            lat = [t.outcome.t_response for t in tickets if isinstance(t.outcome, Served)]
+            assert m["n_shed_total"] > 0, f"(o) {factor}×: nothing was shed"
+            assert m["n_deadline_misses"] == 0, f"(o) {factor}×: deadline misses"
+            assert np.percentile(lat, 99) <= deadline + 1e-9 and max(lat) <= deadline + 1e-9, \
+                f"(o) {factor}×: served p99 past the deadline"
+        if factor == 1.0:
+            srv1, tickets1 = srv, tickets
+
+    # The server's core invariant, and on the card a test that query is
+    # deterministic: every non-degraded batch of the 1× run replays bit for bit.
+    by_rid = {t.request_id: t.outcome for t in tickets1}
+    audited = replayed = 0
+    for rec in srv1.batch_log:
+        if srv1.cfg.ladder[rec.level].degraded:
+            continue
+        direct = sidx.query(rec.rows, k=rec.k)
+        replayed += 1
+        for j, rid in enumerate(rec.request_ids):
+            assert np.array_equal(by_rid[rid].dists, direct.dists[j]) and \
+                np.array_equal(by_rid[rid].ids, direct.ids[j]), \
+                f"(o) request {rid} differs from the replay of batch {rec.seq}"
+            audited += 1
+    assert audited == srv1.n_served > 0
+    log(f"[o] 1× bit-identity: {replayed} non-degraded batches replayed through "
+        f"index.query, {audited} served rows equal bit for bit")
+    served1 = sorted((t for t in tickets1 if isinstance(t.outcome, Served)),
+                     key=lambda t: t.request_id)[:SERVE_EXACT_ROWS]
+    rids = np.array([t.request_id for t in served1])
+    check_exact(pts_d, fq[torch.as_tensor(rids, device=dev)], None,
+                np.stack([t.outcome.dists for t in served1]),
+                np.stack([t.outcome.ids for t in served1]), "(o) served rows of the 1× run")
+    srv, _, new_buckets, wall = serve(1.0)
+    serve_line("warm replay", 1.0, srv, new_buckets, wall)
+    assert new_buckets == 0, "(o) the warm replay of the 1× trace added engine buckets"
+    # The measured run three times: its service times, and so what it sheds,
+    # follow the host's load from run to run.
+    for rep in range(SERVE_MEASURED_RUNS):
+        srv, tickets, new_buckets, wall = serve(2.0, model=False)
+        serve_line(f"measured run {rep + 1}", 2.0, srv, new_buckets, wall)
+        assert all(t.done for t in tickets)
+        by_bucket = {}
+        for rec in srv.batch_log:
+            by_bucket.setdefault(pow2_bucket(rec.n_padded, qb), []).append(rec.t_service)
+        log(f"[o] measured run {rep + 1} seconds per batch by bucket: " + "; ".join(
+            f"{b} rows: n={len(ts)} mean {np.mean(ts) * 1e3:.3f} ms [{min(ts) * 1e3:.3f}–"
+            f"{max(ts) * 1e3:.3f}] ({np.mean(ts) / b * 1e6:.3f} µs/row)"
+            for b, ts in sorted(by_bucket.items())))
+    launches_o = read_counts("(o) serving front end")
+    log(f"[o] phase {time.perf_counter() - t_o:.2f}s; launches: knn_tile_topk "
+        f"{launches_o.get('knn_tile_topk', 0)}, knn_stream_topk_prefetch "
+        f"{launches_o.get('knn_stream_topk_prefetch', 0)}")
+    for name in ("knn_stream_topk_prefetch", "knn_tile_topk"):
+        assert launches_o.get(name, 0) > 0, f"(o) never launched {name}"
+    # -- (a) the micro-batch shapes (o) launched --------------------------------
+    (q1o, c1o, blk1o, qid1o, cand1o, e1o), kw1o = o_stream_call.args
+    err, ms, plain_ms, b = stream_check(
+        f"knn_stream_topk_prefetch serving micro-batch, {blk1o.shape[0]} tiles, k={kw1o['k']}",
+        (q1o, c1o, blk1o, qid1o, cand1o), e1o, kw1o["k"], "l2", sidx.points_r, q1o)
+    kernels.append(kernel_entry("knn_stream_topk_prefetch (serving micro-batch)", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:220",
+                                launches_o["knn_stream_topk_prefetch"], err, ms, plain_ms, b,
+                                None))
+    (q3o, c3o, qid3o, cid3o), kw3o = o_topk_call.args
+    kernels.append(topk_check("knn_tile_topk (serving micro-batch)", q3o, c3o, qid3o, cid3o,
+                              kw3o.get("metric", "l2"), launches_o["knn_tile_topk"],
+                              k=kw3o["k"]))
+    del o_stream_call, o_topk_call, q1o, c1o, q3o, c3o
+    # How much of a 128-row micro-batch is kernel: the brute lane's kernel
+    # call alone on the probe's rows (CUDA events; timing launches, made
+    # after the phase's counts were read).
+    probe_r = torch.as_tensor(probe, device=dev)
+    if sidx.dim_perm is not None:
+        probe_r = probe_r[:, sidx.dim_perm].contiguous()
+    no_excl = torch.full((qb,), -2, dtype=torch.int32, device=dev)
+    brute_ms = cuda_ms(lambda: brute_lib.brute_knn(sidx.points_r, probe_r, no_excl, k=K))
+    log(f"[o] knn_tile_topk on the probe's {qb} rows × {len(pts)}: {brute_ms:.3f} ms "
+        f"(CUDA events), {brute_ms / (per_row * qb * 1e3):.3f} of the best probe's "
+        f"{per_row * qb * 1e3:.3f} ms")
+    del srv1, tickets1, by_rid, srv, tickets
+
+    # -- path 12: (p) the crash-mid-checkpoint drill on (o)'s index -------------
+    # One durable save, then for each crash phase: delete CRASH_DELETE base
+    # ids (nearest neighbours the live generation returns), crash the save of
+    # that dirty (tombstoned) generation, load on the card (the last
+    # acknowledged generation's answers, bit for bit), retry (lands, loads as
+    # the live index).  Queries run at K_MUT: with at most 16 tombstones the
+    # pipeline's k_main = 16 + 16 headroom stays on the kernels.
+    reset_counts()
+    t_p = time.perf_counter()
+    cq = foreign[:CRASH_QUERIES]
+    faults = ScriptedFaults()
+
+    def load_same(ckpt, want, n_tombs, what):
+        t0 = time.perf_counter()
+        loaded = KNNIndex.load(ckpt, device="cuda")
+        t_load = time.perf_counter() - t0
+        assert loaded.n_tombstones == n_tombs, \
+            f"(p) {what}: {loaded.n_tombstones} tombstones loaded, expected {n_tombs}"
+        got = loaded.query(cq, k=K_MUT)
+        assert np.array_equal(got.ids, want.ids) and np.array_equal(got.dists, want.dists), \
+            f"(p) {what}: the loaded generation answers differently"
+        return t_load
+
+    topk_k, tiles_k = past_k_calls()
+    with topk_k, tiles_k, tempfile.TemporaryDirectory() as ckpt:
+        mgr = CrashingCheckpointManager(ckpt, faults)
+        t0 = time.perf_counter()
+        acked = sidx.save(ckpt, manager=mgr)
+        log(f"[p] durable save step {acked} {time.perf_counter() - t0:.3f}s")
+        want = sidx.query(cq, k=K_MUT)
+        tombs_acked = 0
+        for phase in ("pre-arrays", "pre-manifest", "pre-latest"):
+            sidx.delete(np.unique(want.ids[:, 0])[:CRASH_DELETE])
+            assert not sidx.is_clean
+            faults.crash_checkpoint(phase)
+            t0 = time.perf_counter()
+            try:
+                sidx.save(ckpt, manager=mgr)
+                raise AssertionError(f"(p) {phase}: save did not crash")
+            except CheckpointCrash:
+                t_crash = time.perf_counter() - t0
+            with open(os.path.join(ckpt, "LATEST")) as fh:
+                assert fh.read().strip() == f"step-{acked:09d}", f"(p) {phase}: LATEST moved"
+            unacked = os.path.join(ckpt, f"step-{acked + 1:09d}")
+            assert os.path.isdir(unacked) == (phase == "pre-latest"), \
+                f"(p) {phase}: unexpected durability of the crashed step"
+            t_load_ack = load_same(ckpt, want, tombs_acked, f"{phase} crash")
+            live = sidx.query(cq, k=K_MUT)
+            t0 = time.perf_counter()
+            acked = sidx.save(ckpt, manager=mgr)
+            t_save = time.perf_counter() - t0
+            tombs_acked = sidx.n_tombstones
+            t_load = load_same(ckpt, live, tombs_acked, f"{phase} retry")
+            size = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(os.path.join(ckpt, f"step-{acked:09d}"))
+                       for f in fs)
+            log(f"[p] {phase}: {CRASH_DELETE} deleted ({tombs_acked} tombstones, "
+                f"{sidx.n_points} live points); crash after {t_crash:.3f}s; load of the "
+                f"acknowledged generation {t_load_ack:.3f}s, bit-identical; retried save step "
+                f"{acked} {t_save:.3f}s ({size / 2**20:.1f} MiB on disk), load {t_load:.3f}s, "
+                f"bit-identical to the live index")
+            want = live
+    assert acked == 3 and faults.count("ckpt-crash") == 3
+    assert tombs_acked == 3 * CRASH_DELETE
+    assert past_k(topk_k) == 0 and past_k(tiles_k) == 0, \
+        "(p) a dirty query left the kernels' k"
+    launches_p = read_counts("(p) crash drill")
+    assert launches_p.get("knn_tile_topk", 0) > 0, "(p) never launched knn_tile_topk"
+    log(f"[p] phase {time.perf_counter() - t_p:.2f}s")
+    del sidx, want, live
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -149,13 +149,22 @@ class CheckpointManager:
             self._pending.result()
             self._pending = None
 
+    def _phase(self, name: str, step: int) -> None:
+        """Called at each phase of ``_write``: ``"pre-arrays"`` before the
+        tmp directory is written, ``"pre-manifest"`` after ``arrays.npz``,
+        ``"pre-latest"`` after the rename and before ``LATEST`` moves — the
+        three partial states a crash can leave.  A no-op here;
+        ``runtime.faults.CrashingCheckpointManager`` crashes there."""
+
     def _write(self, step: int, flat: Dict[str, _Leaf], extra: Dict[str, Any]) -> None:
+        self._phase("pre-arrays", step)
         final = os.path.join(self.directory, f"step-{step:09d}")
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         np.savez(os.path.join(tmp, "arrays.npz"), **{k: v.stored for k, v in flat.items()})
+        self._phase("pre-manifest", step)
         index = {k: {"shape": v.shape, "dtype": v.dtype, "crc": v.crc()}
                  for k, v in flat.items()}
         manifest = {"version": FORMAT_VERSION, "step": step, "index": index, "extra": extra}
@@ -164,6 +173,7 @@ class CheckpointManager:
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
+        self._phase("pre-latest", step)
         with self._lock:
             with open(os.path.join(self.directory, "LATEST.tmp"), "w") as f:
                 f.write(os.path.basename(final))

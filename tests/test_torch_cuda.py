@@ -506,3 +506,116 @@ def test_fold_topk_on_card_equals_cpu(card):
     gd, gi = mut_lib.fold_topk(*(torch.as_tensor(x, device=card) for x in args), k=k)
     wd, wi = mut_lib.fold_topk(*(torch.as_tensor(x) for x in args), k=k)
     assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
+
+
+# -- the serving front end and the crash drill over a card index -------------
+
+SERVE_PER_ROW = 1e-3       # the linear service model of tests/test_torch_server.py
+
+
+def _serving_index(device, backend=None):
+    from conftest import make_mixture
+    from repro_torch.core import HybridConfig
+    from repro_torch.runtime import KNNIndex
+    db = make_mixture(300, 120, dim=6, seed=0)
+    cfg = HybridConfig(k=3, m=4, n_batches=1, online_rebalance=False)
+    return KNNIndex.build(db, cfg, 0.3, device=device, backend=backend)
+
+
+def _serve(index, n, load, seed):
+    from repro_torch.runtime import KNNServer, ServerConfig, VirtualClock, open_loop_trace
+    rows = np.random.default_rng(seed + 100).normal(size=(n, 6)).astype(np.float32)
+    srv = KNNServer(index, ServerConfig(deadline=0.2, max_wait=0.02, record_batches=True),
+                    clock=VirtualClock(), service_model=lambda b: SERVE_PER_ROW * b)
+    srv.prime_service_estimate(SERVE_PER_ROW)
+    return srv, srv.run_trace(open_loop_trace(rows, qps=load / SERVE_PER_ROW, seed=seed))
+
+
+def test_server_full_level_rows_equal_direct_card_query(card):
+    """Every request served at a non-degraded rung over a card index is
+    bit-identical to a direct card ``index.query`` of its batch."""
+    from repro_torch.runtime import Served
+    idx = _serving_index(card)
+    srv, tickets = _serve(idx, 300, 1.0, 3)
+    by_rid = {t.request_id: t.outcome for t in tickets}
+    audited = 0
+    for rec in srv.batch_log:
+        if srv.cfg.ladder[rec.level].degraded:
+            continue
+        direct = idx.query(rec.rows, k=rec.k)
+        for j, rid in enumerate(rec.request_ids):
+            assert isinstance(by_rid[rid], Served)
+            np.testing.assert_array_equal(by_rid[rid].dists, direct.dists[j])
+            np.testing.assert_array_equal(by_rid[rid].ids, direct.ids[j])
+            audited += 1
+    assert audited == srv.n_served > 0
+
+
+def test_server_trace_on_card_matches_cpu_port(card):
+    """The same 2x trace through a card index and the CPU port (both
+    ``fused``, ε pinned): equal outcome kinds, reasons, levels, batches and
+    counters, times within 1e-9 s, distances within 1e-5 and ids equal
+    except where float64 distances tie within 1e-5."""
+    from repro_torch.runtime import Rejected, clear_engine_cache
+    runs = []
+    for device in (card, torch.device("cpu")):
+        clear_engine_cache()
+        idx = _serving_index(device, backend="fused")
+        runs.append((idx,) + _serve(idx, 500, 2.0, 7))
+    (idx, srv_c, t_card), (_, srv_h, t_cpu) = runs
+    pts = np.asarray(idx._live[0].points_ref, np.float64)
+    rows = np.random.default_rng(107).normal(size=(500, 6)).astype(np.float32).astype(np.float64)
+    for a, b in zip((t.outcome for t in t_card), (t.outcome for t in t_cpu)):
+        assert type(a) is type(b)
+        if isinstance(a, Rejected):
+            assert a.reason == b.reason
+            assert abs(a.retry_after - b.retry_after) <= 1e-9
+            continue
+        assert (a.level, a.batch_seq, a.degraded) == (b.level, b.batch_seq, b.degraded)
+        assert abs(a.t_response - b.t_response) <= 1e-9
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-5, atol=1e-5)
+        diff = np.nonzero(a.ids != b.ids)[0]
+        q = rows[a.request_id]
+        np.testing.assert_allclose(np.linalg.norm(pts[a.ids[diff]] - q, axis=-1),
+                                   np.linalg.norm(pts[b.ids[diff]] - q, axis=-1),
+                                   rtol=1e-5, atol=1e-5)
+    mc, mh = srv_c.metrics(), srv_h.metrics()
+    for key in ("n_served", "n_shed", "n_batches", "level_occupancy", "n_deadline_misses"):
+        assert mc[key] == mh[key], key
+    assert mc["n_shed_total"] > 0
+
+
+def test_crash_drill_three_phases_on_card(card, tmp_path):
+    """Save once, then for each crash phase: delete base ids, crash the
+    save, load on the card (the last acknowledged generation's answers,
+    bit for bit; after ``pre-latest`` the complete step dir exists while
+    ``LATEST`` names the acknowledged one), retry (lands, loads as the
+    live index)."""
+    import os
+
+    from repro_torch.runtime import (CheckpointCrash, CrashingCheckpointManager, KNNIndex,
+                                     ScriptedFaults)
+    idx = _serving_index(card)
+    q = np.random.default_rng(9).normal(size=(40, 6)).astype(np.float32)
+    faults = ScriptedFaults()
+    mgr = CrashingCheckpointManager(str(tmp_path), faults)
+    acked = idx.save(str(tmp_path), manager=mgr)
+    want = idx.query(q)
+    for i, phase in enumerate(("pre-arrays", "pre-manifest", "pre-latest")):
+        idx.delete(np.arange(10 * i, 10 * i + 10))
+        faults.crash_checkpoint(phase)
+        with pytest.raises(CheckpointCrash):
+            idx.save(str(tmp_path), manager=mgr)
+        got = KNNIndex.load(str(tmp_path), device=card).query(q)
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.dists, want.dists)
+        if phase == "pre-latest":
+            assert os.path.isdir(os.path.join(tmp_path, f"step-{acked + 1:09d}"))
+        with open(os.path.join(tmp_path, "LATEST")) as fh:
+            assert fh.read().strip() == f"step-{acked:09d}"
+        acked = idx.save(str(tmp_path), manager=mgr)
+        want = idx.query(q)
+        got = KNNIndex.load(str(tmp_path), device=card).query(q)
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.dists, want.dists)
+    assert acked == 3 and faults.count("ckpt-crash") == 3
