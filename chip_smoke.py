@@ -117,7 +117,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          tombstones (after ``pre-latest`` the complete step directory exists
          while ``LATEST`` names the acknowledged one), and the retried save
          landing and loading bit-identically to the live index; save / load
-         times and bytes on disk.
+         times and bytes on disk;
+  (q)    the mesh on the one card: one process drives P logical slots, all on
+         ``cuda:0`` (``make_serving_mesh``).  (q1) a 4 × 1 ``ShardedKNNIndex``
+         over (b)'s 5M points, ε selected once globally (``bin_hist``): (c)'s
+         batch twice (the second adds no bucket, ``"merge"`` included), held
+         against float64 and against (c)'s single-device answers (distances
+         within 2e-6, ids equal except float64 ties); the tree merge against
+         the all-gather fold on that call's shard blocks; a sharded self-join
+         of the first 1,048,576 rows.  (q2) a 2 × 2 replica × shard index (ε
+         pinned) on 4,096 of (c)'s rows: healthy, with replica 0 killed
+         (bit-identical, retries counted), with shard 1 lost (coverage column
+         false, exact over shard 0's points), and behind ``KNNServer``'s
+         partial rung on a 1,024-arrival trace at 2× (partial responses flag
+         the skipped shard, full-rung ones replay bit for bit).  (q3) 4,096
+         inserts and 5 deletes on the 2 × 2 index at K = 16, exact over the
+         net corpus; save, load onto 2 × 2 (bit-identical), no mesh and 4 × 1;
+         ``compact()`` bit-identical to a fresh sharded build.  (q4)
+         ``ring_self_join`` over 1,048,576 rows on 4 slots (exact), its bf16
+         wire variant, and ``hybrid_join_spmd`` over 262,144 rows (resolved
+         rows exact, ``n_unresolved`` printed).  (a) holds the per-shard
+         brute and dense calls and a ring hop's chunk against their plain
+         versions.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -125,11 +146,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 518 dims; and the shapes of (o)'s first 128-row micro-batch: its dense call and
 its brute call over the 5M corpus.
 
-Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p) —
-sets the kernel launch counters to 0 just before it and reads them just after;
-the ``kernels`` line's main ``knn_stream_topk_prefetch`` and ``knn_tile_topk``
-rows count the launches of (b)–(d); (o)'s are on its own
-``(serving micro-batch)`` rows.  The last lines are the card's name and power
+Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
+(q1), (q2)–(q3), the ring of (q4) and the rest of (q4) — sets the kernel launch
+counters to 0 just before it and reads them just after; the ``kernels`` line's
+main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
+of (b)–(d); (o)'s are on its own ``(serving micro-batch)`` rows, (q1)'s on the
+``(sharded, per shard)`` rows and the ring's on ``(ring hop chunk)``.  The last lines are the card's name and power
 limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -179,6 +201,14 @@ SERVE_EXACT_ROWS = 256
 SERVE_MEASURED_RUNS = 3           # (o)'s 2× run timed on the card, repeated
 CRASH_QUERIES = 4096               # (p)
 CRASH_DELETE = 5                   # per phase: 15 tombstones, headroom 16 at K_MUT
+MESH_SHARDS = 4                    # (q1): four logical slots, all on cuda:0
+MESH_SELF_ROWS = 1_048_576         # (q1) sharded self-join, (q4) ring joins
+MESH_QUERIES = 4096                # (q2), (q3): the first rows of (c)'s batch
+MESH_SERVE_REQUESTS = 1024         # (q2): KNNServer trace over the 2 × 2 index
+MESH_DELETE = 5                    # (q3): base ids deleted on the 2 × 2 index
+RING_CHUNK = 4096                  # (q4): the ring's corpus chunk
+SPMD_ROWS = 262_144                # (q4): hybrid_join_spmd's corpus = queries
+TIE = 1e-5                         # float64 distance gap of two ids that tie
 
 
 def log(msg: str) -> None:
@@ -538,9 +568,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels.pairwise_l2 import ref as pair_ref
     from repro_torch.retrieval import normalize_rows
     from repro_torch.retrieval.calibrate import recall_at_k
-    from repro_torch.runtime import (CheckpointCrash, CrashingCheckpointManager, KNNIndex,
-                                     KNNServer, Rejected, ScriptedFaults, Served, ServerConfig,
-                                     VirtualClock, open_loop_trace)
+    from repro_torch.core import distributed
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.runtime import (CheckpointCrash, CrashingCheckpointManager,
+                                     DegradationLevel, FaultInjector, KNNIndex, KNNServer,
+                                     Rejected, ScriptedFaults, Served, ServerConfig,
+                                     ServingConfig, ShardedKNNIndex, VirtualClock,
+                                     open_loop_trace)
+    from repro_torch.runtime.knn_index import select_epsilon
     from repro_torch.runtime import mutation as mut_lib
     from repro_torch.utils import pow2_bucket
 
@@ -576,6 +611,42 @@ def main(argv=None) -> int:
 
     def past_k(spy):
         return sum(k > topk_kernel.MAX_UNROLLED_K for k in spy.notes)
+
+    def same_as(got, want, queries, corpus, what):
+        """Two placements' answers to the same query rows.  A row certified by
+        another engine in each placement may carry its distances in another
+        fp32 form, so each entry is held to the larger of 2e-6 · (1 + d) (the
+        reference's sharded parity bound, on its unit-scale test data) and
+        the expansion form's fp32 bound carried to d (``expansion_bound``
+        of the query's and the neighbour's norms, min(e / d, √e)); ids are
+        equal except where the two ids' float64 distances lie within that
+        same allowance or TIE.  ``queries`` holds the query rows, ``corpus``
+        every global id's row.  Prints how many rows are bit-identical."""
+        n, k = got.ids.shape
+        q = queries[:n].double()
+        c = corpus[torch.as_tensor(want.ids, device=dev).long()].double()
+        e = expansion_bound(q.norm(dim=1)[:, None], c.norm(dim=-1), q.shape[1])
+        wd = torch.as_tensor(want.dists, device=dev).double()
+        allow = torch.maximum(torch.minimum(e / wd.clamp(min=1e-300), e.sqrt()),
+                              2e-6 * (1.0 + wd)).cpu().numpy()
+        delta = np.abs(got.dists.astype(np.float64) - want.dists)
+        diff = got.ids != want.ids
+        bit_rows = int(((~diff) & (got.dists == want.dists)).all(1).sum())
+        r, cc = np.nonzero(diff)
+        gap = 0.0
+        if len(r):
+            rt = torch.as_tensor(r, device=dev)
+            qa = queries[rt].double()
+            a = corpus[torch.as_tensor(got.ids[r, cc], device=dev).long()].double()
+            b = corpus[torch.as_tensor(want.ids[r, cc], device=dev).long()].double()
+            gaps = ((qa - a).norm(dim=1) - (qa - b).norm(dim=1)).abs().cpu().numpy()
+            gap = gaps.max()
+            assert (gaps <= np.maximum(allow[r, cc], TIE)).all(), \
+                f"{what}: an id differs that is not a distance tie"
+        log(f"  {what}: {bit_rows} of {n} rows bit-identical; {len(r)} ids differ (float64 "
+            f"distance gap ≤ {gap:.2e}); max |Δd| {delta.max():.3e} (largest |Δd| / allowance "
+            f"{(delta / allow).max():.3f}; entries past 2e-6: {int((delta > 2e-6).sum())})")
+        assert (delta <= allow).all(), f"{what}: distances differ beyond the allowance"
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1731,6 +1802,307 @@ def main(argv=None) -> int:
     assert launches_p.get("knn_tile_topk", 0) > 0, "(p) never launched knn_tile_topk"
     log(f"[p] phase {time.perf_counter() - t_p:.2f}s")
     del sidx, want, live
+
+    # -- path 13: (q) the mesh on the one card -----------------------------------
+    # One process drives P logical slots, all on cuda:0.  (q1) a 4 × 1 mesh
+    # over the 5M SuSy corpus, ε selected once globally; (q2) a 2 × 2 replica
+    # × shard mesh with (q1)'s ε pinned, healthy, under a killed replica, with
+    # a lost shard, and behind KNNServer's partial rung; (q3) sharded
+    # mutation and durability on the 2 × 2 index; (q4) the SPMD joins.  Each
+    # part resets the launch counters before it and reads them after it.
+    t_q = time.perf_counter()
+    reset_counts()
+    t0 = time.perf_counter()
+    mesh4 = make_serving_mesh(MESH_SHARDS)
+    assert {str(d) for d in mesh4.devices.reshape(-1)} == {"cuda:0"}
+    sh = KNNIndex.build(pts, cfg, mesh=mesh4)
+    assert isinstance(sh, ShardedKNNIndex) and sh.placement_shape == (1, MESH_SHARDS)
+    log(f"[q1] 4 × 1 build {time.perf_counter() - t0:.2f}s: eps={sh.eps:.6g} ((b)'s "
+        f"{eps_b:.6g}) t_select_eps={sh.t_select_eps:.3f}s t_build={sh.t_build:.3f}s "
+        f"shard_n={sh.shard_n} n_pad={sh.n_pad}")
+    assert sh.eps == eps_b, "(q1) the global ε selection differs from the single index's"
+    shard_n = sh.shard_n
+    with FirstCall(topk_ops, "knn_topk", lambda *a, **kw: a[1].shape[0] == shard_n) as q_topk, \
+            FirstCall(stream_ops, "knn_stream_topk_prefetch") as q_stream:
+        s1 = sh.query(foreign)
+    log(f"[q1] R≠S #1: {stats_line(s1, FOREIGN_QUERIES)} t_merge={s1.stats.t_merge:.4f}s")
+    with FirstCall(sh, "_merge") as q_merge:
+        s2 = sh.query(foreign)
+    log(f"[q1] R≠S #2: {stats_line(s2, FOREIGN_QUERIES)} t_merge={s2.stats.t_merge:.4f}s; "
+        f"engine buckets {sh.compile_counts}")
+    log(f"[q1] merge time {s2.stats.t_merge * 1e3:.3f} ms of t_wall {s2.stats.t_wall:.3f}s "
+        f"((c) single-device t_wall {r2.stats.t_wall:.3f}s)")
+    assert s2.stats.n_engine_compiles == 0, "(q1) the steady-state sharded query added buckets"
+    assert sh.compile_counts["merge"] == 1
+    check_exact(pts_d, fq[sub], None, s2.dists[sub], s2.ids[sub], "(q1) sharded R≠S")
+    same_as(s2, r2, fq, pts_d, "(q1) sharded vs (c) single-device")
+    # The tree merge against the all-gather fold on the captured shard blocks.
+    (k_out, dpad, ipad, epad, n_pad), _ = q_merge.args
+    merges = {}
+    for strategy in ("allgather", "tree"):
+        fn = distributed.collective_topk_merge(mesh4, sh.axes, k=k_out, strategy=strategy,
+                                               dedup=n_pad > 0)
+        merges[strategy] = fn(dpad, ipad, epad)
+        ms_m = cuda_ms(lambda: fn(dpad, ipad, epad))
+        log(f"[q1] collective merge {strategy}: {tuple(dpad.shape)} -> k={k_out} "
+            f"{ms_m:.3f} ms (CUDA events)")
+    (dag, iag), (dtr, itr) = merges["allgather"], merges["tree"]
+    assert torch.equal(dag, dtr), "(q1) tree and all-gather merges differ in distances"
+    tie_ids = int((iag != itr).sum())
+    log(f"[q1] tree == all-gather: distances bit-identical, {tie_ids} ids differ (ties)")
+    assert np.array_equal(dag[:FOREIGN_QUERIES].cpu().numpy(), s2.dists)
+    del dpad, ipad, epad, merges, q_merge, dag, iag, dtr, itr
+    # The sharded self-join over the first MESH_SELF_ROWS rows.
+    t0 = time.perf_counter()
+    sub_pts = pts[:MESH_SELF_ROWS]
+    sh_self = KNNIndex.build(sub_pts, cfg, mesh=mesh4)
+    ss = sh_self.query(exclude_self=True)
+    rows_s = rng.choice(MESH_SELF_ROWS, ORACLE_ROWS, replace=False)
+    rows_st = torch.as_tensor(rows_s, device=dev)
+    log(f"[q1] self-join of {MESH_SELF_ROWS} rows on 4 × 1 (eps={sh_self.eps:.6g}) in "
+        f"{time.perf_counter() - t0:.2f}s: {stats_line(ss, MESH_SELF_ROWS)} "
+        f"t_merge={ss.stats.t_merge:.4f}s")
+    check_exact(pts_d[:MESH_SELF_ROWS], pts_d[rows_st], rows_st, ss.dists[rows_s],
+                ss.ids[rows_s], "(q1) sharded self-join")
+    del sh_self, ss
+    launches_q1 = read_counts("(q1) 4 × 1 mesh")
+    for name in ("knn_stream_topk_prefetch", "knn_tile_topk", "distance_bin_histogram"):
+        assert launches_q1.get(name, 0) > 0, f"(q1) never launched {name}"
+    log(f"[q1] phase {time.perf_counter() - t_q:.2f}s")
+
+    # (q2) the 2 × 2 replica × shard mesh, ε pinned to (q1)'s.
+    t_q2 = time.perf_counter()
+    reset_counts()
+    t0 = time.perf_counter()
+    mesh22 = make_serving_mesh(2, replicas=2)
+    sh22 = KNNIndex.build(pts, cfg, sh.eps, mesh=mesh22)
+    assert sh22.placement_shape == (2, 2)
+    log(f"[q2] 2 × 2 build {time.perf_counter() - t0:.2f}s (ε pinned)")
+    cq = foreign[:MESH_QUERIES]
+    cq_rows = np.sort(rng.choice(MESH_QUERIES, ORACLE_ROWS, replace=False))
+    healthy = sh22.query(cq)
+    log(f"[q2] healthy: {stats_line(healthy, MESH_QUERIES)} retries="
+        f"{healthy.stats.n_subquery_retries}")
+    assert healthy.coverage.all() and healthy.stats.n_subquery_failures == 0
+    s4 = sh.query(cq)
+    same_as(healthy, s4, fq, pts_d, "(q2) 2 × 2 vs 4 × 1")
+    del s4
+    sh22.configure_serving(faults=ScriptedFaults().kill_replica(0, at_step=0))
+    killed = sh22.query(cq)
+    assert np.array_equal(killed.ids, healthy.ids) and np.array_equal(killed.dists, healthy.dists), \
+        "(q2) a killed replica changed the answers"
+    assert killed.coverage.all() and killed.stats.n_subquery_retries > 0
+    log(f"[q2] replica 0 killed: bit-identical, coverage full, retries "
+        f"{killed.stats.n_subquery_retries}, failures {killed.stats.n_subquery_failures}")
+    lost = ScriptedFaults()
+    for replica in (0, 1):
+        lost.fail_subquery(replica, 1, steps=range(sh22._serve_step, sh22._serve_step + 4))
+    sh22.configure_serving(ServingConfig(max_attempts=2), faults=lost)
+    lr = sh22.query(cq)
+    assert lr.stats.shards_lost == (1,)
+    assert lr.coverage[:, 0].all() and not lr.coverage[:, 1].any()
+    g0 = np.unique(sh22.gids[0])
+    pos0 = np.searchsorted(g0, lr.ids[cq_rows])
+    assert (g0[np.clip(pos0, 0, len(g0) - 1)] == lr.ids[cq_rows]).all(), \
+        "(q2) a lost shard's id was returned"
+    check_exact(pts_d[torch.as_tensor(g0, device=dev)], fq[torch.as_tensor(cq_rows, device=dev)],
+                None, lr.dists[cq_rows], pos0, "(q2) lost shard 1: exact over shard 0")
+    log(f"[q2] shard 1 lost: coverage column 1 false on all {MESH_QUERIES} rows, failures "
+        f"{lr.stats.n_subquery_failures}")
+    del lr, killed
+    sh22.configure_serving(faults=FaultInjector())
+
+    # KNNServer over the 2 × 2 index with the partial rung.
+    qb = cfg.query_block
+    spare = foreign[SERVE_REQUESTS:]
+    sh22.query(spare[:qb])
+    sh22.query(spare[:SERVE_MAX_BATCH])
+    probes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sh22.query(spare[SERVE_MAX_BATCH:SERVE_MAX_BATCH + qb].copy())
+        probes.append(time.perf_counter() - t0)
+    per_row22 = min(probes) / qb
+    ladder = (DegradationLevel("full"),
+              DegradationLevel("partial", enter_pressure=0.3, hedging=False, shard_frac=0.5))
+    srv = KNNServer(sh22, ServerConfig(deadline=DEADLINE_BUCKETS * per_row22 * qb,
+                                       max_wait=MAX_WAIT_BUCKETS * per_row22 * qb,
+                                       max_batch=SERVE_MAX_BATCH, shed_on_admission=False,
+                                       max_queue=10 ** 6, ladder=ladder, record_batches=True),
+                    clock=VirtualClock(), service_model=lambda n: per_row22 * n)
+    srv.prime_service_estimate(per_row22)
+    t0 = time.perf_counter()
+    tickets = srv.run_trace(open_loop_trace(foreign[:MESH_SERVE_REQUESTS],
+                                            qps=2.0 / per_row22, seed=SERVE_SEED))
+    m = srv.metrics()
+    log(f"[q2] KNNServer 2×: probes {[round(t, 6) for t in probes]} s, per_row "
+        f"{per_row22 * 1e6:.3f} µs; served {m['n_served']} of {m['n_submitted']}, shed "
+        f"{m['n_shed']}; levels {m['level_occupancy']}; {m['n_batches']} batches; wall "
+        f"{time.perf_counter() - t0:.3f}s")
+    assert all(t.done for t in tickets) and m["n_submitted"] == MESH_SERVE_REQUESTS
+    by_rid = {t.request_id: t.outcome for t in tickets}
+    n_partial = n_full = 0
+    for rec in srv.batch_log:
+        if rec.serve_shards is not None:
+            for rid in rec.request_ids:
+                cov = by_rid[rid].coverage
+                assert by_rid[rid].degraded and cov[list(rec.serve_shards)].all() \
+                    and cov.sum() == len(rec.serve_shards), "(q2) partial coverage flags"
+                n_partial += 1
+            continue
+        if srv.cfg.ladder[rec.level].degraded:
+            continue
+        direct = sh22.query(rec.rows, k=rec.k)
+        for j, rid in enumerate(rec.request_ids):
+            assert np.array_equal(by_rid[rid].dists, direct.dists[j]) and \
+                np.array_equal(by_rid[rid].ids, direct.ids[j]), \
+                f"(q2) request {rid} differs from the replay of batch {rec.seq}"
+            n_full += 1
+    assert n_partial > 0 and n_full > 0, "(q2) the trace never reached both rungs"
+    assert sh22.supervisor.cfg.hedging
+    log(f"[q2] {n_partial} partial responses flagged with exactly the skipped shard's "
+        f"column; {n_full} full-rung responses bit-identical to direct sharded queries")
+    del srv, tickets, by_rid
+
+    # (q3) sharded mutation and durability on the 2 × 2 index.
+    t0 = time.perf_counter()
+    ins = (pointclouds.load("susy", n_override=N_INSERT)
+           + rng.normal(0, 0.01, (N_INSERT, pts.shape[1]))).astype(np.float32)
+    ins_gids = sh22.insert(ins)
+    base_del = np.unique(healthy.ids[:, 0])[:MESH_DELETE]
+    sh22.delete(base_del)
+    mq = sh22.query(cq, k=K_MUT)
+    log(f"[q3] {N_INSERT} inserts, {MESH_DELETE} deletes, R≠S K={K_MUT}: "
+        f"{stats_line(mq, MESH_QUERIES)} t_delta={mq.stats.t_delta:.3f}s "
+        f"entries from the delta buffer {int((mq.ids >= len(pts)).sum())}")
+    live = np.ones(len(pts) + N_INSERT, bool)
+    live[base_del] = False
+    net_gids = np.flatnonzero(live)
+    net_d = torch.cat([pts_d, torch.as_tensor(ins, device=dev)])[torch.as_tensor(live, device=dev)]
+    posm = np.searchsorted(net_gids, mq.ids[cq_rows])
+    assert (net_gids[np.clip(posm, 0, len(net_gids) - 1)] == mq.ids[cq_rows]).all()
+    check_exact(net_d, fq[torch.as_tensor(cq_rows, device=dev)], None, mq.dists[cq_rows], posm,
+                f"(q3) mutated sharded R≠S K={K_MUT}")
+    del net_d
+    full_d = torch.cat([pts_d, torch.as_tensor(ins, device=dev)])
+    with tempfile.TemporaryDirectory() as ckpt:
+        t1 = time.perf_counter()
+        sh22.save(ckpt)
+        t_save = time.perf_counter() - t1
+        for what, mesh_l in (("the 2 × 2 mesh", mesh22), ("no mesh", None),
+                             ("the 4 × 1 mesh", mesh4)):
+            t1 = time.perf_counter()
+            back = KNNIndex.load(ckpt, device="cuda", mesh=mesh_l)
+            t_load = time.perf_counter() - t1
+            got = back.query(cq, k=K_MUT)
+            identical = np.array_equal(got.ids, mq.ids) and np.array_equal(got.dists, mq.dists)
+            log(f"[q3] load onto {what} {t_load:.3f}s ({type(back).__name__}): "
+                f"{'bit-identical' if identical else 'not bit-identical'}")
+            if mesh_l is mesh22:
+                assert identical, "(q3) the reloaded 2 × 2 index answers differently"
+            else:
+                same_as(got, mq, fq, full_d, f"(q3) loaded onto {what}")
+            del back, got
+    del full_d
+    log(f"[q3] save {t_save:.3f}s")
+    net_pts = sh22.net_points()
+    t1 = time.perf_counter()
+    sh22.compact()
+    t_compact = time.perf_counter() - t1
+    fresh = KNNIndex.build(net_pts, cfg, sh.eps, mesh=mesh22)
+    rc, rf = sh22.query(cq, k=K_MUT), fresh.query(cq, k=K_MUT)
+    assert np.array_equal(rc.ids, rf.ids) and np.array_equal(rc.dists, rf.dists), \
+        "(q3) compact() differs from a fresh sharded build on net_points()"
+    log(f"[q3] compact {t_compact:.3f}s: bit-identical to a fresh 2 × 2 build on net_points(); "
+        f"phase (q3) {time.perf_counter() - t0:.2f}s")
+    del fresh, rc, rf, net_pts, sh22, healthy, mq
+    launches_q23 = read_counts("(q2)-(q3) 2 × 2 mesh")
+    assert launches_q23.get("knn_tile_topk", 0) > 0, "(q2)-(q3) never launched knn_tile_topk"
+    log(f"[q2]-[q3] phase {time.perf_counter() - t_q2:.2f}s")
+
+    # (q4) the SPMD joins.
+    t_q4 = time.perf_counter()
+    reset_counts()
+    ring_pts = pts_d[:MESH_SELF_ROWS]
+    rows_r = torch.as_tensor(rng.choice(MESH_SELF_ROWS, ORACLE_ROWS, replace=False), device=dev)
+    rows_r_np = rows_r.cpu().numpy()
+    with FirstCall(topk_ops, "knn_topk") as ring_call:
+        (rd32, ri32), ring_ms = timed(lambda: distributed.ring_self_join(
+            mesh4, ("shard",), k=K, corpus_chunk=RING_CHUNK)(ring_pts))
+    launches_ring = read_counts("(q4) ring self-join")
+    log(f"[q4] ring self-join {MESH_SELF_ROWS} rows, 4 slots, chunk {RING_CHUNK}: "
+        f"{ring_ms / 1e3:.3f}s ({MESH_SELF_ROWS / ring_ms * 1e3:.1f} queries/s), knn_tile_topk "
+        f"launches {launches_ring.get('knn_tile_topk', 0)}")
+    check_exact(ring_pts, ring_pts[rows_r], rows_r, torch.sqrt(rd32[rows_r]).cpu().numpy(),
+                ri32[rows_r].cpu().numpy(), "(q4) ring self-join")
+    reset_counts()
+    (rd16, ri16), ring16_ms = timed(lambda: distributed.ring_self_join_bf16(
+        mesh4, ("shard",), k=K, corpus_chunk=RING_CHUNK)(ring_pts))
+    # bf16 precision: a corpus coordinate c_j rounds to c_j (1 + δ_j), |δ_j|
+    # ≤ u = 2⁻⁸, which moves d² by at most 2u·d·|c| + u²|c|²; every candidate
+    # within a row's k-th distance D has |c| ≤ |q| + D, and the j-th smallest
+    # d² moves by no more than the largest such move, plus the fp32
+    # expansion bound of either run.
+    u16 = 2.0 ** -8
+    d_k = torch.maximum(rd16[:, -1], rd32[:, -1]).double().clamp(min=0).sqrt()
+    c_max = ring_pts.double().norm(dim=1) + d_k
+    allow16 = (2 * u16 * d_k * c_max + u16 ** 2 * c_max ** 2
+               + 2 * expansion_bound(ring_pts.double().norm(dim=1), c_max, ring_pts.shape[1]))
+    delta16 = (rd16.double() - rd32.double()).abs()
+    rel = (delta16 / rd32.double().clamp(min=1e-3)).max().item()
+    overlap = (ri16[:, :, None] == ri32[:, None, :]).any(-1).float().mean().item()
+    log(f"[q4] bf16 ring {ring16_ms / 1e3:.3f}s: neighbour overlap {overlap:.4f}; max |Δd²| "
+        f"{delta16.max().item():.3e}, largest |Δd²| / bf16 bound "
+        f"{(delta16 / allow16[:, None]).max().item():.3f}; max relative |Δd²| / d² {rel:.4f}")
+    assert (delta16 <= allow16[:, None]).all() and overlap > 0.9, \
+        "(q4) the bf16 ring is beyond bf16 precision"
+    del rd16, ri16, rd32, ri32
+    spmd_pts = pts_d[:SPMD_ROWS]
+    eps_s = select_epsilon(spmd_pts, cfg, None, SPMD_ROWS)[0]
+    join = distributed.hybrid_join_spmd(mesh4, ("shard",), k=K, m=cfg.m, rho=cfg.rho,
+                                        gamma=cfg.gamma, dense_budget=cfg.dense_budget,
+                                        sparse_budget=cfg.sparse_budget)
+    sres, spmd_ms = timed(lambda: join(spmd_pts, eps_s))
+    src = sres.source.cpu().numpy()
+    log(f"[q4] hybrid_join_spmd {SPMD_ROWS} rows, 4 query slots, eps={eps_s:.6g}: "
+        f"{spmd_ms / 1e3:.3f}s; sources {np.bincount(src, minlength=4).tolist()} "
+        f"(0 dense, 1 sparse, 2 fail/brute lane, 3 unresolved); n_unresolved "
+        f"{sres.n_unresolved}")
+    assert sres.n_unresolved == int((src == 3).sum())
+    rows_p = rng.choice(SPMD_ROWS, ORACLE_ROWS, replace=False)
+    rows_p = rows_p[src[rows_p] != 3]
+    rows_pt = torch.as_tensor(rows_p, device=dev)
+    if len(rows_p):
+        check_exact(spmd_pts, spmd_pts[rows_pt], rows_pt,
+                    torch.sqrt(sres.dists[rows_pt]).cpu().numpy(),
+                    sres.ids[rows_pt].cpu().numpy(), "(q4) hybrid_join_spmd resolved rows")
+    launches_q4 = read_counts("(q4) bf16 ring + hybrid_join_spmd")
+    # The dense lane launches knn_stream only when the split sends it rows.
+    log(f"[q4] hybrid_join_spmd's dense lane: {int((src == 0).sum())} rows, "
+        f"knn_stream_topk_prefetch launches {launches_q4.get('knn_stream_topk_prefetch', 0)}")
+    for name in ("knn_tile_topk", "distance_bin_histogram"):
+        assert launches_q4.get(name, 0) > 0, f"(q4) never launched {name}"
+    log(f"[q4] phase {time.perf_counter() - t_q4:.2f}s")
+    del sres, join
+
+    # -- (a) the shapes (q) launched ------------------------------------------
+    (q3s, c3s, qid3s, cid3s), kw3s = q_topk.args
+    kernels.append(topk_check("knn_tile_topk (sharded, per shard)", q3s, c3s, qid3s, cid3s,
+                              kw3s.get("metric", "l2"), launches_q1["knn_tile_topk"],
+                              k=kw3s["k"]))
+    (q1s, c1s, blk1s, qid1s, cand1s, e1s), kw1s = q_stream.args
+    err, ms, plain_ms, b = stream_check(
+        f"knn_stream_topk_prefetch sharded first dense batch, {blk1s.shape[0]} tiles, "
+        f"k={kw1s['k']}", (q1s, c1s, blk1s, qid1s, cand1s), e1s, kw1s["k"], "l2", c1s, q1s)
+    kernels.append(kernel_entry("knn_stream_topk_prefetch (sharded, per shard)", STREAM_CU,
+                                "src/repro/kernels/knn_stream/kernel.py:220",
+                                launches_q1["knn_stream_topk_prefetch"], err, ms, plain_ms, b,
+                                None))
+    (q3r, c3r, qid3r, cid3r), kw3r = ring_call.args
+    kernels.append(topk_check("knn_tile_topk (ring hop chunk)", q3r, c3r, qid3r, cid3r, "l2",
+                              launches_ring["knn_tile_topk"], k=kw3r["k"]))
+    del q_topk, q_stream, ring_call, q3s, c3s, q1s, c1s, q3r, c3r, sh
+    log(f"[q] phase {time.perf_counter() - t_q:.2f}s")
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

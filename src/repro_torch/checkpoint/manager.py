@@ -14,7 +14,12 @@ Layout per step::
   * async        — ``save()`` snapshots to host memory synchronously and
                    does serialization/IO on a background thread.
   * placement    — arrays are stored whole; ``restore(..., device=...)``
-                   puts them on a device.  A mesh is not ported yet.
+                   puts them on a device.  ``restore(mesh=...)`` — the
+                   counterpart of the JAX ``restore(shardings=...)``, whose
+                   only caller is the trainer's elastic restart — waits
+                   for the LM substrate (ROADMAP.md queue A item 17); no
+                   KNN path needs it (an index loads onto a mesh through
+                   ``KNNIndex.load(mesh=...)``).
   * validation   — restore checks shapes/dtypes/crc against the manifest
                    and refuses partial checkpoints.
 
@@ -239,7 +244,7 @@ class CheckpointManager:
         arrays (torch tensors for bfloat16/float8), or as torch tensors on
         ``device`` when one is given.  Returns (tree, extra, step)."""
         if mesh is not None:
-            raise unported("CheckpointManager.restore(mesh=...)", "queue A item 15")
+            raise unported("CheckpointManager.restore(mesh=...)", "queue A item 17")
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -1,7 +1,8 @@
 """Runtime of the port: the index/query serving API (mutable and durable),
 join sessions, and the host-side serving stack — fault injection, the
 straggler detector, the step supervisor, the sub-query fault policy and
-the overload-robust ``KNNServer`` front end."""
+the overload-robust ``KNNServer`` front end — and the sharded index over a
+slot mesh (``ShardedKNNIndex``)."""
 from repro_torch.runtime.faults import (
     Arrival, CheckpointCrash, CrashingCheckpointManager, FaultInjector,
     ScriptedFaults, SubQueryFault, VirtualClock, open_loop_trace,
@@ -17,13 +18,14 @@ from repro_torch.runtime.serving import (
     ServingConfig, ServingSupervisor, SubQueryOutcome,
 )
 from repro_torch.runtime.session import JoinSession
+from repro_torch.runtime.sharded_index import ShardedKNNIndex
 from repro_torch.runtime.stragglers import (
     OnlineRho, StragglerConfig, StragglerDetector, suggest_rho,
 )
 from repro_torch.runtime.supervisor import RunReport, Supervisor, SupervisorConfig
 
 __all__ = [
-    "KNNIndex", "JoinSession", "clear_engine_cache",
+    "KNNIndex", "ShardedKNNIndex", "JoinSession", "clear_engine_cache",
     "validate_points", "validate_k",
     "KNNServer", "ServerConfig", "DegradationLevel", "Served", "Rejected",
     "Ticket", "BatchRecord",

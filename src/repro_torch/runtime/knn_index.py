@@ -57,7 +57,8 @@ from repro_torch.retrieval import calibrate as cal_lib
 from repro_torch.retrieval import metrics as met_lib
 from repro_torch.retrieval import projection as proj_lib
 from repro_torch.runtime import mutation as mut_lib
-from repro_torch.utils import pad_to, pow2_bucket, resolve_device, unported
+from repro_torch.launch.mesh import check_mesh
+from repro_torch.utils import pad_to, pow2_bucket, resolve_device
 
 # Process-global engine shape-bucket keys (the JAX AOT cache's keys).
 _ENGINE_CACHE: set = set()
@@ -288,7 +289,7 @@ class KNNIndex:
     def build(cls, points, config, epsilon: Optional[float] = None, *,
               device="cuda", backend: Optional[str] = None,
               compile_counts: Optional[Dict[str, int]] = None, mesh=None,
-              _prebuilt: Optional[tuple] = None):
+              mesh_axis=None, merge: str = "auto", _prebuilt: Optional[tuple] = None):
         """Steps 1–3 of Algorithm 1, once per database: REORDER, ε
         selection (skipped when ``epsilon`` is pinned), grid + pyramid.
         Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU;
@@ -296,6 +297,15 @@ class KNNIndex:
         is fitted and applied on the host (numpy, as the reference does)
         and REORDER is skipped: the grid indexes the projected rows, and
         the full-width corpus stays on the device for the rescore.
+
+        ``mesh`` (a ``launch.mesh.Mesh``) makes placement a build parameter
+        (DESIGN.md §5): the reference cloud is partitioned over the mesh's
+        shard slots and a ``ShardedKNNIndex`` is returned — the same
+        ``query()`` contract, shard-local pipelines plus a collective top-K
+        merge (``mesh_axis`` names the shard axis or axes, default every
+        axis but ``"replica"``; ``merge`` picks the collective strategy,
+        ``core.distributed.merge_strategy``).  The mesh's slots decide the
+        devices; ``device`` is not used then.
 
         ``_prebuilt`` is internal (``load``): a ``(points_r, dim_perm, eps,
         eps_beta[, projection])`` tuple replaying a saved generation's
@@ -308,7 +318,12 @@ class KNNIndex:
                     "projection front stage and the sharded cell-order partition "
                     "do not compose yet.  Build without a mesh, or drop the "
                     "projection.")
-            raise unported("KNNIndex.build(mesh=...)", "queue A item 15")
+            from repro_torch.runtime.sharded_index import ShardedKNNIndex
+
+            return ShardedKNNIndex.build(
+                points, config, epsilon, mesh=check_mesh(mesh), mesh_axis=mesh_axis,
+                merge=merge, backend=backend, compile_counts=compile_counts,
+                _prebuilt=_prebuilt)
         dev = resolve_device(device)
         cfg = config
         pts_np = met_lib.prepare_rows(
@@ -464,13 +479,15 @@ class KNNIndex:
     @classmethod
     def load(cls, directory: str, *, step: Optional[int] = None, device="cuda",
              backend: Optional[str] = None,
-             compile_counts: Optional[Dict[str, int]] = None, mesh=None):
-        """Rebuild a served index from a saved generation on ``device``:
+             compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+             mesh_axis=None, merge: str = "auto"):
+        """Rebuild a served index from a saved generation on ``device`` —
+        or, with ``mesh``, onto any mesh shape (a ``ShardedKNNIndex``):
         REORDER and ε selection are replayed, not recomputed."""
         from repro_torch.runtime import persistence
         return persistence.load_index(directory, step=step, device=device,
                                       backend=backend, compile_counts=compile_counts,
-                                      mesh=mesh)
+                                      mesh=mesh, mesh_axis=mesh_axis, merge=merge)
 
     # -- mutations (DESIGN.md §6) ------------------------------------------
 
@@ -668,19 +685,22 @@ class KNNIndex:
         gen.self_splits[(k, rho)] = out
         return out
 
-    def _query_split(self, gen: _Generation, queries_r, k: int, net_cells=None):
+    def _query_split(self, gen: _Generation, queries_r, k: int, net_cells=None,
+                     rho: Optional[float] = None):
         """The §V-D split of a foreign query batch by reference-grid
         density: (dense_ids, sparse_ids, home_counts, threshold).
         ``net_cells`` — (live delta rows, tombstoned base rows), both in the
-        REORDER frame — corrects the densities to the net corpus."""
+        REORDER frame — corrects the densities to the net corpus; ``rho``
+        overrides the config's ρ floor."""
         cfg = self.config
+        rho = cfg.rho if rho is None else rho
         q_coords = grid_lib.compute_cell_coords(gen.grid, queries_r[:, : gen.grid.m])
         net_adjust = None
         if net_cells is not None:
             q_cells = grid_lib.linearize(q_coords, gen.grid.radices).cpu().numpy()
             net_adjust = torch.as_tensor(
                 mut_lib.net_cell_adjustment(gen.grid, q_cells, *net_cells), device=self.device)
-        split = split_lib.split_queries(gen.grid, q_coords, k, cfg.gamma, cfg.rho,
+        split = split_lib.split_queries(gen.grid, q_coords, k, cfg.gamma, rho,
                                         net_adjust=net_adjust)
         to_dense = split.to_dense.cpu().numpy()
         return (np.nonzero(to_dense)[0].astype(np.int32),
@@ -690,11 +710,13 @@ class KNNIndex:
     # -- the query pipeline ------------------------------------------------
 
     def _drain(self, gen: _Generation, kq: int, n_q: int, queries_rp, dense_ids,
-               sparse_ids, home_counts, exclude_self: bool):
+               sparse_ids, home_counts, exclude_self: bool, rho: Optional[float] = None):
         """Steps 5–8 of Algorithm 1: the §V-A work queue over the three
         engines.  Returns raw scores (squared L2 / −q·c), so merge-time
-        folds compare like with like."""
+        folds compare like with like.  ``rho`` overrides the config's ρ
+        floor."""
         cfg = self.config
+        rho = cfg.rho if rho is None else rho
         return queue_lib.run_work_queue(
             npts=n_q, k=kq, dense_ids=dense_ids, sparse_ids=sparse_ids,
             home_counts=home_counts,
@@ -703,7 +725,7 @@ class KNNIndex:
             brute_fn=self._brute_fn(gen, kq, queries_rp, exclude_self),
             n_batches=cfg.n_batches, online_rebalance=cfg.online_rebalance,
             sync_t1_after=cfg.rebalance_sync_batches,
-            min_sparse=int(math.ceil(cfg.rho * n_q)), demote_quantum=cfg.query_block,
+            min_sparse=int(math.ceil(rho * n_q)), demote_quantum=cfg.query_block,
         )
 
     def _stats(self, gen: _Generation, n_dense: int, n_sparse: int, threshold: float,
@@ -734,8 +756,8 @@ class KNNIndex:
         queries_r = q[:, gen.dim_perm] if gen.dim_perm is not None else q
         return queries_r, pad_rows_pow2(queries_r, self.config.query_block).contiguous()
 
-    def query(self, queries=None, k: Optional[int] = None,
-              exclude_self: bool = False) -> "hybrid_lib.KNNResult":
+    def query(self, queries=None, k: Optional[int] = None, exclude_self: bool = False, *,
+              _net_cells=None, _rho: Optional[float] = None) -> "hybrid_lib.KNNResult":
         """Hybrid KNN of ``queries`` (original dim order; ``None`` or the
         indexed array itself selects the self-join path) against the
         indexed reference cloud: the §V-D split by reference-grid density,
@@ -752,11 +774,19 @@ class KNNIndex:
         index serves through the exact brute lane; ``recall_target < 1``
         serves the calibrated lean pass (``_query_approx``); everything
         else takes the exact path, which ``recall_target=1.0`` leaves
-        bit-identical."""
+        bit-identical.
+
+        ``_net_cells`` is internal (sharded serving): reordered (delta,
+        tombstone) point arrays whose home cells adjust this grid's density
+        split to the net corpus.  ``_rho`` overrides the config's ρ floor for
+        this call (the sharded layer's online Eq. 6 re-suggestion) — work
+        routing only; results are exact either way."""
         gen, mut = self._live
         if not mut.is_clean:
+            assert _net_cells is None
             return self._query_mutated(gen, mut, queries, k, exclude_self)
         cfg = self.config
+        rho = cfg.rho if _rho is None else float(np.clip(_rho, 0.0, 1.0))
         npts_ref = gen.n_base
         max_k = npts_ref - 1 if exclude_self else npts_ref
         kq = validate_k(cfg.k if k is None else k, max_k,
@@ -774,7 +804,7 @@ class KNNIndex:
             n_q = int(q_np.shape[0])
         if gen.projection is not None:
             return self._query_projected(gen, kq, n_q, q_np, exclude_self,
-                                         compiles_before)
+                                         compiles_before, rho)
         if not is_self:
             queries_r, queries_rp = self._reordered(gen, q_np)
         if cfg.metric == "ip":
@@ -782,18 +812,18 @@ class KNNIndex:
                                          compiles_before)
 
         if is_self:
-            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, cfg.rho)
+            dense_ids, sparse_ids, threshold = self._self_split(gen, kq, rho)
             home_counts = gen.home_counts
         else:
             dense_ids, sparse_ids, home_counts, threshold = self._query_split(
-                gen, queries_r, kq)
-        if cfg.recall_target < 1.0:
+                gen, queries_r, kq, _net_cells, rho)
+        if cfg.recall_target < 1.0 and _net_cells is None:
             return self._query_approx(gen, kq, n_q, queries_rp, dense_ids, sparse_ids,
                                       home_counts, threshold, exclude_self,
-                                      compiles_before)
+                                      compiles_before, rho)
 
         final_d, final_i, source, report = self._drain(
-            gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+            gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self, rho)
         stats = self._stats(gen, len(dense_ids), len(sparse_ids), threshold, report,
                             compiles_before)
         return hybrid_lib.KNNResult(
@@ -878,14 +908,16 @@ class KNNIndex:
 
     def _query_approx(self, gen: _Generation, kq: int, n_q: int, queries_rp, dense_ids,
                       sparse_ids, home_counts, threshold: float, exclude_self: bool,
-                      compiles_before: int) -> "hybrid_lib.KNNResult":
+                      compiles_before: int, rho: Optional[float] = None
+                      ) -> "hybrid_lib.KNNResult":
         """``recall_target < 1``: serve the calibrated lean tier, or the
         exact pipeline (estimate 1.0) when no lean tier met the target on
         the held-out sample."""
         eps_scale, est = cal_lib.grid_tier(self, gen, kq)
         if eps_scale is None:
             final_d, final_i, source, report = self._drain(
-                gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+                gen, kq, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self,
+                rho)
         else:
             final_d, final_i, source, report = self._lean_pass(
                 gen, kq, n_q, queries_rp, dense_ids, sparse_ids, exclude_self, eps_scale)
@@ -896,7 +928,8 @@ class KNNIndex:
             source=source, stats=stats, recall_estimate=est)
 
     def _projected_pass(self, gen: _Generation, kq: int, k_cand: int, n_q: int,
-                        queries_rp, qf: torch.Tensor, exclude_self: bool):
+                        queries_rp, qf: torch.Tensor, exclude_self: bool,
+                        rho: Optional[float] = None):
         """Projection front stage, one batch: the full exact pipeline (work
         queue and brute certification) in projected space at ``k_cand``,
         then the ``"rescore"`` engine reduces each candidate pool to the k
@@ -904,14 +937,16 @@ class KNNIndex:
         batch (None = the self-join over the projected corpus); ``qf`` the
         full-width query rows the rescore reads."""
         cfg = self.config
+        rho = cfg.rho if rho is None else rho
         if queries_rp is None:
-            dense_ids, sparse_ids, threshold = self._self_split(gen, k_cand, cfg.rho)
+            dense_ids, sparse_ids, threshold = self._self_split(gen, k_cand, rho)
             home_counts = gen.home_counts
         else:
             dense_ids, sparse_ids, home_counts, threshold = self._query_split(
-                gen, queries_rp[:n_q], k_cand)
+                gen, queries_rp[:n_q], k_cand, rho=rho)
         _, ci, source, report = self._drain(
-            gen, k_cand, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self)
+            gen, k_cand, n_q, queries_rp, dense_ids, sparse_ids, home_counts, exclude_self,
+            rho)
         t0 = time.perf_counter()
         dev = self.device
         metric = met_lib.kernel_metric(cfg.metric)
@@ -936,7 +971,8 @@ class KNNIndex:
                 t_rescore)
 
     def _query_projected(self, gen: _Generation, kq: int, n_q: int, q_np,
-                         exclude_self: bool, compiles_before: int) -> "hybrid_lib.KNNResult":
+                         exclude_self: bool, compiles_before: int,
+                         rho: Optional[float] = None) -> "hybrid_lib.KNNResult":
         """Projection-fronted query: the candidate pool's size comes from
         the calibrated rung ladder (``retrieval/calibrate.py``); when no
         rung met the target on the held-out sample, serve exact
@@ -956,7 +992,7 @@ class KNNIndex:
         max_k = gen.n_base - 1 if exclude_self else gen.n_base
         k_cand = max(kq, min(cand_mult * kq, max_k))
         rd, ri, source, report, threshold, n_dense, n_sparse, t_rescore = (
-            self._projected_pass(gen, kq, k_cand, n_q, queries_rp, qf, exclude_self))
+            self._projected_pass(gen, kq, k_cand, n_q, queries_rp, qf, exclude_self, rho))
         stats = self._stats(gen, n_dense, n_sparse, threshold, report, compiles_before)
         stats.t_merge += t_rescore
         stats.t_wall += t_rescore

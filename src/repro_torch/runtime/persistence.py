@@ -18,8 +18,10 @@ index is rebuilt deterministically and answers bit-identically:
     extra          config (HybridConfig asdict), ε, ε_β, the original ε
                    *argument* (replayed by compact()), generation number
 
-Grid and pyramid are not stored: they are deterministic functions of
-``(points_r, ε, config)``, rebuilt by the same code at load.  What load
+Grid, pyramid and the shard partition are not stored: they are
+deterministic functions of ``(points_r, ε, config)``, rebuilt by the same
+code at load — which is what lets a generation saved from one device load
+onto a 2 × 2 mesh, or the reverse.  What load
 never redoes is the sampled or order-sensitive work: REORDER's variance
 sort, the ε selection and the projection's fit are replayed from the
 stored permutation, scalar and map (``KNNIndex.build``'s ``_prebuilt``).
@@ -41,7 +43,6 @@ import repro_torch.core.hybrid as hybrid_lib
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.retrieval.projection import Projection
 from repro_torch.runtime import mutation as mut_lib
-from repro_torch.utils import unported
 
 FORMAT = "knn-index-generation-v1"
 
@@ -71,11 +72,14 @@ def save_index(index, directory: str, *, manager=None) -> int:
     }
     if gen.dim_perm is not None:
         tree["dim_perm"] = _host(gen.dim_perm).astype(np.int32)
-    if gen.projection is not None:
+    # A sharded generation stores the same global state (placement is a
+    # load-time choice) and never has a projection.
+    projection = getattr(gen, "projection", None)
+    if projection is not None:
         # Replayed verbatim at load: a re-fit could differ across BLAS
         # builds and change which candidates the front stage surfaces.
-        tree["proj_matrix"] = np.asarray(gen.projection.matrix, np.float32)
-        tree["proj_mean"] = np.asarray(gen.projection.mean, np.float32)
+        tree["proj_matrix"] = np.asarray(projection.matrix, np.float32)
+        tree["proj_mean"] = np.asarray(projection.mean, np.float32)
     extra = {
         "format": FORMAT,
         "config": dataclasses.asdict(index.config),
@@ -84,9 +88,9 @@ def save_index(index, directory: str, *, manager=None) -> int:
         "epsilon_arg": (None if index._epsilon_arg is None else float(index._epsilon_arg)),
         "generation": int(index.generation),
     }
-    if gen.projection is not None:
-        extra["projection_kind"] = gen.projection.kind
-        extra["projection_mips_m"] = float(gen.projection.mips_m)
+    if projection is not None:
+        extra["projection_kind"] = projection.kind
+        extra["projection_mips_m"] = float(projection.mips_m)
     latest = mgr.latest_step()
     step = 0 if latest is None else latest + 1
     mgr.save(step, tree, extra=extra)
@@ -96,13 +100,16 @@ def save_index(index, directory: str, *, manager=None) -> int:
 
 def load_index(directory: str, *, step: Optional[int] = None, device="cuda",
                backend: Optional[str] = None,
-               compile_counts: Optional[Dict[str, int]] = None, mesh=None):
-    """Rebuild a served index from a saved generation on ``device``; it
-    answers bit-identically to the index that called ``save``."""
+               compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+               mesh_axis=None, merge: str = "auto"):
+    """Rebuild a served index from a saved generation on ``device``, or
+    onto ``mesh`` (routed like ``KNNIndex.build``).  On the saver's
+    placement it answers bit-identically to the index that called
+    ``save``; another mesh shape re-partitions the same global generation
+    along the same cell order and answers the same up to the order of
+    equal-distance ties (a shard may certify a row in another engine)."""
     from repro_torch.runtime.knn_index import KNNIndex
 
-    if mesh is not None:
-        raise unported("KNNIndex.load(mesh=...)", "queue A item 15")
     mgr = _manager(directory, None)
     if step is None:
         step = mgr.latest_step()
@@ -127,8 +134,8 @@ def load_index(directory: str, *, step: Optional[int] = None, device="cuda",
             mean=np.asarray(tree["proj_mean"], np.float32),
             mips_m=float(extra.get("projection_mips_m", 0.0))),)
     index = KNNIndex.build(tree["points_ref"], cfg, extra["epsilon_arg"], device=device,
-                           backend=backend, compile_counts=compile_counts,
-                           _prebuilt=prebuilt)
+                           backend=backend, compile_counts=compile_counts, mesh=mesh,
+                           mesh_axis=mesh_axis, merge=merge, _prebuilt=prebuilt)
     index.generation = int(extra["generation"])
     mut = mut_lib.MutationState(
         delta_points=np.asarray(tree["delta_points"], np.float32),

@@ -619,3 +619,94 @@ def test_crash_drill_three_phases_on_card(card, tmp_path):
         np.testing.assert_array_equal(got.ids, want.ids)
         np.testing.assert_array_equal(got.dists, want.dists)
     assert acked == 3 and faults.count("ckpt-crash") == 3
+
+
+# -- the mesh on one card: the collective merge, the ring join, a 2 x 2 index --
+
+def _merge_case(rng, p, q=300, k_in=9):
+    """(P, Q, k_in) blocks with distance ties, in-block duplicate ids, (inf,
+    −1) padding and exclusion ids that hit candidates."""
+    d = np.round(rng.uniform(0, 2, (p, q, k_in)), 1).astype(np.float32)
+    i = rng.integers(0, 500, (p, q, k_in)).astype(np.int32)
+    i[:, ::4, 3] = i[:, ::4, 1]
+    pad = rng.random((p, q, k_in)) < 0.1
+    d[pad] = np.inf
+    i[pad] = -1
+    order = np.argsort(d, -1, kind="stable")
+    d, i = np.take_along_axis(d, order, -1), np.take_along_axis(i, order, -1)
+    excl = np.where(rng.random(q) < 0.5, i[0, :, 0], -2).astype(np.int32)
+    return d, i, excl
+
+
+@pytest.mark.parametrize("p", [2, 3, 4, 5, 6, 7, 8])
+def test_collective_merge_on_card_equals_cpu(card, p):
+    """The merge on cuda:0 equals the same merge on the CPU bit for bit,
+    every strategy the shard count allows, with and without dedup."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    rng = np.random.default_rng(p)
+    d, i, excl = _merge_case(rng, p)
+    strategies = ["allgather"] + (["tree"] if p & (p - 1) == 0 else [])
+    for strategy in strategies:
+        for dedup in (False, True):
+            outs = []
+            for dev in ("cuda", "cpu"):
+                fn = dist.collective_topk_merge(make_serving_mesh(p, device=dev), ("shard",),
+                                                k=5, strategy=strategy, dedup=dedup)
+                md, mi = fn(torch.as_tensor(d, device=dev), torch.as_tensor(i, device=dev),
+                            torch.as_tensor(excl, device=dev))
+                assert md.device.type == dev
+                outs.append((md.cpu(), mi.cpu()))
+            assert torch.equal(outs[0][0], outs[1][0]), (strategy, dedup)
+            assert torch.equal(outs[0][1], outs[1][1]), (strategy, dedup)
+
+
+def test_ring_join_on_card_ragged_rows_and_chunk(card):
+    """A ring join of 1,000 rows over 4 slots of the card (padded to 4 ×
+    256) with a 100-row corpus chunk, snapped to 64: against the CPU ring
+    and float64 — ids equal except ties within the expansion bound."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    pts = np.random.default_rng(3).normal(size=(1000, 18)).astype(np.float32)
+    assert dist._even_chunk(100, 256) == 64
+    got = dist.ring_self_join(make_serving_mesh(4, device="cuda"), ("shard",), k=10,
+                              corpus_chunk=100)(pts)
+    want = dist.ring_self_join(make_serving_mesh(4, device="cpu"), ("shard",), k=10,
+                               corpus_chunk=100)(pts)
+    assert got[0].device.type == "cuda" and got[0].shape == (1000, 10)
+    q = torch.as_tensor(pts, device=card)
+    _hold(got[0], got[1], want[0].to(card), want[1].to(card), q, lambda ids: q[ids], "l2")
+    gi = got[1].cpu().numpy()
+    assert gi.min() >= 0 and not (gi == np.arange(1000)[:, None]).any()
+    d2 = ((pts[:, None].astype(np.float64) - pts[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    assert np.abs(got[0].cpu().numpy() - np.sort(d2, 1)[:, :10]).max() < 1e-4
+
+
+def test_replicated_mesh_on_one_card_matches_single_device(card):
+    """A 2 × 2 mesh of four cuda:0 slots against the single-device card
+    index (ε pinned): distances within 1e-5, ids equal except where float64
+    distances tie within 1e-5, full coverage; a repeat adds no bucket."""
+    from conftest import make_mixture
+    from repro_torch.core import HybridConfig
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.runtime import KNNIndex, ShardedKNNIndex
+    db = make_mixture(600, 200, dim=8, seed=0)
+    q = make_mixture(200, 100, dim=8, seed=5)
+    cfg = HybridConfig(k=8, m=4, n_batches=2, online_rebalance=False)
+    mesh = make_serving_mesh(2, replicas=2)
+    assert {str(d) for d in mesh.devices.reshape(-1)} == {"cuda:0"}
+    sharded = KNNIndex.build(db, cfg, 0.3, mesh=mesh)
+    assert isinstance(sharded, ShardedKNNIndex) and sharded.backend == "fused"
+    single = KNNIndex.build(db, cfg, 0.3, device=card)
+    for queries, kw in ((q, {}), (None, dict(exclude_self=True))):
+        got, want = sharded.query(queries, **kw), single.query(queries, **kw)
+        assert got.coverage.all()
+        np.testing.assert_allclose(got.dists, want.dists, rtol=1e-5, atol=1e-5)
+        qq = np.asarray(db if queries is None else queries, np.float64)
+        r, c = np.nonzero(got.ids != want.ids)
+        full = np.asarray(db, np.float64)
+        np.testing.assert_allclose(np.linalg.norm(qq[r] - full[got.ids[r, c]], axis=-1),
+                                   np.linalg.norm(qq[r] - full[want.ids[r, c]], axis=-1),
+                                   atol=1e-5)
+    assert sharded.query(q.copy()).stats.n_engine_compiles == 0

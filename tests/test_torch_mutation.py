@@ -2,7 +2,7 @@
 the delta buffer and the merge-time fold, the splitter's ``net_adjust``)
 against the JAX package and the float64 mutation oracle on the same seeded
 numpy inputs, following ``tests/test_mutable_index.py``'s plans (its
-sharded case waits for ROADMAP queue A item 15).
+sharded case is in ``test_torch_sharded.py``).
 
 Both packages build with ε pinned, so their grids are equal.  Tolerance:
 distances within 1e-5 of the JAX package's and within 1e-4 of the

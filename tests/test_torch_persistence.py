@@ -21,7 +21,8 @@ from repro.checkpoint import CheckpointManager as JaxManager
 from repro.runtime import KNNIndex as JaxIndex
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import HybridConfig
-from repro_torch.runtime import KNNIndex
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.runtime import KNNIndex, ShardedKNNIndex
 from test_projection_front import _lowrank
 from test_torch_mutation import _match
 from test_torch_projection import _hold
@@ -137,15 +138,49 @@ def test_corrupt_latest_step_falls_back_to_previous_durable(tmp_path):
 
 
 def test_load_of_unported_generations_and_mesh_raise(tmp_path):
-    """A mesh still raises, naming its item; projected generations (l2 over a
-    PCA fit, ip over the MIPS fit) cross between the packages in both
-    directions with their fitted map and the same answers."""
-    idx = _build(_db(seed=10, n=300), k=3)
+    """A generation loads onto a CPU mesh as a ``ShardedKNNIndex`` answering
+    bit-identically, and a generation saved by the JAX package's sharded
+    index loads into the port's, on a mesh and without one; a mesh that is
+    not a ``Mesh`` is a ``TypeError``; the manager's ``restore(mesh=)`` (the
+    trainer's elastic restart) still raises, naming queue A item 17.
+    Projected generations (l2 over a PCA fit, ip over the MIPS fit) cross
+    between the packages in both directions with their fitted map and the
+    same answers."""
+    db, q = _db(seed=10, n=300), _queries(seed=11)
+    idx = _build(db, k=3)
+    want = idx.query(q)
     idx.save(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
+    sharded = KNNIndex.load(str(tmp_path), mesh=make_serving_mesh(2, replicas=2, device="cpu"))
+    assert isinstance(sharded, ShardedKNNIndex) and sharded.placement_shape == (2, 2)
+    got = sharded.query(q)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.dists, want.dists)
+    with pytest.raises(TypeError, match="got object"):
         KNNIndex.load(str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
+    with pytest.raises(NotImplementedError, match="queue A item 17"):
         CheckpointManager(str(tmp_path)).restore({"points_r": 0}, mesh=object())
+    # A JAX ShardedKNNIndex's generation (a one-device mesh on this process),
+    # dirty, loads into the port with and without a mesh.
+    from repro.launch.mesh import make_serving_mesh as jax_serving_mesh
+    jsh = JaxIndex.build(db, jax_hybrid.HybridConfig(**_cfg(3)), idx.eps,
+                         mesh=jax_serving_mesh(1))
+    jsh.delete([0, 5])
+    jwant = jsh.query(q)
+    jsh.save(str(tmp_path / "jax_sharded"))
+    full = np.asarray(db, np.float64)
+    for mesh in (None, make_serving_mesh(2, device="cpu")):
+        back = KNNIndex.load(str(tmp_path / "jax_sharded"), device="cpu", mesh=mesh)
+        assert back.n_tombstones == 2
+        got = back.query(q)
+        if mesh is None:
+            _match(got, jwant, full, q)
+            continue
+        # Two shards sum their engines' counts: hold the answers only.
+        np.testing.assert_allclose(got.dists, jwant.dists, rtol=1e-5, atol=1e-5)
+        r, c = np.nonzero(got.ids != jwant.ids)
+        np.testing.assert_allclose(np.linalg.norm(q[r] - full[got.ids[r, c]], axis=-1),
+                                   np.linalg.norm(q[r] - full[jwant.ids[r, c]], axis=-1),
+                                   rtol=1e-5, atol=1e-5)
     db, q = _lowrank(n=800, seed=4), _lowrank(n=90, seed=5)
     for metric, pdim in (("l2", 5), ("ip", 6)):
         cfg = dict(k=6, m=3, online_rebalance=False, metric=metric, projection_dim=pdim,

@@ -24,6 +24,7 @@ from repro.runtime import knn_index as jax_ki
 from repro_torch.core import HybridConfig
 from repro_torch.retrieval import Projection
 from repro_torch.retrieval import projection as proj_lib
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.runtime import KNNIndex, knn_index
 
 TOL = 1e-5
@@ -228,7 +229,10 @@ def test_projected_index_rejects_mutation_mesh_and_wrong_width():
     with pytest.raises(ValueError, match="projection"):
         KNNIndex.build(PTS[:200], HybridConfig(k=3, projection_dim=4), device="cpu",
                        mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
+    with pytest.raises(ValueError, match="projection"):
+        KNNIndex.build(PTS[:200], HybridConfig(k=3, projection_dim=4),
+                       mesh=make_serving_mesh(2, device="cpu"))
+    with pytest.raises(TypeError, match="got object"):
         KNNIndex.build(PTS[:200], HybridConfig(k=3), device="cpu", mesh=object())
     with pytest.raises(ValueError, match="32"):
         t.query(PTS[:5, :4])

@@ -6,7 +6,7 @@ shedding, cancel-in-queue expiry, the degradation ladder with
 hysteresis, exact shed / occupancy accounting at 2x capacity,
 bit-identical served responses, the zero-bucket warm trace replay.  The
 sharded partial-rung case (``test_sharded_partial_rung_flags_coverage``)
-waits for the port's sharded index, ROADMAP queue A item 15.
+is in ``test_torch_fault_mesh.py``.
 
 Parity: the same ``open_loop_trace`` rows and seed go through each
 package's ``KNNServer`` and ``VirtualClock`` with the same linear

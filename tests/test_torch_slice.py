@@ -13,7 +13,8 @@ from oracle import oracle_knn
 from repro.runtime import KNNIndex as JaxIndex
 from repro_torch.core import HybridConfig, HybridKNNJoin
 from repro_torch.data import pointclouds
-from repro_torch.runtime import JoinSession, KNNIndex
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.runtime import JoinSession, KNNIndex, ShardedKNNIndex
 
 K = 5
 EPS = 0.18
@@ -139,11 +140,25 @@ def test_interpret_backend_refuses_cuda(monkeypatch):
 
 
 def test_mutation_and_mesh_raise(both, tmp_path):
-    """Mutation and persistence are ported (``test_torch_mutation.py``,
-    ``test_torch_persistence.py``); a mesh still raises, naming its item."""
-    pts, _, _, tidx = both
+    """Mutation, persistence and the mesh are ported (``test_torch_mutation.py``,
+    ``test_torch_persistence.py``, ``test_torch_sharded.py``): a real CPU mesh
+    builds, loads and serves a ``ShardedKNNIndex`` answering like the
+    single-device index; anything that is not a ``Mesh`` raises a
+    ``TypeError`` naming its type."""
+    pts, q, _, tidx = both
+    mesh = make_serving_mesh(2, device="cpu")
+    sharded = KNNIndex.build(pts, tidx.config, tidx.eps, mesh=mesh)
+    assert isinstance(sharded, ShardedKNNIndex) and sharded.placement_shape == (1, 2)
+    want = tidx.query(q)
+    np.testing.assert_array_equal(sharded.query(q).ids, want.ids)
+    tidx.save(str(tmp_path))
+    loaded = KNNIndex.load(str(tmp_path), mesh=mesh)
+    assert isinstance(loaded, ShardedKNNIndex)
+    np.testing.assert_array_equal(loaded.query(q).ids, want.ids)
+    session = JoinSession(tidx.config, mesh=mesh)
+    assert isinstance(session.index_for(pts, tidx.eps), ShardedKNNIndex)
     for call in (lambda: KNNIndex.build(pts, tidx.config, device="cpu", mesh=object()),
                  lambda: KNNIndex.load(str(tmp_path), device="cpu", mesh=object()),
                  lambda: JoinSession(HybridConfig(k=2), device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 15"):
+        with pytest.raises(TypeError, match="got object"):
             call()
