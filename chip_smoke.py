@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n POINTS]
+    python3 chip_smoke.py [--n POINTS] [--only-lm]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -139,6 +139,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          rows exact, ``n_unresolved`` printed).  (a) holds the per-shard
          brute and dense calls and a ring hop's chunk against their plain
          versions.
+  (r)    the kNN-LM serving path at olmo_1b's full width
+         (``repro_torch.configs.get_config("olmo_1b")``: 16 layers, d_model
+         2,048, vocab 50,304, bf16 activations; 1.18 B parameters drawn from
+         seed 7 on the card) with ``examples/knn_lm_serve.py``'s head (k = 8,
+         λ = 0.9, T = 1).  The datastore: ``collect_pairs`` over 64 seeded
+         sequences of 1,025 tokens (flash attention, 2 × 2 chunks of 1,024),
+         65,536 keys × 2,048 dims, ``RetrievalConfig``'s own size.  (r1) an
+         ip ``IndexRetriever`` over ``make_serving_mesh(4)`` behind
+         ``KNNServer(deadline=5.0)``: ``generate`` 32 tokens for
+         ``corpus[:8, :256]`` with retrieval on and off; retrieval must beat
+         the bare LM on the memorized continuations with nothing shed; the
+         first decode step's answer equals a direct query, is exact against
+         float64 over all keys (ids equal where no float64 tie) and equal
+         through an unsharded retriever.  (r2) ``build_datastore`` (REORDER,
+         no truncation) and ``generate`` with the in-step l2 ``lookup``,
+         exact on the first decode step.  (r3) ``sharded_lookup`` over 4
+         slots on every step's queries against (r2)'s ``lookup``.  Printed:
+         the collect and index-build times, prefill, each decode step's LM
+         and retrieval times, tokens/s, peak memory.  (a) holds the
+         per-shard ip call, the lookup's call and the ε selection's
+         histogram at D = 2,048.  ``--only-lm`` builds the kernels and runs
+         (r) alone.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -147,11 +169,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 its brute call over the 5M corpus.
 
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
-(q1), (q2)–(q3), the ring of (q4) and the rest of (q4) — sets the kernel launch
-counters to 0 just before it and reads them just after; the ``kernels`` line's
+(q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2) and (r3) —
+sets the kernel launch counters to 0 just before it and reads them just
+after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
 of (b)–(d); (o)'s are on its own ``(serving micro-batch)`` rows, (q1)'s on the
-``(sharded, per shard)`` rows and the ring's on ``(ring hop chunk)``.  The last lines are the card's name and power
+``(sharded, per shard)`` rows, the ring's on ``(ring hop chunk)``, (r1)'s
+and (r2)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
 limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +233,14 @@ MESH_DELETE = 5                    # (q3): base ids deleted on the 2 × 2 index
 RING_CHUNK = 4096                  # (q4): the ring's corpus chunk
 SPMD_ROWS = 262_144                # (q4): hybrid_join_spmd's corpus = queries
 TIE = 1e-5                         # float64 distance gap of two ids that tie
+LM_SEQS = 64                       # (r): corpus of 64 seeded sequences of 1,025 tokens,
+LM_SEQ_LEN = 1025                  # 64 × 1,024 (hidden, next-token) pairs = 65,536 keys
+LM_BATCH = 8                       # sequences per forward while collecting the pairs
+LM_PROMPTS = 8                     # prompts corpus[:8, :256], 32 tokens generated
+LM_PROMPT_LEN = 256
+LM_GEN = 32
+LM_SHARDS = 4                      # the IndexRetriever's 4 × 1 mesh and the ring
+LM_SEED = 7                        # weights and corpus
 
 
 def log(msg: str) -> None:
@@ -517,6 +549,36 @@ class FirstCall:
         setattr(self.module, self.name, self.orig)
 
 
+class Spy:
+    """Within ``with``, time every call of ``module.name`` (``module`` may be
+    an instance) on the host clock with the card synchronised before and
+    after, and keep each call's (args, kwargs, result) when ``keep``."""
+
+    def __init__(self, module, name, keep=True):
+        self.module, self.name, self.keep = module, name, keep
+        self.times, self.calls = [], []
+
+    def __enter__(self):
+        import torch
+        fn = self.orig = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            if self.keep:
+                self.calls.append((a, kw, out))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, b, lib_ms):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -528,10 +590,230 @@ TOPK_CU = "src/repro_torch/csrc/knn_topk.cu"
 PAIRWISE_CU = "src/repro_torch/csrc/pairwise_l2.cu"
 
 
+def clear_of_ties(scores, allow):
+    """(Q, k) mask of the ranks whose score lies farther than ``allow`` (per
+    row, (Q, 1)) from both neighbouring ranks' scores; ``scores`` is (Q, k + 1)
+    ascending, its last column closing the k-th rank."""
+    step = (scores[:, 1:] - scores[:, :-1]).abs() > allow     # rank r to r + 1
+    clear = step.clone()
+    clear[:, 1:] &= step[:, :-1]
+    return clear
+
+
+def lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check):
+    """(r) the kNN-LM serving path at olmo_1b's full width on the card;
+    appends (a)'s three D = 2048 rows to ``kernels``."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import RetrievalConfig, get_config
+    from repro_torch.core import HybridConfig
+    from repro_torch.core import brute as brute_lib
+    from repro_torch.kernels.bin_hist import ops as hist_ops
+    from repro_torch.kernels.knn_topk import ops as topk_ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import knn_lm
+    from repro_torch.models import transformer as lm
+    from repro_torch.runtime import KNNIndex, ServerConfig
+
+    t_r = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # examples/knn_lm_serve.py's retrieval head on the full model
+    lm_cfg = dataclasses.replace(get_config("olmo_1b"), retrieval=RetrievalConfig(
+        enabled=True, k=8, lam=0.9, temperature=1.0))
+    kr = lm_cfg.retrieval.k
+    model, init_ms = timed(lambda: lm.init_params(LM_SEED, lm_cfg, device=dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    assert n_par == lm_cfg.n_params(), "(r) the model's parameter count is not the config's"
+    log(f"[r] {lm_cfg.name}: {lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, {lm_cfg.n_heads} "
+        f"heads, d_ff {lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}, {lm_cfg.dtype} activations; "
+        f"{n_par} parameters ({n_par * 4 / 2**30:.2f} GiB in f32) initialised on the card "
+        f"from seed {LM_SEED} in {init_ms / 1e3:.3f}s")
+    corpus = np.random.default_rng(LM_SEED).integers(0, lm_cfg.vocab_size, (LM_SEQS, LM_SEQ_LEN))
+    batches = [corpus[i:i + LM_BATCH] for i in range(0, LM_SEQS, LM_BATCH)]
+    prompts = corpus[:LM_PROMPTS, :LM_PROMPT_LEN]
+    want = corpus[:LM_PROMPTS, LM_PROMPT_LEN:LM_PROMPT_LEN + LM_GEN]
+    n_keys = LM_SEQS * (LM_SEQ_LEN - 1)
+
+    def serve_run(ds, what, look=None):
+        """``generate`` LM_GEN tokens for the prompts: wall time, prefill time,
+        and each decode step's LM (``decode_step_hidden``) and retrieval
+        (``look``) times apart.  Returns (tokens, accuracy, the lookup spy,
+        the LM's mean ms a step)."""
+        spies = [Spy(lm, "prefill_hidden", keep=False), Spy(lm, "prefill", keep=False),
+                 Spy(lm, "decode_step_hidden", keep=False)]
+        spies += [Spy(*look)] if look is not None else []
+        with contextlib.ExitStack() as stack:
+            for sp in spies:
+                stack.enter_context(sp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = serve.generate(model, lm_cfg, prompts, LM_GEN, ds=ds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        assert tuple(out.shape) == (LM_PROMPTS, LM_GEN)
+        acc = float((out.cpu().numpy() == want).mean())
+        lm_t = np.array(spies[2].times) * 1e3
+        ret_t = np.array(spies[3].times[1:]) * 1e3 if look is not None else np.zeros(1)
+        rest = wall * 1e3 - sum(sp_.times[0] * 1e3 for sp_ in spies[:2] if sp_.times) \
+            - lm_t.sum() - (np.array(spies[3].times).sum() * 1e3 if look is not None else 0.0)
+        log(f"[r] generate, {what}: {LM_PROMPTS} × {LM_GEN} tokens in {wall:.3f}s "
+            f"({LM_PROMPTS * LM_GEN / wall:.1f} tokens/s); prefill of {LM_PROMPTS} × "
+            f"{LM_PROMPT_LEN} {sum(sp_.times[0] for sp_ in spies[:2] if sp_.times) * 1e3:.2f} ms; "
+            f"per decode step: LM {lm_t.mean():.3f} ms [{lm_t.min():.3f}–{lm_t.max():.3f}], "
+            f"retrieval {ret_t.mean():.3f} ms [{ret_t.min():.3f}–{ret_t.max():.3f}], the rest "
+            f"(unembed, mixing, sampling) {rest / LM_GEN:.3f} ms; continuation accuracy {acc:.4f}")
+        return out, acc, (spies[3] if look is not None else None), lm_t.mean()
+
+    # (r1) examples/knn_lm_serve.py's path: an IndexRetriever over a 4 × 1 mesh
+    # of slots on the card, metric="ip", behind KNNServer; retrieval on and off.
+    reset_counts()
+    hcfg = HybridConfig(k=kr, metric="ip")
+    with Spy(knn_lm, "collect_pairs") as collect, \
+            FirstCall(hist_ops, "distance_bin_histogram") as r_hist:
+        t0 = time.perf_counter()
+        ret = knn_lm.IndexRetriever.build(model, lm_cfg, batches,
+                                          mesh=make_serving_mesh(LM_SHARDS, device=dev),
+                                          hybrid_config=hcfg,
+                                          server_config=ServerConfig(deadline=5.0))
+        t_build = time.perf_counter() - t0
+    keys, vals = collect.calls[0][2]
+    assert keys.shape == (n_keys, lm_cfg.d_model) and n_keys == lm_cfg.retrieval.datastore_size
+    log(f"[r1] datastore of {n_keys} keys × {keys.shape[1]} dims ({keys.nbytes / 2**20:.0f} MiB): "
+        f"collect_pairs over {LM_SEQS} × {LM_SEQ_LEN} tokens in batches of {LM_BATCH} "
+        f"{collect.times[0]:.3f}s, then the index build {t_build - collect.times[0]:.3f}s "
+        f"({ret.index.n_shards} shards, eps={ret.index.eps:.6g}, metric=ip)")
+    with FirstCall(topk_ops, "knn_topk", lambda *a, **kw: kw.get("metric") == "ip") as r1_call:
+        out_ret, acc_ret, look_ret, _ = serve_run(
+            ret, "retrieval on (IndexRetriever, 4 × 1 mesh, KNNServer)", (ret, "lookup"))
+    m = ret.server.metrics()
+    log(f"[r1] server: {m['n_served']} served / {m['n_shed_total']} shed over {m['n_batches']} "
+        f"batches, p50 {m['p50_response_s'] * 1e3:.3f} ms")
+    _, acc_base, _, lm_ms = serve_run(None, "retrieval off")
+    launches_r1 = read_counts("(r1) kNN-LM, IndexRetriever on a 4 × 1 mesh")
+    log(f"[r1] continuation accuracy on memorized prompts: retrieval on (λ="
+        f"{lm_cfg.retrieval.lam}) {acc_ret:.4f}, off {acc_base:.4f}")
+    assert acc_ret > acc_base, "(r1) retrieval should help on memorized text"
+    assert m["n_shed_total"] == 0, "(r1) a retrieval request was shed"
+    for name in ("knn_tile_topk[ip]", "distance_bin_histogram"):
+        assert launches_r1.get(name, 0) > 0, f"(r1) never launched {name}"
+    # The first decode step's retrieval: the same as a direct query, exact
+    # against float64 over all keys, and the same through an unsharded index.
+    (q1,), _, (d_srv, v_srv) = look_ret.calls[1]
+    direct = ret.index.query(q1, k=kr)
+    assert np.array_equal(direct.dists, d_srv), "(r1) the server's answer is not the index's"
+    assert np.array_equal(vals[direct.ids], v_srv)
+    keys_d = torch.as_tensor(keys, device=dev)
+    q1_d = torch.as_tensor(q1, device=dev)
+    check_exact(keys_d, q1_d, None, direct.dists, direct.ids,
+                "(r1) first decode step's retrieval, 4 shards", metric="ip", fp32_bound=True)
+    od, oi = oracle64(keys_d, q1_d, None, kr + 1, "ip")
+    e1 = expansion_bound(q1_d.double().norm(dim=1), keys_d.double().norm(dim=1).max(),
+                         keys.shape[1])[:, None]
+    clear1 = clear_of_ties(od, e1)
+    assert torch.equal(torch.as_tensor(direct.ids, device=dev).long()[clear1],
+                       oi[:, :kr][clear1]), "(r1) an id differs from float64's away from a tie"
+    flat = knn_lm.IndexRetriever(KNNIndex.build(keys, hcfg, device=dev), vals)
+    d_flat, v_flat = flat.lookup(q1, k=kr)
+    dd = np.abs(d_flat.astype(np.float64) - d_srv)
+    same = "bit-identical" if np.array_equal(d_flat, d_srv) else "not bit-identical"
+    log(f"[r1] ids equal to float64's at the {int(clear1.sum())} of {direct.ids.size} ranks clear "
+        f"of ties; an unsharded IndexRetriever: {same} scores (max |Δ| {dd.max():.3e}), values "
+        f"equal at {int((v_flat == v_srv).sum())} of {v_srv.size}")
+    clear1 = clear1.cpu().numpy()
+    assert (dd <= e1.cpu().numpy()).all() and (v_flat[clear1] == v_srv[clear1]).all(), \
+        "(r1) the unsharded retriever's answer differs"
+    del flat, keys_d, ret
+
+    # (r2) the in-step path: a Datastore (REORDER, no truncation) and the
+    # l2 lookup inside each decode step.
+    reset_counts()
+    t0 = time.perf_counter()
+    ds = knn_lm.build_datastore(model, lm_cfg, batches)
+    torch.cuda.synchronize()
+    log(f"[r2] build_datastore {time.perf_counter() - t0:.3f}s: keys {tuple(ds.keys.shape)}")
+    assert tuple(ds.keys.shape) == (n_keys, lm_cfg.d_model)
+    with FirstCall(topk_ops, "knn_topk") as r2_call:
+        _, acc_ds, look_ds, _ = serve_run(ds, "retrieval on (Datastore, l2 lookup in each step)",
+                                       (knn_lm, "lookup"))
+    launches_r2 = read_counts("(r2) kNN-LM, Datastore lookup")
+    assert launches_r2.get("knn_tile_topk", 0) > 0, "(r2) never launched knn_tile_topk"
+    assert acc_ds > acc_base, "(r2) in-step retrieval should help on memorized text"
+    (_, h1), _, (d2_1, v_1) = look_ds.calls[1]
+    qp = knn_lm._project(ds, h1)
+    qids = ds.size + torch.arange(qp.shape[0], dtype=torch.int32, device=dev)
+    bd, bi = brute_lib.brute_knn(ds.keys, qp, qids, k=kr)
+    assert torch.equal(bd, d2_1) and torch.equal(ds.values[bi.long()], v_1), \
+        "(r2) the lookup is not the brute lane's answer"
+    check_exact(ds.keys, qp, None, torch.sqrt(bd.clamp(min=0)).cpu().numpy(), bi.cpu().numpy(),
+                "(r2) first decode step's lookup (l2)", fp32_bound=True)
+
+    # (r3) the ring: the datastore sharded over 4 slots on the card, every
+    # step's queries at once, against (r2)'s lookup on the same queries.
+    reset_counts()
+    hs = torch.cat([c[0][1] for c in look_ds.calls])
+    ring = knn_lm.sharded_lookup(make_serving_mesh(LM_SHARDS, device=dev), "shard", k=kr)
+    (rd, rv), ring_ms = timed(lambda: ring(knn_lm._project(ds, hs), ds.keys, ds.values))
+    launches_r3 = read_counts("(r3) sharded_lookup ring")
+    assert launches_r3.get("knn_tile_topk", 0) == LM_SHARDS, "(r3) one launch a ring step"
+    fd, fv = knn_lm.lookup(ds, hs, k=kr + 1)
+    qh = knn_lm._project(ds, hs).double()
+    e3 = expansion_bound(qh.norm(dim=1), ds.keys.double().norm(dim=1).max(), qh.shape[1])[:, None]
+    clear3 = clear_of_ties(fd.double(), e3)
+    fd, fv = fd[:, :kr], fv[:, :kr]
+    delta = (rd.double() - fd.double()).abs()
+    same = "bit-identical" if torch.equal(rd, fd) else "not bit-identical"
+    log(f"[r3] ring over {LM_SHARDS} slots, {hs.shape[0]} queries × {ds.size} keys: "
+        f"{ring_ms:.3f} ms; against lookup: {same} distances (max |Δd²| "
+        f"{delta.max().item():.3e}), values equal at {int((rv == fv).sum())} of {rv.numel()} "
+        f"({int(clear3.sum())} ranks clear of ties)")
+    assert (delta <= e3).all() and torch.equal(rv[clear3], fv[clear3]), \
+        "(r3) the ring differs from the unsharded lookup"
+
+    # One decode step under torch.profiler (printed, not gated): the device
+    # events the LM's step makes and how long the card is busy in them,
+    # against the step's unprofiled time in (r1)'s bare run.
+    _, cache = lm.prefill(model, lm_cfg, prompts, LM_PROMPT_LEN + 1)
+    tok = torch.as_tensor(want[:, 0], device=dev)
+    lm.decode_step_hidden(model, lm_cfg, tok, cache, LM_PROMPT_LEN)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        lm.decode_step_hidden(model, lm_cfg, tok, cache, LM_PROMPT_LEN)
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    log(f"[r] one LM decode step under torch.profiler: {len(dev_ev)} device events, the card "
+        f"busy {busy:.3f} ms of the step's {lm_ms:.3f} ms unprofiled (busy share "
+        f"{busy / lm_ms:.3f})" if dev_ev else
+        "[r] one LM decode step under torch.profiler: no device events recorded")
+    del cache
+
+    # -- (a) the D = 2048 kernel calls (r) made ---------------------------------
+    (q3r, c3r, qid3r, cid3r), kw3r = r1_call.args
+    kernels.append(topk_check("knn_tile_topk[ip] (kNN-LM, D=2048)", q3r, c3r, qid3r, cid3r, "ip",
+                              launches_r1["knn_tile_topk[ip]"], fp32_bound=True, k=kw3r["k"]))
+    (q3l, c3l, qid3l, cid3l), kw3l = r2_call.args
+    kernels.append(topk_check("knn_tile_topk (kNN-LM lookup, D=2048)", q3l, c3l, qid3l, cid3l,
+                              "l2", launches_r2["knn_tile_topk"], fp32_bound=True, k=kw3l["k"]))
+    (q4r, p4r, bwr, nbr), kw4r = r_hist.args
+    kernels.append(hist_check("distance_bin_histogram (kNN-LM datastore, D=2048)", q4r, p4r,
+                              kw4r["self_indices"], bwr, nbr,
+                              launches_r1["distance_bin_histogram"]))
+    log(f"[r] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+        f"{time.perf_counter() - t_r:.2f}s")
+    del model, ds, r1_call, r2_call, r_hist, q3r, c3r, q3l, c3l, q4r, p4r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=5_000_000,
                     help="corpus size |D| (18 dims are never cut)")
+    ap.add_argument("--only-lm", action="store_true",
+                    help="build the kernels and run phase (r) alone")
     args = ap.parse_args(argv)
 
     import dataclasses
@@ -648,6 +930,96 @@ def main(argv=None) -> int:
             f"{(delta / allow).max():.3f}; entries past 2e-6: {int((delta > 2e-6).sum())})")
         assert (delta <= allow).all(), f"{what}: distances differ beyond the allowance"
 
+    # The kernel checks of (a).  topk_check: one knn_topk call against its
+    # plain version, which takes the corpus in chunks merged with
+    # merge_running_topk as the CPU brute lane does; the library yardstick
+    # too, in chunks of 2^30 scores, since the full (Q, |D|) matrix may not
+    # fit.  hist_check: one histogram call on the ε selection's own sample
+    # and bin width.
+    def topk_check(name, q3, c3, qid3, cids, metric, launch_n, fp32_bound=False, k=K):
+        kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric)
+
+        def chunked(topk_of_chunk, chunk):
+            run_d = torch.full((q3.shape[0], k), float("inf"), device=dev)
+            run_i = torch.full((q3.shape[0], k), -1, dtype=torch.int32, device=dev)
+            for c0 in range(0, c3.shape[0], chunk):
+                nd, ni = topk_of_chunk(c3[c0:c0 + chunk], cids[c0:c0 + chunk])
+                run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=k)
+            return run_d, run_i
+
+        def library_topk(c, cid):
+            score = -(q3 @ c.T) if metric == "ip" else torch.cdist(q3, c)
+            vd, vi = torch.topk(score, k, dim=1, largest=False)
+            return vd, cid[vi]
+
+        (rd, ri_), plain_ms = timed(lambda: chunked(
+            lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=k, metric=metric), 8192))
+        err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(c3.shape)}",
+                              c3, q3, kd, ki, rd, ri_, metric=metric, fp32_bound=fp32_bound)
+        del kd, ki, rd, ri_
+        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric), reps=3)
+        lib_ms = cuda_ms(lambda: chunked(library_topk, (1 << 30) // q3.shape[0]), reps=1)
+        d3 = q3.shape[1]
+        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + q3.shape[0] * k * 8
+        b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * d3 + (3 if metric == "l2" else 1)))
+        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        return kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
+                            launch_n, err, ms, plain_ms, b, lib_ms)
+
+    def hist_check(name, q4, p4, qidx, bw, n_bins, launch_n):
+        d4 = q4.shape[1]
+        kc = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins, self_indices=qidx)
+        pid = torch.arange(p4.shape[0], dtype=torch.int32, device=dev)
+        rc, plain_ms = timed(lambda: hist_ref.distance_bin_histogram_ref(
+            q4, p4, qidx.to(torch.int32), pid, bw, n_bins=n_bins))
+        # Bin b differs between the versions only by pairs near its two edges.
+        near = bin_edge_pairs(q4, p4, bw, n_bins)
+        allowed = (near[:-1] + near[1:]).to(kc.dtype)
+        delta = (kc - rc).abs()
+        err = delta.max().item()
+        log(f"[a] {name}: {tuple(q4.shape)} × {tuple(p4.shape)} "
+            f"bin-count |Δ| max={err:.0f} sum={delta.sum().item():.0f}; pairs near an edge "
+            f"{int(near.sum())}, per-bin allowance min={allowed.min().item():.0f} "
+            f"max={allowed.max().item():.0f}, largest |Δ|/allowance="
+            f"{(delta / allowed.clamp(min=1)).max().item():.3f}; total kernel="
+            f"{kc.sum().item():.0f} plain={rc.sum().item():.0f}")
+        bad = (delta > allowed).nonzero()[:, 0].tolist()
+        assert not bad, f"{name}: bins {bad[:8]} differ beyond their edge pairs"
+        # Self pairs sit at d = 0: without the exclusion exactly S more in bin 0.
+        extra = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins) - kc
+        n_self = int((qidx >= 0).sum())
+        log(f"[a] {name} self exclusion: bin 0 +{extra[0].item():.0f} "
+            f"without it (S={n_self}), other bins +{extra[1:].abs().sum().item():.0f}")
+        assert extra[0].item() == n_self and not extra[1:].any(), \
+            f"{name}: the self pairs are not excluded from bin 0"
+        ms = cuda_ms(lambda: hist_ops.distance_bin_histogram(q4, p4, bw, n_bins,
+                                                             self_indices=qidx))
+        hi = float(bw) * n_bins
+        lib_ms = cuda_ms(lambda: torch.histc(torch.cdist(q4, p4), bins=n_bins, min=0.0, max=hi),
+                         reps=3)
+        nbytes = (q4.numel() + p4.numel()) * 4 + qidx.numel() * 4 + n_bins * 8
+        b = bound(nbytes, q4.shape[0] * p4.shape[0] * (2 * d4 + 5))
+        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        return kernel_entry(name, "src/repro_torch/csrc/bin_hist.cu",
+                            "src/repro/kernels/bin_hist/kernel.py:80", launch_n, err, ms,
+                            plain_ms, b, lib_ms)
+
+    def finish():
+        log(f"[done] {time.perf_counter() - t_start:.1f}s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()
+        print(smi[0])
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    kernels = []
+
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -658,6 +1030,10 @@ def main(argv=None) -> int:
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}–"
             f"{max(regs, default=0)}, largest spill store {max(spills, default=0)} B")
+
+    if args.only_lm:
+        lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
+        return finish()
 
     # -- data -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -866,7 +1242,6 @@ def main(argv=None) -> int:
     assert not any(launches_j.values()), f"(j) launched a kernel at K={K_PAST}: {launches_j}"
     del jd, ji, pq, pqid
 
-    kernels = []
     bq, bc = cfg.query_block, cfg.block_c
     lanes = torch.arange(bc, device=dev)
 
@@ -1065,41 +1440,7 @@ def main(argv=None) -> int:
 
     # #3 knn_tile_topk, l2 on the brute baseline's own call (4096 queries),
     # ip on (g)'s own brute-lane call (all 65,536 R≠S queries) and l2 on (i)'s
-    # FMA brute-lane call: each against its whole corpus in one launch.  The
-    # plain version takes the corpus in chunks merged with merge_running_topk,
-    # as the CPU brute lane does; the library yardstick too, in chunks of 2^30
-    # scores, since the full (Q, |D|) matrix would not fit.
-    def topk_check(name, q3, c3, qid3, cids, metric, launch_n, fp32_bound=False, k=K):
-        kd, ki = topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric)
-
-        def chunked(topk_of_chunk, chunk):
-            run_d = torch.full((q3.shape[0], k), float("inf"), device=dev)
-            run_i = torch.full((q3.shape[0], k), -1, dtype=torch.int32, device=dev)
-            for c0 in range(0, c3.shape[0], chunk):
-                nd, ni = topk_of_chunk(c3[c0:c0 + chunk], cids[c0:c0 + chunk])
-                run_d, run_i = topk_ops.merge_running_topk(run_d, run_i, nd, ni, k=k)
-            return run_d, run_i
-
-        def library_topk(c, cid):
-            score = -(q3 @ c.T) if metric == "ip" else torch.cdist(q3, c)
-            vd, vi = torch.topk(score, k, dim=1, largest=False)
-            return vd, cid[vi]
-
-        (rd, ri_), plain_ms = timed(lambda: chunked(
-            lambda c, cid: topk_ref.knn_topk_ref(q3, c, qid3, cid, k=k, metric=metric), 8192))
-        err, _, _ = hold_topk(f"{name} {tuple(q3.shape)} x {tuple(c3.shape)}",
-                              c3, q3, kd, ki, rd, ri_, metric=metric, fp32_bound=fp32_bound)
-        del kd, ki, rd, ri_
-        ms = cuda_ms(lambda: topk_ops.knn_topk(q3, c3, qid3, cids, k=k, metric=metric), reps=3)
-        lib_ms = cuda_ms(lambda: chunked(library_topk, (1 << 30) // q3.shape[0]), reps=1)
-        d3 = q3.shape[1]
-        nbytes = (q3.numel() + c3.numel()) * 4 + (qid3.numel() + cids.numel()) * 4 + q3.shape[0] * k * 8
-        b = bound(nbytes, q3.shape[0] * c3.shape[0] * (2 * d3 + (3 if metric == "l2" else 1)))
-        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
-            f"bound {b[0]:.3f} ms ({b[1]})")
-        return kernel_entry(name, TOPK_CU, "src/repro/kernels/knn_topk/kernel.py:119",
-                            launch_n, err, ms, plain_ms, b, lib_ms)
-
+    # FMA brute-lane call: each against its whole corpus in one launch.
     cid3 = torch.arange(len(pts), dtype=torch.int32, device=dev)
     kernels.append(topk_check("knn_tile_topk", pr[brute_rows].contiguous(),
                               pr, brute_rows.to(torch.int32), cid3, "l2",
@@ -1110,45 +1451,6 @@ def main(argv=None) -> int:
     del q3_ip, c3_ip, qid3_ip, cid3_ip, ip_call, cid3
 
     # #4 distance_bin_histogram: the ε selection's own sample and bin width.
-    def hist_check(name, q4, p4, qidx, bw, n_bins, launch_n):
-        d4 = q4.shape[1]
-        kc = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins, self_indices=qidx)
-        pid = torch.arange(p4.shape[0], dtype=torch.int32, device=dev)
-        rc, plain_ms = timed(lambda: hist_ref.distance_bin_histogram_ref(
-            q4, p4, qidx.to(torch.int32), pid, bw, n_bins=n_bins))
-        # Bin b differs between the versions only by pairs near its two edges.
-        near = bin_edge_pairs(q4, p4, bw, n_bins)
-        allowed = (near[:-1] + near[1:]).to(kc.dtype)
-        delta = (kc - rc).abs()
-        err = delta.max().item()
-        log(f"[a] {name}: {tuple(q4.shape)} × {tuple(p4.shape)} "
-            f"bin-count |Δ| max={err:.0f} sum={delta.sum().item():.0f}; pairs near an edge "
-            f"{int(near.sum())}, per-bin allowance min={allowed.min().item():.0f} "
-            f"max={allowed.max().item():.0f}, largest |Δ|/allowance="
-            f"{(delta / allowed.clamp(min=1)).max().item():.3f}; total kernel="
-            f"{kc.sum().item():.0f} plain={rc.sum().item():.0f}")
-        bad = (delta > allowed).nonzero()[:, 0].tolist()
-        assert not bad, f"{name}: bins {bad[:8]} differ beyond their edge pairs"
-        # Self pairs sit at d = 0: without the exclusion exactly S more in bin 0.
-        extra = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins) - kc
-        n_self = int((qidx >= 0).sum())
-        log(f"[a] {name} self exclusion: bin 0 +{extra[0].item():.0f} "
-            f"without it (S={n_self}), other bins +{extra[1:].abs().sum().item():.0f}")
-        assert extra[0].item() == n_self and not extra[1:].any(), \
-            f"{name}: the self pairs are not excluded from bin 0"
-        ms = cuda_ms(lambda: hist_ops.distance_bin_histogram(q4, p4, bw, n_bins,
-                                                             self_indices=qidx))
-        hi = float(bw) * n_bins
-        lib_ms = cuda_ms(lambda: torch.histc(torch.cdist(q4, p4), bins=n_bins, min=0.0, max=hi),
-                         reps=3)
-        nbytes = (q4.numel() + p4.numel()) * 4 + qidx.numel() * 4 + n_bins * 8
-        b = bound(nbytes, q4.shape[0] * p4.shape[0] * (2 * d4 + 5))
-        log(f"[a] {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, library {lib_ms:.3f} ms, "
-            f"bound {b[0]:.3f} ms ({b[1]})")
-        return kernel_entry(name, "src/repro_torch/csrc/bin_hist.cu",
-                            "src/repro/kernels/bin_hist/kernel.py:80", launch_n, err, ms,
-                            plain_ms, b, lib_ms)
-
     n_q = min(cfg.n_query_sample, len(pts))
     ia, ib, qidx = eps_lib.sample_indices(len(pts), cfg.seed, n_pair_sample=cfg.n_pair_sample,
                                           n_query_sample=n_q, device=dev)
@@ -2104,16 +2406,9 @@ def main(argv=None) -> int:
     del q_topk, q_stream, ring_call, q3s, c3s, q1s, c1s, q3r, c3r, sh
     log(f"[q] phase {time.perf_counter() - t_q:.2f}s")
 
-    log(f"[done] {time.perf_counter() - t_start:.1f}s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    print(smi[0])
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    # -- path 14: (r) the kNN-LM at olmo_1b's full width ------------------------
+    lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
+    return finish()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,378 @@
+"""Model assembly — port of ``repro/models/transformer.py`` for the dense
+decoder the kNN-LM serves (``olmo_1b``: pattern ``("attn",)``).
+
+The model is a ``Transformer`` module holding the embedding, the final
+norm and one ``Block`` module per layer, in execution order; its
+parameters keep the JAX package's names and layouts.  The reference scans
+``n_groups`` repetitions of the block pattern over stacked parameters
+(``params["blocks"]``, one list entry per pattern position, each leaf with
+a leading group axis) and runs the remainder unscanned
+(``params["rem"]``).  A scan is numerically a loop over its layers, so the
+port loops; ``params_from_jax`` unstacks either layout into the flat layer
+list (layer ``g·len(pattern) + pos`` is group g's position pos), and
+``cache_from_jax`` does the same for a decode cache.  ``remat`` is a
+training concern and does not apply.
+
+The entry points keep the reference's names and arguments with the model
+in place of the parameter tree: ``init_params``, ``init_cache``,
+``forward_seq``, ``prefill``, ``prefill_hidden``, ``decode_step_hidden``
+and ``decode_step``.  ``_cast_params`` casts every float weight to
+``cfg.dtype`` before compute, as the reference does; the cast copy is kept
+beside the float32 masters and rebuilt only when a parameter changes.
+A decode step writes the cache in place and returns it.
+
+Recurrent mixers (``rglru``, ``rwkv``), the encoder and cross-attention,
+MoE layers, the VLM projector and ``loss_fn`` come with ROADMAP queue A
+item 17 and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.utils import resolve_device, unported
+
+Params = Dict[str, Any]
+_SUBLAYERS = ("norm1", "attn", "norm2", "mlp")
+
+
+# --------------------------------------------------------------------------
+# layer plan
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    kinds: Tuple[str, ...]        # kind of every decoder layer, in order
+    pattern: Tuple[str, ...]
+    n_groups: int                 # stacked repetitions of the pattern
+    rem_kinds: Tuple[str, ...]    # unstacked tail layers
+
+
+def layer_plan(cfg: ModelConfig) -> LayerPlan:
+    lp = len(cfg.block_pattern)
+    kinds = tuple(cfg.block_pattern[i % lp] for i in range(cfg.n_layers))
+    if cfg.scan_layers and cfg.n_layers >= 2 * lp:
+        g = cfg.n_layers // lp
+        rem = kinds[g * lp:]
+    else:
+        g, rem = 0, kinds
+    return LayerPlan(kinds, cfg.block_pattern, g, rem)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for kind in cfg.block_pattern:
+        if kind not in ("attn", "local"):
+            raise unported(f"{kind!r} layers", "queue A item 17")
+    if cfg.moe is not None:
+        raise unported("MoE layers", "queue A item 17")
+    if cfg.n_encoder_layers:
+        raise unported("the encoder and cross-attention", "queue A item 17")
+    if cfg.n_patches:
+        raise unported("the VLM projector (n_patches > 0)", "queue A item 17")
+
+
+# --------------------------------------------------------------------------
+# the module
+# --------------------------------------------------------------------------
+
+def _param_dict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                             for k, v in tensors.items()})
+
+
+class Block(nn.Module):
+    """One decoder layer: ``norm1``, ``attn``, ``norm2``, ``mlp``, each a
+    ``ParameterDict`` under the reference's names (the non-parametric
+    norms are empty)."""
+
+    def __init__(self, kind: str, params: Dict[str, Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.kind = kind
+        for name in _SUBLAYERS:
+            self.add_module(name, _param_dict(params[name]))
+
+
+class Transformer(nn.Module):
+    """The decoder: ``embed`` (``tok``[, ``unembed``]), ``layers`` (one
+    ``Block`` per layer, in execution order) and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, embed: Dict[str, torch.Tensor],
+                 final_norm: Dict[str, torch.Tensor], layers: List[Block]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _param_dict(embed)
+        self.final_norm = _param_dict(final_norm)
+        self.layers = nn.ModuleList(layers)
+        self._compute: Optional[Tuple[tuple, Params]] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tok"].device
+
+    def tree(self) -> Params:
+        """The parameters as a nested dict of tensors (``embed``,
+        ``final_norm``, ``layers``: a list of per-layer dicts)."""
+        return {"embed": dict(self.embed), "final_norm": dict(self.final_norm),
+                "layers": [{name: dict(getattr(blk, name)) for name in _SUBLAYERS}
+                           for blk in self.layers]}
+
+
+def _cast_params(model: Transformer, cfg: ModelConfig) -> Params:
+    """The parameter tree with every float weight in ``cfg.dtype`` (the
+    reference's compute-dtype cast; the masters stay in ``param_dtype``).
+    The cast copy is cached on the model and rebuilt when any parameter
+    was replaced or written in place."""
+    dt = cfg.activation_dtype()
+    stamp = (dt,) + tuple((id(p), p._version) for p in model.parameters())
+    if model._compute is not None and model._compute[0] == stamp:
+        return model._compute[1]
+
+    def cast(t):
+        return t.to(dt) if t.is_floating_point() and t.dtype != dt else t
+
+    tree = model.tree()
+    out = {"embed": {k: cast(v) for k, v in tree["embed"].items()},
+           "final_norm": {k: cast(v) for k, v in tree["final_norm"].items()},
+           "layers": [{name: {k: cast(v) for k, v in sub.items()} for name, sub in lp.items()}
+                      for lp in tree["layers"]]}
+    model._compute = (stamp, out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# init and weights from the JAX package
+# --------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> Params:
+    return {"norm1": L.init_norm(cfg, dtype, device=device),
+            "attn": L.init_attention(gen, cfg, dtype, device=device),
+            "norm2": L.init_norm(cfg, dtype, device=device),
+            "mlp": L.init_mlp(gen, cfg, dtype, device=device)}
+
+
+def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
+    """A freshly initialized model on ``device``.  ``key`` is an int seed or
+    a ``torch.Generator`` on that device; the reference's scales
+    (1/√fan_in) are drawn from it in a fixed order.  The numbers are not
+    ``jax.random``'s: carry JAX weights across with ``params_from_jax``."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if isinstance(key, torch.Generator):
+        gen = key
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(key))
+    dtype = torch_dtype(cfg.param_dtype)
+    plan = layer_plan(cfg)
+    embed = L.init_embeddings(gen, cfg, dtype, device=dev)
+    final_norm = L.init_norm(cfg, dtype, device=dev)
+    layers = [Block(kind, _init_layer(gen, cfg, kind, dtype, dev)) for kind in plan.kinds]
+    return Transformer(cfg, embed, final_norm, layers)
+
+
+def _layer_sources(cfg: ModelConfig):
+    """For each layer in execution order: (kind, where its parameters sit
+    in the reference's tree) — ("blocks", pattern position, group) or
+    ("rem", index)."""
+    plan = layer_plan(cfg)
+    out = []
+    for g in range(plan.n_groups):
+        for pos, kind in enumerate(plan.pattern):
+            out.append((kind, ("blocks", pos, g)))
+    for i, kind in enumerate(plan.rem_kinds):
+        out.append((kind, ("rem", i)))
+    return out
+
+
+def _pick(tree, src):
+    if src[0] == "rem":
+        return tree["rem"][src[1]]
+    _, pos, g = src
+    return _map(tree["blocks"][pos], lambda x: x[g])
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A copy of a JAX leaf (numpy array, or a tensor, e.g. on ``meta``) on
+    ``device``, same dtype; bf16 numpy leaves (ml_dtypes) go through
+    float32.  A copy, as JAX's arrays are read-only and a decode writes
+    its cache in place."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(arr, device=device)
+
+
+def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Transformer:
+    """The port's model holding the weights of a JAX ``init_params`` tree
+    whose leaves are numpy arrays (or tensors).  Both layouts are taken:
+    the scan-stacked ``params["blocks"]`` (a list over pattern positions,
+    each leaf with a leading ``n_groups`` axis: the full ``olmo_1b``'s) and
+    the unstacked ``params["rem"]`` list (``smoke_config()``'s)."""
+    _check_supported(cfg)
+    dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
+    plan = layer_plan(cfg)
+    blocks = params_np.get("blocks", [])
+    groups = {int(np.shape(b["attn"]["wq"])[0]) for b in blocks}
+    if len(blocks) != (len(plan.pattern) if plan.n_groups else 0) or \
+            groups - {plan.n_groups} or len(params_np["rem"]) != len(plan.rem_kinds):
+        raise ValueError(f"the tree's blocks / rem lists do not match {cfg.name}'s layer plan "
+                         f"({plan.n_groups} groups of {plan.pattern}, {len(plan.rem_kinds)} "
+                         f"unstacked)")
+    layers = []
+    for kind, src in _layer_sources(cfg):
+        lp = _map(_pick(params_np, src), lambda x: _tensor(x, dev))
+        layers.append(Block(kind, lp))
+    return Transformer(cfg, _map(params_np["embed"], lambda x: _tensor(x, dev)),
+                       _map(params_np["final_norm"], lambda x: _tensor(x, dev)), layers)
+
+
+# --------------------------------------------------------------------------
+# cache
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -> List[Params]:
+    """Zeroed decode state: one ``{"kv": {"k", "v"}}`` per layer, in
+    execution order, in the activation dtype."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.activation_dtype()
+    return [{"kv": L.init_kv_cache(cfg, batch, cache_len, kind, dtype, device=dev)}
+            for kind in layer_plan(cfg).kinds]
+
+
+def cache_from_jax(cache_np: Params, cfg: ModelConfig, *, device="cuda") -> List[Params]:
+    """A JAX decode cache (``{"blocks": [...], "rem": [...]}``, numpy leaves)
+    in the port's per-layer layout."""
+    dev = resolve_device(device)
+    return [_map(_pick(cache_np, src), lambda x: _tensor(x, dev))
+            for _, src in _layer_sources(cfg)]
+
+
+# --------------------------------------------------------------------------
+# sequence forward (prefill)
+# --------------------------------------------------------------------------
+
+def _tokens(tokens, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(tokens) if not isinstance(tokens, torch.Tensor)
+                           else tokens, device=device).long()
+
+
+def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, cache_len: int,
+                     collect: bool):
+    h = L.apply_norm(p["norm1"], cfg, x)
+    new_state: Params = {}
+    if collect:
+        mix, (kk, vv) = L.attention_forward_collect(p["attn"], cfg, h, kind=kind)
+        t = min(cache_len, cfg.window) if kind == "local" else cache_len
+        if kind == "local" and kk.shape[1] > t:
+            # keep the trailing window in the ring layout slot = pos % t:
+            # tail element j (absolute position pos0 + j) lands at
+            # (pos0 + j) % t, a roll by pos0.
+            pos0 = kk.shape[1] - t
+            kk = torch.roll(kk[:, pos0:], pos0 % t, dims=1)
+            vv = torch.roll(vv[:, pos0:], pos0 % t, dims=1)
+        else:
+            kk = L.pad_cache(kk, t)
+            vv = L.pad_cache(vv, t)
+        new_state["kv"] = {"k": kk, "v": vv}
+    else:
+        mix = L.attention_forward(p["attn"], cfg, h, kind=kind)
+    x = x + mix
+    h2 = L.apply_norm(p["norm2"], cfg, x)
+    return x + L.apply_mlp(p["mlp"], cfg, h2), new_state
+
+
+@torch.no_grad()
+def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frames=None,
+                patches=None, states=None, collect: bool = False, cache_len: int = 0):
+    """Token ids -> final hidden states.
+
+    Returns (hidden (B,S,D), aux_loss, new_states): ``aux_loss`` is 0 (no
+    MoE here); ``collect=True`` gathers the KV caches, padded to
+    ``cache_len``, for decode (prefill).  ``frames``, ``patches`` and
+    ``states`` (encoder, VLM and recurrent inputs) raise."""
+    if frames is not None or patches is not None or states is not None:
+        raise unported("forward_seq(frames= / patches= / states=)", "queue A item 17")
+    p = _cast_params(model, cfg)
+    x = L.embed(p["embed"], cfg, _tokens(tokens, model.device))
+    new_states: List[Params] = []
+    for lp, blk in zip(p["layers"], model.layers):
+        x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, cache_len=cache_len, collect=collect)
+        new_states.append(ns)
+    x = L.apply_norm(p["final_norm"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, (new_states if collect else None)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, shd=None):
+    raise unported("loss_fn (training)", "queue A item 17")
+
+
+def encode(params, cfg: ModelConfig, frames, shd=None):
+    raise unported("encode (the whisper encoder)", "queue A item 17")
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[Params],
+                       pos, shd=None):
+    """Decode one token through the stack, returning the final-norm hidden
+    state (B, D) — the retrieval query vector — and the cache, updated in
+    place."""
+    p = _cast_params(model, cfg)
+    x1 = L.embed(p["embed"], cfg, _tokens(token, model.device)[:, None])
+    for lp, blk, st in zip(p["layers"], model.layers, cache):
+        h = L.apply_norm(lp["norm1"], cfg, x1)
+        mix, st["kv"] = L.attention_decode(lp["attn"], cfg, h, st["kv"], pos, kind=blk.kind)
+        x1 = x1 + mix
+        h2 = L.apply_norm(lp["norm2"], cfg, x1)
+        x1 = x1 + L.apply_mlp(lp["mlp"], cfg, h2)
+    x1 = L.apply_norm(p["final_norm"], cfg, x1)
+    return x1[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cfg: ModelConfig, token, cache: List[Params], pos,
+                shd=None):
+    """One serving step: token (B,), ``pos`` the absolute position.
+    Returns (logits (B, vocab), cache)."""
+    hidden, cache = decode_step_hidden(model, cfg, token, cache, pos, shd)
+    return L.unembed(model.embed, cfg, hidden[:, None])[:, 0], cache
+
+
+# --------------------------------------------------------------------------
+# prefill
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill(model: Transformer, cfg: ModelConfig, tokens, cache_len: int, shd=None, *,
+            frames=None, patches=None):
+    """Run the full prompt, return (last_logits (B,V), cache)."""
+    hidden, _, states = forward_seq(model, cfg, tokens, shd, frames=frames, patches=patches,
+                                    collect=True, cache_len=cache_len)
+    return L.unembed(model.embed, cfg, hidden[:, -1:])[:, 0], states
+
+
+@torch.no_grad()
+def prefill_hidden(model: Transformer, cfg: ModelConfig, tokens, cache_len: int, shd=None):
+    """``prefill`` that also returns the last position's final-norm hidden
+    state (B, D): the retrieval query of the FIRST generated token."""
+    hidden, _, states = forward_seq(model, cfg, tokens, shd, collect=True, cache_len=cache_len)
+    return L.unembed(model.embed, cfg, hidden[:, -1:])[:, 0], hidden[:, -1], states

@@ -110,6 +110,10 @@ def _topk_case(rng, n_q, n_c, dim, integer):
     (64, 30, 18, 25, "l2", False),           # fewer valid candidates than k
     (300, 20_000, 6, 10, "l2", False),       # the projected brute backstop's width
     (129, 3000, 6, 20, "l2", True),
+    # the kNN-LM's lookups: olmo_1b's 2,048-wide hidden states, k = 8, over
+    # a datastore that ends in a ragged tile
+    (5, 65_573, 2048, 8, "l2", False),
+    (5, 65_573, 2048, 8, "ip", False),
 ])
 def test_knn_tile_topk_matches_plain(card, n_q, n_c, dim, k, metric, integer):
     rng = np.random.default_rng(n_q + n_c + dim + k)
@@ -248,7 +252,7 @@ def test_projected_index_on_card_matches_cpu(card, metric, pdim, target):
 
 
 @pytest.mark.parametrize("dim,n_q", [
-    (18, 70), (518, 45), (1100, 33),
+    (18, 70), (518, 45), (1100, 33), (2048, 40),
     # widths around the 8-dim chunk, and one, two or a ragged second
     # 128-query row tile; 3,000 points end in a ragged 128-point tile
     (1, 1), (8, 128), (9, 129), (33, 1), (33, 128), (33, 129),
@@ -710,3 +714,37 @@ def test_replicated_mesh_on_one_card_matches_single_device(card):
                                    np.linalg.norm(qq[r] - full[want.ids[r, c]], axis=-1),
                                    atol=1e-5)
     assert sharded.query(q.copy()).stats.n_engine_compiles == 0
+
+
+def test_params_from_jax_full_olmo_layout_on_card(card):
+    """The full olmo_1b weights in the JAX package's scanned layout (every
+    leaf of ``blocks[0]`` stacked over 16 groups, group g filled with g)
+    carried onto the card: layer i holds group i, at the full shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("olmo_1b")
+    d, h, hd, f, n = cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff, cfg.n_layers
+    shapes = {"attn": {"wq": (d, h, hd), "wk": (d, h, hd), "wv": (d, h, hd), "wo": (h, hd, d)},
+              "mlp": {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}}
+    block = {"norm1": {}, "norm2": {}}
+    for sub, leaves in shapes.items():
+        block[sub] = {}
+        for name, shape in leaves.items():
+            leaf = torch.empty((n,) + shape, device=card)
+            for g in range(n):
+                leaf[g].fill_(g)
+            block[sub][name] = leaf
+    tree = {"embed": {"tok": torch.zeros((cfg.vocab_size, d), device=card)},
+            "final_norm": {}, "blocks": [block], "rem": []}
+    model = transformer.params_from_jax(tree, cfg, device="cuda")
+    del tree, block
+    assert len(model.layers) == n
+    assert sum(p.numel() for p in model.parameters()) == cfg.n_params()
+    for i, layer in enumerate(model.layers):
+        for sub, leaves in shapes.items():
+            for name, shape in leaves.items():
+                w = getattr(layer, sub)[name]
+                assert tuple(w.shape) == shape and w.is_cuda
+                assert bool((w == i).all()), f"layer {i} {sub}.{name} is not group {i}"
+
