@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n POINTS] [--only-lm]
+    python3 chip_smoke.py [--n POINTS]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -56,7 +56,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          card, on the inputs its path gave it: max |Δd|, id / found / bin
          mismatches (each explained by an ε²- or bin-edge flip or a
          distance tie, recomputed in float64; at 518 dims within the
-         expansion form's fp32 bound, which grows with the width), kernel /
+         expansion form's fp32 bound, which grows with the width; a bin
+         within the fp32 error measured on its own sample, a check that
+         must also fail the kernel's counts one bin up and with 1 % of the
+         pairs moved), kernel /
          plain / library times from CUDA events, and the bound from bytes
          and FLOPs.  The inputs of the ip brute call of (g), of the first
          batched gathered-route launch of (h) and of (i)'s ε selection and
@@ -155,12 +158,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          through an unsharded retriever.  (r2) ``build_datastore`` (REORDER,
          no truncation) and ``generate`` with the in-step l2 ``lookup``,
          exact on the first decode step.  (r3) ``sharded_lookup`` over 4
-         slots on every step's queries against (r2)'s ``lookup``.  Printed:
+         slots on every step's queries against (r2)'s ``lookup``.  Decode
+         matches forward: the prefill and 4 decode steps' logits stray from
+         a float32 forward at most twice as far as the bf16 forward does,
+         the argmax agreeing away from ties.  Printed:
          the collect and index-build times, prefill, each decode step's LM
          and retrieval times, tokens/s, peak memory.  (a) holds the
          per-shard ip call, the lookup's call and the ε selection's
-         histogram at D = 2,048.  ``--only-lm`` builds the kernels and runs
-         (r) alone.
+         histogram at D = 2,048.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -241,6 +246,7 @@ LM_PROMPT_LEN = 256
 LM_GEN = 32
 LM_SHARDS = 4                      # the IndexRetriever's 4 × 1 mesh and the ring
 LM_SEED = 7                        # weights and corpus
+LM_CHECK_STEPS = 4                 # decode steps held against the forward
 
 
 def log(msg: str) -> None:
@@ -372,29 +378,136 @@ def check_exact(points, queries, query_ids, got_d, got_i, what: str, metric: str
     assert (dist_err <= dist_tol).all(), f"{what}: reported distances disagree with float64"
 
 
-def bin_edge_pairs(queries, points, bw, n_bins: int, chunk: int = 262_144):
-    """(n_bins + 1,) counts, in float64, of the pairs whose distance d lies
-    within the fp32 error of either histogram version of a bin edge e·bw
-    (1 ≤ e ≤ n_bins): only such a pair can land in different bins of the
-    kernel and the plain version.  The kernel's expansion |q|²+|p|²−2q·p
-    errs by at most (D+4)·u·(|q|+|p|)² in d², so by the smaller of that
-    over d and its root in d; the plain difference form, the root and the
-    divide by bw err by a few u·d.  The window is twice their sum."""
+def expansion_sq_fp32(queries, points_t):
+    """(Q, P) float32 d² in the kernels' own arithmetic (``score_tile.cuh``):
+    the dot and both squared norms each a chain of multiply-adds over the
+    dims in ascending order, then |q|² + |p|² − 2q·p.  ``points_t`` is the
+    points transposed, (D, P).  ``addcmul_`` may round its multiply apart
+    from the add where the kernel's ``fmaf`` does not: the same form and
+    order, not the same last bits."""
+    import torch
+    q = queries.float()
+    acc = torch.zeros(q.shape[0], points_t.shape[1], device=q.device)
+    qq = torch.zeros(q.shape[0], 1, device=q.device)
+    pp = torch.zeros(1, points_t.shape[1], device=q.device)
+    for j in range(q.shape[1]):
+        qj, pj = q[:, j:j + 1], points_t[j:j + 1]
+        acc.addcmul_(qj, pj)
+        qq.addcmul_(qj, qj)
+        pp.addcmul_(pj, pj)
+    return qq + pp - 2.0 * acc
+
+
+def hist_windows(queries, points, qidx, bw, n_bins: int, chunk: int = 262_144):
+    """Per-edge counts, (n_bins + 1,) each, of the pairs whose float64
+    distance d lies so near a bin edge e·bw (1 ≤ e ≤ n_bins) that the kernel
+    and the plain version may bin them apart, under two windows.
+
+    The bound window: the kernel's expansion errs by at most
+    e2 = (D+4)·u·(|q|+|p|)² in d², so by min(e2 / d, √e2) in d, and the
+    plain difference form, the root and the divide by a few u·d; twice
+    their sum.  At wide rows it covers much of a bin.
+
+    The measured window, used to hold the kernel: one pass over the sample
+    measures E2, the largest |d² − d²₆₄| of ``expansion_sq_fp32`` over the
+    pairs that are not a query's own row, and R, the largest relative
+    error in d of the plain version's difference form (``ref.py``'s
+    arithmetic); the window is 2·(min(E2 / d, √E2) + R·d) + 4u·d (the root
+    and the divide), never wider than the bound window.  The factor 2
+    covers the kernel's last bits, which ``expansion_sq_fp32`` does not
+    copy.  Returns (near under the bound window, near under the measured
+    window, {"e2": E2, "e2_bound": the largest e2, "rel_plain": R})."""
+    import math
+
     import torch
     dim = queries.shape[1]
-    q = queries.double()
+    q32 = queries.float()
+    q = q32.double()
     qq, qn = (q * q).sum(1)[:, None], q.norm(dim=1)[:, None]
+    qid = qidx.long()[:, None]
     bw64 = bw.double()
-    near = torch.zeros(n_bins + 1, dtype=torch.int64, device=q.device)
-    for c0 in range(0, points.shape[0], chunk):
-        p = points[c0:c0 + chunk].double()
-        d = torch.sqrt(torch.clamp(qq + (p * p).sum(1)[None, :] - 2.0 * q @ p.T, min=0.0))
+    n_pts = points.shape[0]
+
+    def chunk_d2(c0):
+        p32 = points[c0:c0 + chunk].float()
+        p = p32.double()
+        d2 = torch.clamp(qq + (p * p).sum(1)[None, :] - 2.0 * q @ p.T, min=0.0)
+        other = qid != c0 + torch.arange(p.shape[0], device=q.device)[None, :]
+        return p32, p, d2, other
+
+    e2k = rel_p = e2_bound = 0.0
+    sub = max(1, (1 << 26) // max(1, q32.numel()))   # points a (Q, sub, D) difference holds
+    for c0 in range(0, n_pts, chunk):
+        p32, p, d2, other = chunk_d2(c0)
+        d2k = expansion_sq_fp32(q32, p32.T.contiguous()).double()
+        e2k = max(e2k, torch.where(other, (d2k - d2).abs(), 0.0).max().item())
+        e2_bound = max(e2_bound, ((dim + 4) * FP32_U * (qn + p.norm(dim=1)[None, :]) ** 2)
+                       .max().item())
+        for s0 in range(0, p32.shape[0], sub):
+            diff = q32[:, None, :] - p32[None, s0:s0 + sub, :]
+            dp = torch.sqrt((diff * diff).sum(-1).double())
+            d = torch.sqrt(d2[:, s0:s0 + sub])
+            ok = other[:, s0:s0 + sub] & (d > 0)
+            rel = torch.where(ok, (dp - d).abs() / torch.where(ok, d, 1.0), 0.0)
+            rel_p = max(rel_p, rel.max().item())
+    near_b = torch.zeros(n_bins + 1, dtype=torch.int64, device=q.device)
+    near_m = torch.zeros_like(near_b)
+    for c0 in range(0, n_pts, chunk):
+        _, p, d2, _ = chunk_d2(c0)
+        d = torch.sqrt(d2)
         e2 = (dim + 4) * FP32_U * (qn + p.norm(dim=1)[None, :]) ** 2
-        window = 2.0 * (torch.minimum(e2 / d, torch.sqrt(e2)) + (dim + 8) * FP32_U * d)
+        w_bound = 2.0 * (torch.minimum(e2 / d, torch.sqrt(e2)) + (dim + 8) * FP32_U * d)
+        w_meas = torch.minimum(w_bound, 2.0 * (torch.clamp(e2k / d, max=math.sqrt(e2k))
+                                               + rel_p * d) + 4.0 * FP32_U * d)
         edge = torch.round(d / bw64)
-        hit = ((d - edge * bw64).abs() < window) & (edge >= 1) & (edge <= n_bins)
-        near += torch.bincount(edge[hit].long(), minlength=n_bins + 1)
-    return near
+        off = (d - edge * bw64).abs()
+        on_edge = (edge >= 1) & (edge <= n_bins)
+        for near, w in ((near_b, w_bound), (near_m, w_meas)):
+            hit = (off < w) & on_edge
+            near += torch.bincount(edge[hit].long(), minlength=n_bins + 1)
+    return near_b, near_m, {"e2": e2k, "e2_bound": e2_bound, "rel_plain": rel_p}
+
+
+def hold_hist(what, kc, rc, queries, points, qidx, bw, n_bins: int) -> float:
+    """Hold a histogram kernel's counts ``kc`` against its plain version's
+    ``rc`` on the same sample: bin b may differ by at most the pairs within
+    ``hist_windows``'s measured window of its two edges.  Then the check's
+    own test: the kernel's histogram shifted one bin up, and with 1% of its
+    pairs (or the whole fullest bin, if less) moved from its fullest bin to
+    the next, must both fail it; the log says whether the bound window
+    would have failed them too.  Returns max |Δ|."""
+    import math
+
+    import torch
+    near_b, near_m, st = hist_windows(queries, points, qidx, bw, n_bins)
+    allow = (near_m[:-1] + near_m[1:]).to(kc.dtype)
+    allow_b = (near_b[:-1] + near_b[1:]).to(kc.dtype)
+    delta = (kc - rc).abs()
+    err = delta.max().item()
+    log(f"{what}: {tuple(queries.shape)} × {tuple(points.shape)} bin-count |Δ| max={err:.0f} "
+        f"sum={delta.sum().item():.0f}; total kernel={kc.sum().item():.0f} "
+        f"plain={rc.sum().item():.0f}; measured fp32 error: d² {st['e2']:.3e} (the bound "
+        f"{st['e2_bound']:.3e}), plain form's relative {st['rel_plain']:.3e}; pairs near an "
+        f"edge: measured window {int(near_m.sum())}, bound window {int(near_b.sum())}; per-bin "
+        f"allowance max {allow.max().item():.0f} (bound window {allow_b.max().item():.0f}), "
+        f"largest |Δ|/allowance {(delta / allow.clamp(min=1)).max().item():.3f}")
+    bad = (delta > allow).nonzero()[:, 0].tolist()
+    assert not bad, f"{what}: bins {bad[:8]} differ beyond their edge pairs"
+    shifted = torch.cat([kc.new_zeros(1), kc[:-1]])
+    moved = kc.clone()
+    b = int(kc.argmax())
+    m = min(float(math.ceil(0.01 * kc.sum().item())), kc[b].item())
+    moved[b] -= m
+    moved[b + 1 if b + 1 < n_bins else b - 1] += m
+    for name, wrong in (("shifted one bin up", shifted),
+                        (f"{m / kc.sum().item():.2%} of the pairs moved a bin", moved)):
+        dw = (wrong - rc).abs()
+        caught, caught_b = bool((dw > allow).any()), bool((dw > allow_b).any())
+        log(f"{what} self-test, the kernel's counts {name}: caught={caught} (largest "
+            f"|Δ|/allowance {(dw / allow.clamp(min=1)).max().item():.3f}); the bound window "
+            f"would catch it: {caught_b}")
+        assert caught, f"{what}: the check passes a histogram {name}"
+    return err
 
 
 def stats_line(res, n_q: int) -> str:
@@ -617,6 +730,7 @@ def lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check):
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models import knn_lm
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer as lm
     from repro_torch.runtime import KNNIndex, ServerConfig
 
@@ -774,6 +888,39 @@ def lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check):
     assert (delta <= e3).all() and torch.equal(rv[clear3], fv[clear3]), \
         "(r3) the ring differs from the unsharded lookup"
 
+    # Decode matches forward at full width (tests/test_models.py's check, in
+    # bf16): logits of the prefill's last position and LM_CHECK_STEPS decode
+    # steps against forward_seq over the same tokens.  The bf16 paths round
+    # in different places, so each is held to the float32 forward of the
+    # same master weights: the decode may stray from it at most twice as far
+    # as the bf16 forward does, and its argmax must agree wherever the float32
+    # top two are further apart than twice that.
+    cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
+    toks = corpus[:LM_PROMPTS, :LM_PROMPT_LEN + LM_CHECK_STEPS]
+    with torch.no_grad():
+        last = slice(LM_PROMPT_LEN - 1, LM_PROMPT_LEN + LM_CHECK_STEPS)
+        fwd, f32 = (lm_layers.unembed(model.embed, c, lm.forward_seq(model, c, toks)[0][:, last])
+                    for c in (lm_cfg, cfg32))
+        lg, cache = lm.prefill(model, lm_cfg, prompts, LM_PROMPT_LEN + LM_CHECK_STEPS)
+        dec = [lg]
+        for t in range(LM_PROMPT_LEN, LM_PROMPT_LEN + LM_CHECK_STEPS):
+            lg, cache = lm.decode_step(model, lm_cfg, toks[:, t], cache, t)
+            dec.append(lg)
+        dec = torch.stack(dec, 1).float()
+    del cache
+    fwd = fwd.float()
+    noise, stray = (fwd - f32).abs().max().item(), (dec - f32).abs().max().item()
+    top2 = f32.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 4.0 * noise
+    agree = dec.argmax(-1) == f32.argmax(-1)
+    log(f"[r] decode matches forward over {dec.shape[1]} positions × {LM_PROMPTS} rows: "
+        f"max |logit − float32 forward's| bf16 forward {noise:.4f}, decode {stray:.4f}, "
+        f"decode against the bf16 forward {(dec - fwd).abs().max().item():.4f} (largest "
+        f"|float32 logit| {f32.abs().max().item():.3f}); argmax agrees at "
+        f"{int(agree.sum())} of {agree.numel()} ({int(sure.sum())} clear of a bf16 tie)")
+    assert stray <= 2.0 * noise, "(r) decode strays from the forward beyond bf16 rounding"
+    assert agree[sure].all(), "(r) decode's argmax differs from the forward's away from a tie"
+
     # One decode step under torch.profiler (printed, not gated): the device
     # events the LM's step makes and how long the card is busy in them,
     # against the step's unprofiled time in (r1)'s bare run.
@@ -812,8 +959,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=5_000_000,
                     help="corpus size |D| (18 dims are never cut)")
-    ap.add_argument("--only-lm", action="store_true",
-                    help="build the kernels and run phase (r) alone")
     args = ap.parse_args(argv)
 
     import dataclasses
@@ -973,19 +1118,7 @@ def main(argv=None) -> int:
         pid = torch.arange(p4.shape[0], dtype=torch.int32, device=dev)
         rc, plain_ms = timed(lambda: hist_ref.distance_bin_histogram_ref(
             q4, p4, qidx.to(torch.int32), pid, bw, n_bins=n_bins))
-        # Bin b differs between the versions only by pairs near its two edges.
-        near = bin_edge_pairs(q4, p4, bw, n_bins)
-        allowed = (near[:-1] + near[1:]).to(kc.dtype)
-        delta = (kc - rc).abs()
-        err = delta.max().item()
-        log(f"[a] {name}: {tuple(q4.shape)} × {tuple(p4.shape)} "
-            f"bin-count |Δ| max={err:.0f} sum={delta.sum().item():.0f}; pairs near an edge "
-            f"{int(near.sum())}, per-bin allowance min={allowed.min().item():.0f} "
-            f"max={allowed.max().item():.0f}, largest |Δ|/allowance="
-            f"{(delta / allowed.clamp(min=1)).max().item():.3f}; total kernel="
-            f"{kc.sum().item():.0f} plain={rc.sum().item():.0f}")
-        bad = (delta > allowed).nonzero()[:, 0].tolist()
-        assert not bad, f"{name}: bins {bad[:8]} differ beyond their edge pairs"
+        err = hold_hist(f"[a] {name}", kc, rc, q4, p4, qidx, bw, n_bins)
         # Self pairs sit at d = 0: without the exclusion exactly S more in bin 0.
         extra = hist_ops.distance_bin_histogram(q4, p4, bw, n_bins) - kc
         n_self = int((qidx >= 0).sum())
@@ -1006,18 +1139,6 @@ def main(argv=None) -> int:
                             "src/repro/kernels/bin_hist/kernel.py:80", launch_n, err, ms,
                             plain_ms, b, lib_ms)
 
-    def finish():
-        log(f"[done] {time.perf_counter() - t_start:.1f}s")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()
-        print(smi[0])
-        print(json.dumps({"kernels": kernels}))
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
-
     kernels = []
 
     # -- build ------------------------------------------------------------
@@ -1030,10 +1151,6 @@ def main(argv=None) -> int:
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", text)]
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}–"
             f"{max(regs, default=0)}, largest spill store {max(spills, default=0)} B")
-
-    if args.only_lm:
-        lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
-        return finish()
 
     # -- data -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2408,7 +2525,17 @@ def main(argv=None) -> int:
 
     # -- path 14: (r) the kNN-LM at olmo_1b's full width ------------------------
     lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
-    return finish()
+
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    print(smi[0])
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -327,14 +327,23 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
             "w_down": dense_init(gen, (f, d), dtype, device=device)}
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default, the tanh approximation) step by step,
+    each step rounded to x's dtype and the constants cast to it first, as
+    the reference computes it; ``F.gelu`` rounds once, an ulp away in bf16."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float64).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.gelu_mlp:
-        # jax.nn.gelu's default is the tanh approximation; F.gelu's is not.
-        h = F.gelu(x @ params["w_in"], approximate="tanh")
-        return h @ params["w_out"]
+        return _gelu_tanh(x @ params["w_in"]) @ params["w_out"]
     a = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (F.silu(a) * u) @ params["w_down"]
+    # jax.nn.silu is a·(1 / (1 + e^−a)), each step rounded to the activation
+    # dtype; F.silu rounds once, so in bf16 it differs by an ulp.
+    return (a * torch.reciprocal(1 + torch.exp(-a)) * u) @ params["w_down"]
 
 
 # --------------------------------------------------------------------------

@@ -3,17 +3,25 @@
 inputs.
 
 Weights cross with ``params_from_jax`` (a JAX ``init_params`` tree as
-numpy), caches with ``cache_from_jax``, everything in float32 at
-``olmo_1b``'s ``smoke_config()``: the unscanned layout (3 layers, dense
+numpy), caches with ``cache_from_jax``, at ``olmo_1b``'s
+``smoke_config()``: in float32 the unscanned layout (3 layers, dense
 attention) and a scanned one (``scan_layers=True``, 4 layers stacked into
 4 groups, ``attn_chunk=8`` so the flash loop runs on 20-token sequences,
-ragged in both chunk axes).  Each JAX reference is computed once per
-module.
+ragged in both chunk axes); and the card's activation dtype, bfloat16,
+with ``attn_chunk=8`` (the unscanned layout with the flash loop).  Each
+JAX reference is computed once per module.
 
-Tolerances (float32, sums taken in another order): 1e-5 relative (atol
+Tolerances.  float32 (sums taken in another order): 1e-5 relative (atol
 1e-5) on hidden states and single layers, 1e-4 on logits and across the 8
-decode steps.  The port's own decode-matches-forward check uses the
-reference test's (``tests/test_models.py:82-110``)."""
+decode steps; the port's own decode-matches-forward check uses the
+reference test's (``tests/test_models.py:82-110``).  bfloat16: against
+JAX, 2^-7 relative and absolute (about one bf16 ulp; the port rounds
+where the reference does, so the forward and prefill agree bit for bit
+here and the decode steps to ~1e-3); single layers bit for bit (the JAX
+side run op by op, see ``run``); between two paths of the port that round
+in different places (decode against forward, flash against dense), 2^-4
+relative and absolute, sixteen bf16 unit roundoffs (the largest seen is
+0.051 on hidden states up to 3.3: three ulps)."""
 import dataclasses
 
 import jax
@@ -34,12 +42,23 @@ from repro_torch.models import transformer as T
 
 RTOL_H, ATOL_H = 1e-5, 1e-5        # hidden states, single layers
 RTOL_LOGIT, ATOL_LOGIT = 1e-4, 1e-4
+TOL_BF16 = 2.0 ** -7               # against JAX, bfloat16 activations
+TOL_BF16_PATHS = 2.0 ** -4         # two rounding orders of the port, bfloat16
 P_LEN, S_LEN = 12, 20
 
 VARIANTS = {
     "smoke": {},
     "scanned": dict(scan_layers=True, n_layers=4, attn_chunk=8),
+    "bf16": dict(dtype="bfloat16", attn_chunk=8),
 }
+# (rtol, atol): hidden states and logits against JAX; then the port's
+# decode-vs-forward prefill and steps, and flash-vs-dense.
+_F32_TOLS = dict(h=(RTOL_H, ATOL_H), logit=(RTOL_LOGIT, ATOL_LOGIT),
+                 fwd_prefill=(1e-4, 1e-4), fwd_step=(1e-4, 2e-4), flash=(RTOL_H, ATOL_H))
+TOLS = {"smoke": _F32_TOLS, "scanned": _F32_TOLS,
+        "bf16": dict(h=(TOL_BF16,) * 2, logit=(TOL_BF16,) * 2,
+                     fwd_prefill=(TOL_BF16_PATHS,) * 2, fwd_step=(TOL_BF16_PATHS,) * 2,
+                     flash=(TOL_BF16_PATHS,) * 2)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,6 +80,17 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _f32(x):
+    """A JAX array or a tensor (bf16 included) as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol[0], atol=tol[1])
+
+
 @pytest.fixture(scope="module", params=list(VARIANTS))
 def run(request):
     """JAX and port runs of one variant: forward, prefill and 8 decode
@@ -70,21 +100,27 @@ def run(request):
     model = T.params_from_jax(_np(params), tcfg, device="cpu")
     toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, S_LEN)).astype(np.int32)
 
-    fwd = jax.jit(lambda p, t: JT.forward_seq(p, jcfg, t)[0])
-    pre = jax.jit(lambda p, t: JT.prefill_hidden(p, jcfg, t, S_LEN))
-    dec = jax.jit(lambda p, t, c, pos: JT.decode_step_hidden(p, jcfg, t, c, pos))
-    unemb = jax.jit(lambda p, h: JL.unembed(p["embed"], jcfg, h))
-    hidden = fwd(params, jnp.asarray(toks))
-    logits0, h_last, cache = pre(params, jnp.asarray(toks[:, :P_LEN]))
-    j = {"hidden": np.asarray(hidden), "full_logits": np.asarray(unemb(params, hidden)),
-         "prefill_logits": np.asarray(logits0), "prefill_hidden": np.asarray(h_last),
-         "cache": _np(cache), "decode_hidden": [], "decode_logits": []}
-    for t in range(P_LEN, S_LEN):
-        h, cache = dec(params, jnp.asarray(toks[:, t]), cache, jnp.int32(t))
-        j["decode_hidden"].append(np.asarray(h))
-        j["decode_logits"].append(np.asarray(unemb(params, h[:, None])[:, 0]))
+    # bf16 runs op by op: each op rounds to bf16 as jnp's dtype rules say.
+    # Under jit XLA may keep f32 across a fusion (its default excess
+    # precision), which the port, rounding per op, does not model.
+    eager = jcfg.dtype == "bfloat16"
+    jit = (lambda f: f) if eager else jax.jit
+    fwd = jit(lambda p, t: JT.forward_seq(p, jcfg, t)[0])
+    pre = jit(lambda p, t: JT.prefill_hidden(p, jcfg, t, S_LEN))
+    dec = jit(lambda p, t, c, pos: JT.decode_step_hidden(p, jcfg, t, c, pos))
+    unemb = jit(lambda p, h: JL.unembed(p["embed"], jcfg, h))
+    with jax.disable_jit(eager):
+        hidden = fwd(params, jnp.asarray(toks))
+        logits0, h_last, cache = pre(params, jnp.asarray(toks[:, :P_LEN]))
+        j = {"hidden": np.asarray(hidden), "full_logits": np.asarray(unemb(params, hidden)),
+             "prefill_logits": np.asarray(logits0), "prefill_hidden": np.asarray(h_last),
+             "cache": _np(cache), "decode_hidden": [], "decode_logits": []}
+        for t in range(P_LEN, S_LEN):
+            h, cache = dec(params, jnp.asarray(toks[:, t]), cache, jnp.int32(t))
+            j["decode_hidden"].append(np.asarray(h))
+            j["decode_logits"].append(np.asarray(unemb(params, h[:, None])[:, 0]))
     return dict(name=request.param, jcfg=jcfg, tcfg=tcfg, params=params, model=model,
-                toks=toks, j=j)
+                toks=toks, j=j, tol=TOLS[request.param])
 
 
 # --------------------------------------------------------------------------
@@ -230,6 +266,58 @@ def test_embed_unembed_match_jax(tied):
     assert L.unembed(tp, tcfg, torch.as_tensor(x).bfloat16()).dtype == torch.float32
 
 
+BF16_LAYERS = ["gqa", "flash", "flash_local_skip", "swiglu", "gelu", "norm", "unembed"]
+
+
+@pytest.mark.parametrize("layer", BF16_LAYERS)
+def test_layers_bf16_match_jax(layer):
+    """Single layers on bfloat16 inputs and weights (the card's activation
+    dtype): bit for bit with the reference, which rounds to bf16 after
+    every op (the attention logits before the f32 cast, bf16
+    probabilities before the PV product, each step of jax.nn.silu).  The
+    GELU and the unembed within one bf16 ulp on under 1% of the entries:
+    XLA's and torch's f32 tanh, and the two f32 sums of the vocab
+    product, differ in their last bits, which moves a bf16 rounding now
+    and then."""
+    over = dict(dtype="bfloat16", n_kv_heads=2, window=7, gelu_mlp=layer == "gelu")
+    jcfg, tcfg = _cfgs(**over)
+    r = np.random.default_rng(8)
+    bf = lambda a: (jnp.asarray(a, jnp.bfloat16), torch.as_tensor(a).bfloat16())
+    if layer in ("gqa", "flash", "flash_local_skip"):
+        (jq, tq), (jk, tk), (jv, tv) = map(bf, _qkv_data(jcfg, seed=8))
+        jk, tk, jq, tq = 2 * jk, 2 * tk, 2 * jq, 2 * tq
+        if layer == "gqa":
+            mask = np.arange(19)[:, None] >= np.arange(19)[None, :]
+            want = JL._gqa_attend(jcfg, jq, jk, jv, jnp.asarray(mask))
+            got = L._gqa_attend(tcfg, tq, tk, tv, torch.as_tensor(mask))
+        else:
+            kw = dict(kind="attn", q_chunk=8, kv_chunk=6, causal_skip=False)
+            if layer == "flash_local_skip":
+                kw.update(kind="local", causal_skip=True)
+            want = JL._flash_attend(jcfg, jq, jk, jv, **kw)
+            got = L._flash_attend(tcfg, tq, tk, tv, **kw)
+    elif layer in ("swiglu", "gelu"):
+        p, _ = JL.init_mlp(jax.random.PRNGKey(8), jcfg, jnp.bfloat16)
+        jx, tx = bf(r.normal(size=(2, 7, jcfg.d_model)).astype(np.float32))
+        want = JL.apply_mlp(p, jcfg, jx)
+        got = L.apply_mlp({k: torch.as_tensor(_f32(v)).bfloat16() for k, v in p.items()},
+                          tcfg, tx)
+    elif layer == "norm":
+        jx, tx = bf((3.0 * r.normal(size=(2, 5, jcfg.d_model)) + 0.5).astype(np.float32))
+        want, got = JL.apply_norm({}, jcfg, jx), L.apply_norm({}, tcfg, tx)
+    else:
+        p, _ = JL.init_embeddings(jax.random.PRNGKey(8), jcfg, jnp.bfloat16)
+        jx, tx = bf(r.normal(size=(2, 9, jcfg.d_model)).astype(np.float32))
+        want = JL.unembed(p, jcfg, jx)
+        got = L.unembed({k: torch.as_tensor(_f32(v)).bfloat16() for k, v in p.items()}, tcfg, tx)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    if layer in ("gelu", "unembed"):
+        _close(got, want, (TOL_BF16, TOL_BF16))
+        assert (_f32(got) != _f32(want)).mean() < 0.01
+    else:
+        np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
 # --------------------------------------------------------------------------
 # the transformer
 # --------------------------------------------------------------------------
@@ -237,22 +325,22 @@ def test_embed_unembed_match_jax(tied):
 def test_forward_seq_matches_jax(run):
     hidden, aux, states = T.forward_seq(run["model"], run["tcfg"], run["toks"])
     assert states is None and float(aux) == 0.0
-    np.testing.assert_allclose(hidden.numpy(), run["j"]["hidden"], rtol=RTOL_H, atol=ATOL_H)
+    assert hidden.dtype == run["tcfg"].activation_dtype()
+    _close(hidden, run["j"]["hidden"], run["tol"]["h"])
 
 
 def test_prefill_matches_jax(run):
-    model, tcfg, toks, j = run["model"], run["tcfg"], run["toks"], run["j"]
+    model, tcfg, toks, j, tol = run["model"], run["tcfg"], run["toks"], run["j"], run["tol"]
     logits, h_last, cache = T.prefill_hidden(model, tcfg, toks[:, :P_LEN], S_LEN)
-    np.testing.assert_allclose(logits.numpy(), j["prefill_logits"], rtol=RTOL_LOGIT,
-                               atol=ATOL_LOGIT)
-    np.testing.assert_allclose(h_last.numpy(), j["prefill_hidden"], rtol=RTOL_H, atol=ATOL_H)
+    _close(logits, j["prefill_logits"], tol["logit"])
+    _close(h_last, j["prefill_hidden"], tol["h"])
     want = T.cache_from_jax(j["cache"], tcfg, device="cpu")
     assert len(cache) == len(want) == tcfg.n_layers
     for got_l, want_l in zip(cache, want):
         for name in ("k", "v"):
             assert got_l["kv"][name].shape == (2, S_LEN, tcfg.n_kv_heads, tcfg.hd)
-            np.testing.assert_allclose(got_l["kv"][name].numpy(), want_l["kv"][name].numpy(),
-                                       rtol=RTOL_H, atol=ATOL_H)
+            assert got_l["kv"][name].dtype == want_l["kv"][name].dtype
+            _close(got_l["kv"][name], want_l["kv"][name], tol["h"])
     logits2, cache2 = T.prefill(model, tcfg, toks[:, :P_LEN], S_LEN)
     assert torch.equal(logits2, logits) and torch.equal(cache2[0]["kv"]["k"], cache[0]["kv"]["k"])
 
@@ -261,7 +349,7 @@ def test_prefill_matches_jax(run):
 def test_decode_matches_jax(run, cache_from):
     """8 decode steps from the port's prefill cache, or from the JAX
     prefill cache carried across."""
-    model, tcfg, toks, j = run["model"], run["tcfg"], run["toks"], run["j"]
+    model, tcfg, toks, j, tol = run["model"], run["tcfg"], run["toks"], run["j"], run["tol"]
     if cache_from == "jax":
         cache = T.cache_from_jax(j["cache"], tcfg, device="cpu")
     else:
@@ -269,27 +357,23 @@ def test_decode_matches_jax(run, cache_from):
     for i, t in enumerate(range(P_LEN, S_LEN)):
         if i % 2:
             logits, cache = T.decode_step(model, tcfg, toks[:, t], cache, t)
-            np.testing.assert_allclose(logits.numpy(), j["decode_logits"][i],
-                                       rtol=RTOL_LOGIT, atol=ATOL_LOGIT)
+            _close(logits, j["decode_logits"][i], tol["logit"])
         else:
             hidden, cache = T.decode_step_hidden(model, tcfg, toks[:, t], cache, t)
-            np.testing.assert_allclose(hidden.numpy(), j["decode_hidden"][i],
-                                       rtol=RTOL_LOGIT, atol=ATOL_LOGIT)
+            _close(hidden, j["decode_hidden"][i], tol["logit"])
 
 
 def test_decode_matches_forward(run):
     """Prefill + token-by-token decode == full-sequence forward, on the
-    port alone (``tests/test_models.py``'s check and tolerances)."""
-    model, tcfg, toks = run["model"], run["tcfg"], run["toks"]
+    port alone (``tests/test_models.py``'s check and tolerances in float32)."""
+    model, tcfg, toks, tol = run["model"], run["tcfg"], run["toks"], run["tol"]
     hidden, _, _ = T.forward_seq(model, tcfg, toks)
     full_logits = L.unembed(model.embed, tcfg, hidden)
     logits, cache = T.prefill(model, tcfg, toks[:, :P_LEN], S_LEN)
-    np.testing.assert_allclose(logits.numpy(), full_logits[:, P_LEN - 1].numpy(),
-                               rtol=1e-4, atol=1e-4)
+    _close(logits, full_logits[:, P_LEN - 1], tol["fwd_prefill"])
     for t in range(P_LEN, S_LEN):
         logits, cache = T.decode_step(model, tcfg, toks[:, t], cache, t)
-        np.testing.assert_allclose(logits.numpy(), full_logits[:, t].numpy(),
-                                   rtol=1e-4, atol=2e-4)
+        _close(logits, full_logits[:, t], tol["fwd_step"])
 
 
 def test_flash_forward_equals_dense(run):
@@ -297,7 +381,7 @@ def test_flash_forward_equals_dense(run):
     h_dense = T.forward_seq(model, dataclasses.replace(tcfg, attn_chunk=0), toks)[0]
     for over in (dict(attn_chunk=8), dict(attn_chunk=8, causal_skip=True)):
         h = T.forward_seq(model, dataclasses.replace(tcfg, **over), toks)[0]
-        np.testing.assert_allclose(h.numpy(), h_dense.numpy(), rtol=RTOL_H, atol=ATOL_H)
+        _close(h, h_dense, run["tol"]["flash"])
 
 
 def test_local_layers_and_ring_cache_match_jax():
@@ -369,7 +453,7 @@ def test_params_from_jax_unstacks_groups_in_order(run):
     unscanned tree's layer i is ``rem[i]``."""
     params, model = _np(run["params"]), run["model"]
     for i, blk in enumerate(model.layers):
-        want = (params["rem"][i]["attn"]["wq"] if run["name"] == "smoke"
+        want = (params["rem"][i]["attn"]["wq"] if not run["tcfg"].scan_layers
                 else params["blocks"][0]["attn"]["wq"][i])
         np.testing.assert_array_equal(blk.attn["wq"].numpy(), want)
     with pytest.raises(ValueError, match="layer plan"):

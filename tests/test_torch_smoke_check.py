@@ -90,3 +90,63 @@ def test_wide_rows_hold_reported_distances_to_the_carried_bound():
     _check(pts, qt, exact, d + np.array([[0, 0, 0, 0.5 * carried]]), fp32_bound=True)
     with pytest.raises(AssertionError, match="reported distances"):
         _check(pts, qt, exact, d + np.array([[0, 0, 0, 3 * carried]]), fp32_bound=True)
+
+
+# --------------------------------------------------------------------------
+# ``chip_smoke.hold_hist``: the histogram check's measured window
+# --------------------------------------------------------------------------
+
+HIST_BINS = 64
+
+
+def _hist_sample(dim=256, n_pts=2048, n_q=32, seed=1):
+    """A sample as the ε selection takes it: query rows drawn from the
+    points, the bins spanning [0, 1.1 × the median distance).  Returns
+    (queries, points, qidx, bin width, the plain version's counts, the
+    counts in the kernels' fp32 arithmetic)."""
+    from repro_torch.kernels.bin_hist import ref as hist_ref
+    rng = np.random.default_rng(seed)
+    pts = torch.as_tensor(rng.normal(size=(n_pts, dim)).astype(np.float32))
+    qidx = torch.as_tensor(rng.choice(n_pts, n_q, replace=False))
+    q = pts[qidx]
+    d = torch.cdist(q.double(), pts.double())
+    bw = torch.tensor(float(d.median()) * 1.1 / HIST_BINS, dtype=torch.float32)
+    pid = torch.arange(n_pts, dtype=torch.int32)
+    rc = hist_ref.distance_bin_histogram_ref(q, pts, qidx.to(torch.int32), pid, bw,
+                                             n_bins=HIST_BINS)
+    d2k = chip_smoke.expansion_sq_fp32(q, pts.T.contiguous())
+    b = torch.floor(torch.sqrt(torch.clamp(d2k, min=0.0)) / bw)
+    keep = (pid[None, :] != qidx[:, None]) & (b < HIST_BINS)
+    kc = torch.bincount(b[keep].long(), minlength=HIST_BINS).to(torch.float32)
+    return q, pts, qidx, bw, rc, kc
+
+
+def test_hist_check_passes_the_kernels_arithmetic():
+    """The kernels' fp32 expansion binned against the plain difference
+    form: within the measured window, which is narrower than the bound
+    window at 256 dims; the check's own self-tests (one bin up, 1% moved)
+    fail inside it."""
+    q, pts, qidx, bw, rc, kc = _hist_sample()
+    assert kc.sum() > 0.3 * q.shape[0] * pts.shape[0]
+    chip_smoke.hold_hist("fp32 expansion vs plain", kc, rc, q, pts, qidx, bw, HIST_BINS)
+    near_b, near_m, st = chip_smoke.hist_windows(q, pts, qidx, bw, HIST_BINS)
+    assert 0 < st["e2"] < st["e2_bound"] and 0 < st["rel_plain"] < 1e-5
+    assert near_m.sum() < near_b.sum() / 4 and (near_m <= near_b).all()
+
+
+@pytest.mark.parametrize("wrong", ["shifted", "moved_1pct"])
+def test_hist_check_fails_a_wrong_histogram(wrong):
+    """A histogram one bin up, or with 1% of its pairs moved from its
+    fullest bin to the next, fails the check."""
+    q, pts, qidx, bw, rc, kc = _hist_sample()
+    if wrong == "shifted":
+        bad = torch.cat([kc.new_zeros(1), kc[:-1]])
+    else:
+        bad = kc.clone()
+        b = int(kc.argmax())
+        m = float(np.ceil(0.01 * kc.sum().item()))
+        assert m <= kc[b]
+        bad[b] -= m
+        bad[b + 1] += m
+    with pytest.raises(AssertionError, match="differ beyond their edge pairs"):
+        chip_smoke.hold_hist("wrong histogram", bad, rc, q, pts, qidx, bw, HIST_BINS)
