@@ -167,6 +167,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          per-shard ip call, the lookup's call and the ε selection's
          histogram at D = 2,048.
 
+  (s)    the dense training path at olmo_1b's full width (no kernel of
+         ``csrc/`` runs on it).  (s1) the published config (16 layers,
+         d_model 2,048, vocab 50,304, ``attn_chunk`` 1,024, remat "full", bf16
+         activations, float32 masters and moments; 1,176,764,416 parameters
+         from seed 0 on the card): ``TokenPipeline(cfg, SHAPES["train_4k"],
+         batch_override=4)``, 16,384 tokens a step, 12 steps of
+         ``make_train_step`` under ``OptConfig(total_steps=12,
+         warmup_steps=1)``: every loss finite, the last three's mean below
+         the first three's, ``grad_norm`` > 0, step 1 within
+         ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_RTOL`` of a float32 step of the
+         same masters and batch; step times, tokens/s, peak memory, the
+         state's bytes, and one more step under ``torch.profiler``.  (s2)
+         ``launch/train.py``'s ``main`` at that width with ``n_layers`` cut to
+         2 (237,240,320 parameters), seq 1,024, batch 4, 10 steps, a
+         checkpoint every 5, under ``torch.use_deterministic_algorithms``: a
+         clean run; a run with ``--inject-fault 7`` (exactly one restart, the
+         injected fault's; its losses and final parameters bit-identical to
+         the clean run's); ``--resume`` after the step-10 checkpoint and
+         ``LATEST`` are removed (steps 5–9 again, bit-identical); save and
+         restore seconds and bytes.
+
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
 ``distance_bin_histogram`` over the projected corpus, ``knn_tile_topk[ip]`` at
@@ -174,7 +195,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 its brute call over the 5M corpus.
 
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
-(q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2) and (r3) —
+(q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1) and
+(s2) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -197,11 +219,16 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# (s2) replays training under torch.use_deterministic_algorithms(True),
+# which needs cuBLAS's workspace pinned before the first cuBLAS call of the
+# process (":4096:8" is PyTorch's own default size on Hopper).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores.  The kernels run fp32 FMA, so that is their peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12            # dense tensor-core bf16: (s)'s projections
 FP32_U = 2.0 ** -24                 # unit roundoff of float32
 
 K = 25
@@ -247,6 +274,24 @@ LM_GEN = 32
 LM_SHARDS = 4                      # the IndexRetriever's 4 × 1 mesh and the ring
 LM_SEED = 7                        # weights and corpus
 LM_CHECK_STEPS = 4                 # decode steps held against the forward
+TRAIN_SEED = 0                     # (s): launch/train.py's init seed
+TRAIN_BATCH = 4                    # (s1): 4 × train_4k's 4,096 tokens a step
+TRAIN_STEPS = 12
+# (s1) step 1 in bf16 activations against a float32 step of the same masters
+# and batch: |Δloss| ≤ TRAIN_LOSS_TOL (0.2 % of the ~10.8 nats at init) and a
+# relative grad_norm gap ≤ TRAIN_GNORM_RTOL.  The bf16 path rounds the
+# residual stream to bf16 (unit roundoff 2^-8) some 5 times a layer over 16
+# layers, so a token's logits may stray ~2 % of their unit scale; that part
+# is random across the 16,384 tokens the loss and the gradient average
+# over, and the bounds leave ~100× its averaged size for a systematic part.
+TRAIN_LOSS_TOL = 0.02
+TRAIN_GNORM_RTOL = 0.05
+DRILL_LAYERS = 2                   # (s2): olmo_1b's width, depth cut to 2 layers
+DRILL_SEQ = 1024
+DRILL_BATCH = 4
+DRILL_STEPS = 10
+DRILL_EVERY = 5                    # --checkpoint-every
+DRILL_FAULT = 7                    # --inject-fault
 
 
 def log(msg: str) -> None:
@@ -953,6 +998,226 @@ def lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check):
     log(f"[r] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
         f"{time.perf_counter() - t_r:.2f}s")
     del model, ds, r1_call, r2_call, r_hist, q3r, c3r, q3l, c3l, q4r, p4r
+
+
+def train_phase(dev, reset_counts, read_counts):
+    """(s) the dense training path at olmo_1b's full width on the card:
+    (s1) TRAIN_STEPS steps of ``make_train_step`` at the published config,
+    (s2) ``launch/train.py`` end to end at depth DRILL_LAYERS with a fault
+    drill and a resume."""
+    import dataclasses
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, global_norm, init_opt_state
+    from repro_torch.utils import tree_leaves
+
+    card = torch.device("cuda", 0)
+    t_s = time.perf_counter()
+
+    def on_card(tensors, what):
+        assert all(t.device == card for t in tensors), f"(s) {what} not all on cuda:0"
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- (s1) the published config, 12 steps ------------------------------------
+    cfg = get_config("olmo_1b")
+    shape = SHAPES["train_4k"]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.vocab_size) == \
+        (16, 2048, 16, 8192, 50304) and cfg.tie_embeddings and cfg.nonparam_norm
+    assert cfg.remat and cfg.attn_chunk == 1024 and cfg.dtype == "bfloat16" \
+        and cfg.param_dtype == cfg.opt_state_dtype == "float32"
+    model = lm.init_params(TRAIN_SEED, cfg, device=dev)
+    masters = list(model.parameters())
+    n_par = sum(p.numel() for p in masters)
+    assert n_par == cfg.n_params() == 1_176_764_416, "(s1) parameter count"
+    opt_cfg = OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+    state = {"params": model, "opt": init_opt_state(model.tree(), opt_cfg)}
+    pipe = TokenPipeline(cfg, shape, batch_override=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * pipe.seq
+    assert pipe.seq == 4096
+    step = steps.make_train_step(cfg, opt_cfg)
+    batch0 = pipe.next_batch(dev)
+    on_card(masters, "masters")
+    on_card(batch0.values(), "the batch")
+    on_card(tree_leaves(state["opt"]), "the moments")
+    b_master = sum(p.numel() * p.element_size() for p in masters)
+    b_moment = sum(t.numel() * t.element_size() for t in tree_leaves(state["opt"]["mu"])) * 2
+    b_cast = sum(p.numel() for p in masters) * cfg.activation_dtype().itemsize
+    log(f"[s1] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype} activations, attn_chunk {cfg.attn_chunk}, remat {cfg.remat_policy}; "
+        f"{n_par} parameters from seed {TRAIN_SEED}; batch {TRAIN_BATCH} × seq {pipe.seq} = "
+        f"{tokens} tokens a step; state: masters {b_master / 2**30:.3f} GiB, grads "
+        f"{b_master / 2**30:.3f} GiB, moments {b_moment / 2**30:.3f} GiB, cast copy "
+        f"{b_cast / 2**30:.3f} GiB")
+
+    # The float32 yardstick: the same masters and batch, float32 activations
+    # (TF32 is off for the whole script).
+    torch.cuda.reset_peak_memory_stats()
+    (l32, _, g32), f32_s = synced(lambda: steps.loss_and_grads(
+        model, dataclasses.replace(cfg, dtype="float32"), batch0))
+    gn32 = global_norm(g32).item()
+    peak32 = torch.cuda.max_memory_allocated()
+    del g32
+    log(f"[s1] float32 loss and gradient of step 1: loss {l32.item():.6f}, grad_norm "
+        f"{gn32:.6f}, {f32_s:.3f}s, peak {peak32 / 2**30:.2f} GiB")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch0 if i == 0 else pipe.next_batch(dev)
+        (state, m), sec = synced(lambda: step(state, batch))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+        secs.append(sec)
+        log(f"[s1] step {i + 1:2d}: loss {losses[-1]:.6f}, grad_norm {gnorms[-1]:.6f}, "
+            f"lr {m['lr'].item():.3e}, {sec:.3f}s")
+    peak = torch.cuda.max_memory_allocated()
+    read_counts("(s1) train steps (no custom kernel on this path)")
+    med = float(np.median(secs[1:]))
+    d_loss, d_gn = abs(losses[0] - l32.item()), abs(gnorms[0] - gn32) / gn32
+    log(f"[s1] {TRAIN_STEPS} steps: median step {med:.3f}s over steps 2–{TRAIN_STEPS} "
+        f"[{min(secs[1:]):.3f}–{max(secs[1:]):.3f}], the first {secs[0]:.3f}s; "
+        f"{tokens / med:.1f} tokens/s; peak device memory {peak / 2**30:.2f} GiB; loss mean of "
+        f"the first 3 {np.mean(losses[:3]):.6f}, of the last 3 {np.mean(losses[-3:]):.6f}; "
+        f"step 1 against float32: |Δloss| {d_loss:.3e} (≤ {TRAIN_LOSS_TOL}), grad_norm gap "
+        f"{d_gn:.3e} (≤ {TRAIN_GNORM_RTOL})")
+    assert np.isfinite(losses).all() and np.isfinite(gnorms).all(), "(s1) a non-finite loss"
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), f"(s1) the loss did not fall: {losses}"
+    assert min(gnorms) > 0, "(s1) a zero gradient"
+    assert d_loss <= TRAIN_LOSS_TOL, "(s1) step 1's loss strays from the float32 step's"
+    assert d_gn <= TRAIN_GNORM_RTOL, "(s1) step 1's grad_norm strays from the float32 step's"
+    on_card(tree_leaves(state["opt"]), "the moments after the steps")
+
+    # One more step under torch.profiler (printed, not gated): how long the
+    # card is busy in the step, and in what.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    batch = pipe.next_batch(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        (state, _), sec = synced(lambda: step(state, batch))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[s1] one step under torch.profiler: the card busy {busy:.1f} ms of the step's "
+        f"{sec * 1e3:.1f} ms (busy share {busy / (sec * 1e3):.3f}); by kernel: " +
+        "; ".join(f"{name[:70]} {ms:.1f} ms" for name, ms in top) if by_name else
+        "[s1] one step under torch.profiler: no device events recorded")
+
+    def kind(name):
+        # cuBLAS and CUTLASS name their float32 GEMMs sgemm / f32f32; the
+        # step's only other matmuls are the bf16 products (cuBLAS's nvjet
+        # kernels on this card).
+        n = name.lower()
+        if not any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            return "the rest (elementwise, reductions, copies)"
+        return "float32 GEMMs" if ("sgemm" in n or "f32f32" in n) else "other GEMMs"
+
+    by_kind = {}
+    for name, ms in by_name.items():
+        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
+    # The step's arithmetic from its shapes: the bf16 projections and MLPs
+    # (every non-embedding weight, 2 FLOPs a token each), the float32 tied
+    # unembedding, and the flash loop's float32 QKᵀ and PV over every
+    # (query, key) chunk pair (olmo_1b has no causal skip); each run in the
+    # forward, the remat recompute and the backward (twice the forward).
+    d, h, hd, s_len = cfg.d_model, cfg.n_heads, cfg.hd, pipe.seq
+    f_bf16 = 4 * 2 * (n_par - cfg.vocab_size * d) * tokens
+    f_unembed = 4 * 2 * d * cfg.vocab_size * tokens
+    f_flash = 4 * cfg.n_layers * 2 * 2 * TRAIN_BATCH * h * s_len * s_len * hd
+    t_bf16, t_f32 = f_bf16 / BF16_FLOP_PER_S, (f_unembed + f_flash) / FP32_FLOP_PER_S
+    log("[s1] device time by class: " + "; ".join(
+        f"{k} {v:.1f} ms" for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])) +
+        f".  The step's arithmetic at the published peaks: bf16 {f_bf16 / 1e12:.1f} TFLOP in "
+        f"{t_bf16 * 1e3:.1f} ms; float32 {(f_unembed + f_flash) / 1e12:.1f} TFLOP (unembedding "
+        f"{f_unembed / 1e12:.1f}, flash loop {f_flash / 1e12:.1f}) in {t_f32 * 1e3:.1f} ms; "
+        f"together {(t_bf16 + t_f32) * 1e3:.1f} ms; the profiled step takes "
+        f"{sec / (t_bf16 + t_f32):.2f}× that")
+    del state, model, masters, batch0, batch, pipe, step, prof
+    torch.cuda.empty_cache()
+
+    # -- (s2) launch/train.py end to end, the fault drill and --resume -----------
+    cut = dataclasses.replace(cfg, n_layers=DRILL_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    flags = ["--arch", "olmo_1b", "--steps", str(DRILL_STEPS), "--batch", str(DRILL_BATCH),
+             "--seq", str(DRILL_SEQ), "--checkpoint-every", str(DRILL_EVERY), "--device", "cuda"]
+    log(f"[s2] launch/train.py at olmo_1b's width with n_layers cut {cfg.n_layers} → "
+        f"{DRILL_LAYERS} ({cut.n_params()} parameters), seq {DRILL_SEQ}, batch {DRILL_BATCH}, "
+        f"{DRILL_STEPS} steps, a checkpoint every {DRILL_EVERY}, deterministic algorithms on")
+    saves = Spy(CheckpointManager, "save", keep=False)
+    writes = Spy(CheckpointManager, "_write", keep=False)
+    loads = Spy(CheckpointManager, "restore", keep=False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with mock.patch.object(train, "get_config", lambda arch: cut), saves, writes, loads:
+            reset_counts()
+            clean = train.main(flags + ["--ckpt-dir", os.path.join(root, "clean")])
+            clean_report, clean_loss = clean.report, dict(clean.losses)
+            final = [p.detach().clone() for p in clean.state["params"].parameters()]
+            del clean
+            shutil.rmtree(os.path.join(root, "clean"))
+            drill_dir = os.path.join(root, "drill")
+            drill = train.main(flags + ["--ckpt-dir", drill_dir,
+                                        "--inject-fault", str(DRILL_FAULT)])
+            on_card(list(drill.state["params"].parameters()) +
+                    tree_leaves(drill.state["opt"]), "the drilled run's state")
+            report, drill_losses = drill.report, drill.losses
+            same_par = all(torch.equal(a, b) for a, b in
+                           zip(final, drill.state["params"].parameters()))
+            del drill
+            step_dir = os.path.join(drill_dir, f"step-{DRILL_EVERY:09d}")
+            n_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+            shutil.rmtree(os.path.join(drill_dir, f"step-{DRILL_STEPS:09d}"))
+            os.remove(os.path.join(drill_dir, "LATEST"))
+            resumed = train.main(flags + ["--ckpt-dir", drill_dir, "--resume"])
+            read_counts("(s2) launch/train.py: clean, drilled and resumed runs")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    replayed = [st for st, _ in drill_losses]
+    same_loss = all(clean_loss[st] == l for st, l in drill_losses)
+    res_loss = all(clean_loss[st] == l for st, l in resumed.losses)
+    res_par = all(torch.equal(a, b) for a, b in zip(final, resumed.state["params"].parameters()))
+    log(f"[s2] clean run: losses {[round(clean_loss[k], 6) for k in sorted(clean_loss)]}")
+    log(f"[s2] drilled run: completed={report.completed}, restarts {report.restarts}, failures "
+        f"{report.failures}; steps executed {replayed}; losses bit-identical to the clean run's: "
+        f"{same_loss}; final parameters bit-identical: {same_par}")
+    log(f"[s2] --resume after the step-{DRILL_STEPS} checkpoint and LATEST were removed: steps "
+        f"{[st for st, _ in resumed.losses]}, losses bit-identical: {res_loss}, final parameters "
+        f"bit-identical: {res_par}")
+    log(f"[s2] checkpoints: {n_bytes} bytes a save ({n_bytes / 2**30:.3f} GiB); save() "
+        f"blocking (the snapshot to host memory, and waiting for the previous write) "
+        f"{', '.join(f'{t:.3f}' for t in saves.times)} s; background write "
+        f"{', '.join(f'{t:.3f}' for t in writes.times)} s; restore "
+        f"{', '.join(f'{t:.3f}' for t in loads.times)} s; the runs' last saves wait in main")
+    assert clean_report.completed and clean_report.restarts == 0, "(s2) the clean run failed"
+    assert report.completed and report.restarts == 1, "(s2) the drill did not restart exactly once"
+    assert report.failures == [
+        (DRILL_FAULT, f"RuntimeError('injected fault at step {DRILL_FAULT}')")], \
+        "(s2) a failure other than the injected fault"
+    assert replayed == list(range(DRILL_FAULT)) + list(range(DRILL_EVERY, DRILL_STEPS))
+    assert same_loss and same_par, "(s2) the replay differs from the uninterrupted run"
+    assert resumed.report.completed and resumed.report.restarts == 0
+    assert [st for st, _ in resumed.losses] == list(range(DRILL_EVERY, DRILL_STEPS)), \
+        "(s2) --resume did not continue from the latest durable step"
+    assert res_loss and res_par, "(s2) the resumed run differs from the uninterrupted run"
+    log(f"[s] phase {time.perf_counter() - t_s:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -2525,6 +2790,9 @@ def main(argv=None) -> int:
 
     # -- path 14: (r) the kNN-LM at olmo_1b's full width ------------------------
     lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
+
+    # -- path 15: (s) the dense training path at olmo_1b's full width -----------
+    train_phase(dev, reset_counts, read_counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -16,8 +16,10 @@ Layout per step::
   * placement    — arrays are stored whole; ``restore(..., device=...)``
                    puts them on a device.  ``restore(mesh=...)`` — the
                    counterpart of the JAX ``restore(shardings=...)``, whose
-                   only caller is the trainer's elastic restart — waits
-                   for the LM substrate (ROADMAP.md queue A item 17); no
+                   only caller is the trainer's elastic restart onto a
+                   mesh — waits for the sharded train step (ROADMAP.md
+                   queue A item 18; the one-device trainer restores with
+                   ``device=``); no
                    KNN path needs it (an index loads onto a mesh through
                    ``KNNIndex.load(mesh=...)``).
   * validation   — restore checks shapes/dtypes/crc against the manifest
@@ -244,7 +246,7 @@ class CheckpointManager:
         arrays (torch tensors for bfloat16/float8), or as torch tensors on
         ``device`` when one is given.  Returns (tree, extra, step)."""
         if mesh is not None:
-            raise unported("CheckpointManager.restore(mesh=...)", "queue A item 17")
+            raise unported("CheckpointManager.restore(mesh=...)", "queue A item 18")
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -1,5 +1,6 @@
 """Model configurations of the port (``repro/configs``): the dataclasses
-and, so far, the ``olmo_1b`` preset the kNN-LM serves."""
+and the dense presets (``olmo_1b``, ``qwen3_14b``, ``yi_9b``,
+``llama3_405b``)."""
 from repro_torch.configs.base import (
     ARCH_IDS, PORTED_ARCHS, SHAPES, ModelConfig, MoEConfig, RetrievalConfig, ShapeConfig,
     applicable_shapes, get_config, get_smoke_config, sub_quadratic, torch_dtype,

@@ -3,9 +3,10 @@ port of ``repro/configs/base.py``.
 
 The dataclasses carry the reference's fields and numbers unchanged; only
 ``activation_dtype()`` differs, returning a ``torch.dtype``.  ``--arch
-<id>`` resolves inside ``repro_torch.configs``: this slice ports the
-kNN-LM serving path, whose model is ``olmo_1b``, so every other preset
-raises until ROADMAP queue A item 17 brings it.
+<id>`` resolves inside ``repro_torch.configs``: the dense presets
+(``olmo_1b``, ``qwen3_14b``, ``yi_9b``, ``llama3_405b``), which need only
+the layers the port has.  The recurrent, MoE, encoder-decoder and VLM
+presets raise until the ROADMAP queue A items that bring their layers.
 """
 from __future__ import annotations
 
@@ -85,8 +86,8 @@ class ModelConfig:
     # --- numerics / execution ----------------------------------------------
     dtype: str = "bfloat16"           # activation dtype
     param_dtype: str = "float32"
-    remat: bool = True                # training only; the port's serving path ignores it
-    remat_policy: str = "full"
+    remat: bool = True                # training only: recompute the scanned layers in backward
+    remat_policy: str = "full"        # full | dots (keep the 2-D matmul outputs)
     scan_layers: bool = True          # the stacked parameter layout (the port loops)
     fsdp: bool = False
     seq_shard: bool = True
@@ -175,8 +176,13 @@ ARCH_IDS = [
     "whisper_large_v3", "llava_next_mistral_7b",
 ]
 
-# The presets this port carries so far; the rest come with queue A item 17.
-PORTED_ARCHS = ("olmo_1b",)
+# The presets this port carries so far, and the ROADMAP item of each other.
+PORTED_ARCHS = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b")
+_UNPORTED_ARCHS = {
+    "recurrentgemma_9b": "queue A item 19", "rwkv6_3b": "queue A item 19",
+    "granite_moe_1b_a400m": "queue A item 20", "qwen3_moe_235b_a22b": "queue A item 20",
+    "whisper_large_v3": "queue A item 21", "llava_next_mistral_7b": "queue A item 21",
+}
 
 
 def sub_quadratic(cfg: ModelConfig) -> bool:
@@ -197,7 +203,7 @@ def _preset(arch: str):
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCH_IDS}")
     if arch not in PORTED_ARCHS:
-        raise unported(f"the {arch} preset", "queue A item 17")
+        raise unported(f"the {arch} preset", _UNPORTED_ARCHS[arch])
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -74,7 +74,7 @@ def _slots(dev: torch.device, n_slots: int) -> Tuple[str, ...]:
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The dry-run's 256/512-chip TPU pod mesh has no counterpart yet."""
-    raise unported("make_production_mesh", "queue A item 17")
+    raise unported("make_production_mesh", "queue A item 18")
 
 
 def make_host_mesh(model: int = 1, *, device="cuda") -> Mesh:

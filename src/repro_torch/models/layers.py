@@ -1,5 +1,5 @@
 """Shared NN layers of the model code — port of ``repro/models/layers.py``
-(the dense subset the kNN-LM serves).
+(the dense subset: the kNN-LM's serving path and the dense trainer).
 
 Parameters are mappings of tensors (a plain dict, or an
 ``nn.ParameterDict`` of ``models.transformer.Block``), with the JAX
@@ -18,8 +18,8 @@ its output.  The products are plain ``torch`` matmuls (the reference
 leaves them to XLA); no fused attention operator is used, as it would
 change the summation.
 
-MoE, cross-attention and the chunked cross-entropy belong to the trainer
-and the other presets (ROADMAP queue A item 17) and raise.
+``chunked_xent`` is the trainer's loss.  MoE (ROADMAP queue A item 20)
+and cross-attention (item 21) raise.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils import unported
@@ -121,7 +122,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, *, device,
                    cross: bool = False) -> dict:
     if cross:
-        raise unported("cross-attention (init_attention(cross=True))", "queue A item 17")
+        raise unported("cross-attention (init_attention(cross=True))", "queue A item 21")
     d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": dense_init(gen, (d, h, hd), dtype, device=device),
@@ -234,9 +235,14 @@ def _self_mask(cfg: ModelConfig, kind: str, s: int, device) -> torch.Tensor:
     return mask
 
 
+# The ROADMAP queue A item that brings each mixer kind the port lacks.
+MIXER_ITEMS = {"rglru": "queue A item 19", "rwkv": "queue A item 19",
+               "enc-attn": "queue A item 21"}
+
+
 def _check_kind(kind: str, what: str) -> None:
     if kind not in ("attn", "local"):
-        raise unported(f"{what} of kind {kind!r}", "queue A item 17")
+        raise unported(f"{what} of kind {kind!r}", MIXER_ITEMS.get(kind, "queue A item 19"))
 
 
 def attention_forward_collect(params, cfg: ModelConfig, x, *, kind: str = "attn",
@@ -263,7 +269,7 @@ def attention_forward(params, cfg: ModelConfig, x, *, kind: str = "attn",
     (``encoder_out``) and the encoder's bidirectional ``enc-attn`` raise."""
     if encoder_out is not None:
         raise unported("cross-attention (attention_forward(encoder_out=...))",
-                       "queue A item 17")
+                       "queue A item 21")
     return attention_forward_collect(params, cfg, x, kind=kind, positions=positions)[0]
 
 
@@ -292,7 +298,7 @@ def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
     ``pos % t`` in the local ring) — where the reference returns an updated
     copy — and returns (out (B,1,D), cache)."""
     if encoder_out is not None or cross_cache is not None:
-        raise unported("cross-attention decode", "queue A item 17")
+        raise unported("cross-attention decode", "queue A item 21")
     _check_kind(kind, "attention decode")
     b = x1.shape[0]
     pos = int(pos)
@@ -310,7 +316,7 @@ def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
 
 
 def init_cross_cache(params, cfg: ModelConfig, encoder_out):
-    raise unported("init_cross_cache (cross-attention)", "queue A item 17")
+    raise unported("init_cross_cache (cross-attention)", "queue A item 21")
 
 
 # --------------------------------------------------------------------------
@@ -347,19 +353,15 @@ def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Mixture of Experts and the chunked cross-entropy (trainer side)
+# Mixture of Experts
 # --------------------------------------------------------------------------
 
 def init_moe(gen, cfg: ModelConfig, dtype, *, device):
-    raise unported("MoE layers", "queue A item 17")
+    raise unported("MoE layers", "queue A item 20")
 
 
 def apply_moe(params, cfg: ModelConfig, x, shd=None):
-    raise unported("MoE layers", "queue A item 17")
-
-
-def chunked_xent(logits_fn, x, labels, mask, chunk: int = 512):
-    raise unported("chunked_xent (training loss)", "queue A item 17")
+    raise unported("MoE layers", "queue A item 20")
 
 
 # --------------------------------------------------------------------------
@@ -385,3 +387,39 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
+
+
+def chunked_xent(logits_fn, x, labels, mask, chunk: int = 512):
+    """Mean next-token cross-entropy over sequence chunks, so the (B, S, V)
+    logits are never all materialized (peak B·chunk·V): the sequence is
+    padded to a multiple of ``chunk``; per chunk, float32 logits, their
+    ``logsumexp``, the gold logit and the masked NLL; the sum over ``max(the
+    mask's sum, 1)``.  With gradients on, each chunk runs under a
+    (non-reentrant) checkpoint, so backward too holds one chunk's logits at
+    a time and recomputes them, where the reference's ``lax.map`` keeps its
+    residuals."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def one(xi, li, mi):
+        logits = logits_fn(xi).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        nll = (lse - gold) * mi
+        return nll.sum(), mi.sum()
+
+    tot, cnt = [], []
+    for i in range(n_chunks):
+        part = (x[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk],
+                mask[:, i * chunk:(i + 1) * chunk])
+        t, c = (checkpoint(one, *part, use_reentrant=False) if torch.is_grad_enabled()
+                else one(*part))
+        tot.append(t)
+        cnt.append(c)
+    return torch.stack(tot).sum() / torch.clamp(torch.stack(cnt).sum(), min=1.0)

@@ -1,5 +1,6 @@
 """Model assembly — port of ``repro/models/transformer.py`` for the dense
-decoder the kNN-LM serves (``olmo_1b``: pattern ``("attn",)``).
+decoders (pattern ``("attn",)`` or ``("local",)`` mixes: ``olmo_1b``,
+``qwen3_14b``, ``yi_9b``, ``llama3_405b``), serving and training.
 
 The model is a ``Transformer`` module holding the embedding, the final
 norm and one ``Block`` module per layer, in execution order; its
@@ -10,33 +11,44 @@ a leading group axis) and runs the remainder unscanned
 (``params["rem"]``).  A scan is numerically a loop over its layers, so the
 port loops; ``params_from_jax`` unstacks either layout into the flat layer
 list (layer ``g·len(pattern) + pos`` is group g's position pos), and
-``cache_from_jax`` does the same for a decode cache.  ``remat`` is a
-training concern and does not apply.
+``cache_from_jax`` does the same for a decode cache and
+``opt_state_from_jax`` for AdamW's moments.  As in the reference, the
+scanned groups' layers run under a checkpoint when ``cfg.remat`` is set
+and gradients are on (``remat_policy="dots"`` keeps the 2-D matmul
+outputs); the unscanned tail never does.
 
 The entry points keep the reference's names and arguments with the model
 in place of the parameter tree: ``init_params``, ``init_cache``,
-``forward_seq``, ``prefill``, ``prefill_hidden``, ``decode_step_hidden``
-and ``decode_step``.  ``_cast_params`` casts every float weight to
-``cfg.dtype`` before compute, as the reference does; the cast copy is kept
-beside the float32 masters and rebuilt only when a parameter changes.
-A decode step writes the cache in place and returns it.
+``forward_seq``, ``loss_fn``, ``prefill``, ``prefill_hidden``,
+``decode_step_hidden`` and ``decode_step``.  ``_cast_params`` casts every
+float weight to ``cfg.dtype`` before compute, as the reference does.  For
+inference the cast copy is kept beside the float32 masters and rebuilt
+only when a parameter changes; when the masters require gradients (the
+trainer sets them so) and gradients are on, the cast is made anew in the
+autograd graph, so gradients flow back to the masters in their own dtype.
+``forward_seq`` and ``loss_fn`` are differentiable; the inference entry
+points run under ``torch.no_grad()``.  A decode step writes the cache in
+place and returns it.
 
-Recurrent mixers (``rglru``, ``rwkv``), the encoder and cross-attention,
-MoE layers, the VLM projector and ``loss_fn`` come with ROADMAP queue A
-item 17 and raise.
+Recurrent mixers (``rglru``, ``rwkv``: ROADMAP queue A item 19), MoE
+layers (item 20), the encoder and cross-attention and the VLM projector
+(item 21) raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, unported
+from repro_torch.utils import resolve_device, tree_map, unported
 
 Params = Dict[str, Any]
 _SUBLAYERS = ("norm1", "attn", "norm2", "mlp")
@@ -68,13 +80,13 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in ("attn", "local"):
-            raise unported(f"{kind!r} layers", "queue A item 17")
+            raise unported(f"{kind!r} layers", L.MIXER_ITEMS.get(kind, "queue A item 19"))
     if cfg.moe is not None:
-        raise unported("MoE layers", "queue A item 17")
+        raise unported("MoE layers", "queue A item 20")
     if cfg.n_encoder_layers:
-        raise unported("the encoder and cross-attention", "queue A item 17")
+        raise unported("the encoder and cross-attention", "queue A item 21")
     if cfg.n_patches:
-        raise unported("the VLM projector (n_patches > 0)", "queue A item 17")
+        raise unported("the VLM projector (n_patches > 0)", "queue A item 21")
 
 
 # --------------------------------------------------------------------------
@@ -123,24 +135,29 @@ class Transformer(nn.Module):
                            for blk in self.layers]}
 
 
+def _training(model: Transformer) -> bool:
+    """Gradients are on and the masters require them: the forward is part
+    of a training step's graph."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+
+
 def _cast_params(model: Transformer, cfg: ModelConfig) -> Params:
     """The parameter tree with every float weight in ``cfg.dtype`` (the
     reference's compute-dtype cast; the masters stay in ``param_dtype``).
-    The cast copy is cached on the model and rebuilt when any parameter
-    was replaced or written in place."""
+    In training the cast is made anew, inside the autograd graph.
+    Otherwise the cast copy is cached on the model and rebuilt when any
+    parameter was replaced or written in place."""
     dt = cfg.activation_dtype()
-    stamp = (dt,) + tuple((id(p), p._version) for p in model.parameters())
-    if model._compute is not None and model._compute[0] == stamp:
-        return model._compute[1]
 
     def cast(t):
         return t.to(dt) if t.is_floating_point() and t.dtype != dt else t
 
-    tree = model.tree()
-    out = {"embed": {k: cast(v) for k, v in tree["embed"].items()},
-           "final_norm": {k: cast(v) for k, v in tree["final_norm"].items()},
-           "layers": [{name: {k: cast(v) for k, v in sub.items()} for name, sub in lp.items()}
-                      for lp in tree["layers"]]}
+    if _training(model):
+        return tree_map(cast, model.tree())
+    stamp = (dt,) + tuple((id(p), p._version) for p in model.parameters())
+    if model._compute is not None and model._compute[0] == stamp:
+        return model._compute[1]
+    out = tree_map(cast, model.tree())
     model._compute = (stamp, out)
     return out
 
@@ -216,6 +233,15 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
+def _unstack(tree_np: Params, cfg: ModelConfig, dev) -> Params:
+    """A tree in the JAX parameter layout as the port's ``{"embed",
+    "final_norm", "layers"}`` (``Transformer.tree()``'s layout), each leaf
+    copied to ``dev``."""
+    conv = lambda x: _tensor(x, dev)
+    return {"embed": _map(tree_np["embed"], conv), "final_norm": _map(tree_np["final_norm"], conv),
+            "layers": [_map(_pick(tree_np, src), conv) for _, src in _layer_sources(cfg)]}
+
+
 def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Transformer:
     """The port's model holding the weights of a JAX ``init_params`` tree
     whose leaves are numpy arrays (or tensors).  Both layouts are taken:
@@ -232,12 +258,9 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
         raise ValueError(f"the tree's blocks / rem lists do not match {cfg.name}'s layer plan "
                          f"({plan.n_groups} groups of {plan.pattern}, {len(plan.rem_kinds)} "
                          f"unstacked)")
-    layers = []
-    for kind, src in _layer_sources(cfg):
-        lp = _map(_pick(params_np, src), lambda x: _tensor(x, dev))
-        layers.append(Block(kind, lp))
-    return Transformer(cfg, _map(params_np["embed"], lambda x: _tensor(x, dev)),
-                       _map(params_np["final_norm"], lambda x: _tensor(x, dev)), layers)
+    tree = _unstack(params_np, cfg, dev)
+    layers = [Block(kind, lp) for kind, lp in zip(plan.kinds, tree["layers"])]
+    return Transformer(cfg, tree["embed"], tree["final_norm"], layers)
 
 
 # --------------------------------------------------------------------------
@@ -252,6 +275,17 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -
     dtype = cfg.activation_dtype()
     return [{"kv": L.init_kv_cache(cfg, batch, cache_len, kind, dtype, device=dev)}
             for kind in layer_plan(cfg).kinds]
+
+
+def opt_state_from_jax(opt_np: Params, cfg: ModelConfig, *, device="cuda") -> Params:
+    """A JAX ``init_opt_state`` / ``adamw_update`` state (``mu``, ``nu`` in the
+    parameter tree's layout, numpy leaves; ``count``) in the port's layout:
+    ``mu`` and ``nu`` shaped like ``Transformer.tree()``, unstacked as
+    ``params_from_jax`` unstacks the parameters."""
+    dev = resolve_device(device)
+    return {"mu": _unstack(opt_np["mu"], cfg, dev), "nu": _unstack(opt_np["nu"], cfg, dev),
+            "count": torch.tensor(int(np.asarray(opt_np["count"])), dtype=torch.int32,
+                                  device=dev)}
 
 
 def cache_from_jax(cache_np: Params, cfg: ModelConfig, *, device="cuda") -> List[Params]:
@@ -296,34 +330,82 @@ def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, cache_len: in
     return x + L.apply_mlp(p["mlp"], cfg, h2), new_state
 
 
-@torch.no_grad()
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the outputs of matmuls without batch
+    dimensions (``mm``, and ``bmm`` over a batch of one, as ``einsum``
+    lowers the projections), recompute the rest — the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    dot = op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+        op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if dot else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn(x)`` under a per-layer checkpoint, with ``cfg.remat_policy``."""
+    kwargs = {}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+    return lambda x: checkpoint(fn, x, use_reentrant=False, **kwargs)
+
+
 def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frames=None,
                 patches=None, states=None, collect: bool = False, cache_len: int = 0):
-    """Token ids -> final hidden states.
+    """Token ids -> final hidden states; differentiable.
 
     Returns (hidden (B,S,D), aux_loss, new_states): ``aux_loss`` is 0 (no
     MoE here); ``collect=True`` gathers the KV caches, padded to
-    ``cache_len``, for decode (prefill).  ``frames``, ``patches`` and
-    ``states`` (encoder, VLM and recurrent inputs) raise."""
-    if frames is not None or patches is not None or states is not None:
-        raise unported("forward_seq(frames= / patches= / states=)", "queue A item 17")
+    ``cache_len``, for decode (prefill).  In training (``_training``) with
+    ``cfg.remat``, each layer of the scanned groups is checkpointed.
+    ``frames``, ``patches`` and ``states`` (encoder, VLM and recurrent
+    inputs) raise."""
+    if frames is not None or patches is not None:
+        raise unported("forward_seq(frames= / patches=)", "queue A item 21")
+    if states is not None:
+        raise unported("forward_seq(states=) (recurrent state)", "queue A item 19")
     p = _cast_params(model, cfg)
     x = L.embed(p["embed"], cfg, _tokens(tokens, model.device))
+    plan = layer_plan(cfg)
+    n_scanned = plan.n_groups * len(plan.pattern)
+    remat = cfg.remat and not collect and _training(model)
     new_states: List[Params] = []
-    for lp, blk in zip(p["layers"], model.layers):
-        x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, cache_len=cache_len, collect=collect)
+    for i, (lp, blk) in enumerate(zip(p["layers"], model.layers)):
+        if remat and i < n_scanned:
+            x = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind))(x)
+            ns: Params = {}
+        else:
+            x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, cache_len=cache_len, collect=collect)
         new_states.append(ns)
     x = L.apply_norm(p["final_norm"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, (new_states if collect else None)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, shd=None):
-    raise unported("loss_fn (training)", "queue A item 17")
+def _layer_out(lp: Params, cfg: ModelConfig, kind: str, x):
+    return _apply_layer_seq(lp, cfg, kind, x, cache_len=0, collect=False)[0]
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
+    """Next-token cross entropy (+ 0.01 · the MoE aux loss, 0 here).
+    ``batch``: ``tokens``, ``labels``, optional ``loss_mask`` (``frames`` /
+    ``patches`` raise in ``forward_seq``).  The unembedding runs against
+    the master embedding, uncast, as the reference's does: bf16 hidden
+    states against float32 masters give float32 logits.  Returns (loss,
+    {"xent", "moe_aux"})."""
+    hidden, aux, _ = forward_seq(model, cfg, batch["tokens"], shd,
+                                 frames=batch.get("frames"), patches=batch.get("patches"))
+    labels = _tokens(batch["labels"], model.device)
+    mask = batch.get("loss_mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=model.device) if mask is None
+            else torch.as_tensor(mask, device=model.device).float())
+    xent = L.chunked_xent(lambda xc: L.unembed(model.embed, cfg, xc), hidden, labels, mask,
+                          chunk=cfg.xent_chunk)
+    loss = xent + 0.01 * aux
+    return loss, {"xent": xent, "moe_aux": aux}
 
 
 def encode(params, cfg: ModelConfig, frames, shd=None):
-    raise unported("encode (the whisper encoder)", "queue A item 17")
+    raise unported("encode (the whisper encoder)", "queue A item 21")
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Sharding context of the model code — the part of ``repro/sharding.py``
-the serving path uses.
+the serving path and the one-device trainer use.
 
 The JAX package maps logical axis names onto a device mesh and pins
 activations with ``with_sharding_constraint``.  The port's models run on
@@ -7,8 +7,8 @@ one device (the kNN-LM's datastore is what a mesh shards, through
 ``launch.mesh``), so ``ShardingCtx`` only carries its mesh: ``constrain``
 returns its argument, as a sharding constraint never changes values.  The
 logical-axis rules, ``spec``, ``named``, ``param_shardings`` and
-``batch_sharding`` belong to the trainer and come with ROADMAP queue A
-item 17.
+``batch_sharding`` place the sharded train step's state and batches on a
+mesh and come with it, ROADMAP queue A item 18.
 """
 from __future__ import annotations
 
@@ -20,19 +20,19 @@ from repro_torch.utils import unported
 
 
 def data_axis_names(mesh):
-    raise unported("sharding.data_axis_names", "queue A item 17")
+    raise unported("sharding.data_axis_names", "queue A item 18")
 
 
 def axis_size(mesh, entry):
-    raise unported("sharding.axis_size", "queue A item 17")
+    raise unported("sharding.axis_size", "queue A item 18")
 
 
 def logical_rules(mesh, *, fsdp: bool = False, seq_shard: bool = True):
-    raise unported("sharding.logical_rules", "queue A item 17")
+    raise unported("sharding.logical_rules", "queue A item 18")
 
 
 def resolve_spec(axes, shape, rules, mesh):
-    raise unported("sharding.resolve_spec", "queue A item 17")
+    raise unported("sharding.resolve_spec", "queue A item 18")
 
 
 @dataclasses.dataclass
@@ -55,16 +55,16 @@ class ShardingCtx:
         return x
 
     def spec(self, axes, shape):
-        raise unported("ShardingCtx.spec (logical-axis sharding rules)", "queue A item 17")
+        raise unported("ShardingCtx.spec (logical-axis sharding rules)", "queue A item 18")
 
     def named(self, axes, shape):
-        raise unported("ShardingCtx.named", "queue A item 17")
+        raise unported("ShardingCtx.named", "queue A item 18")
 
     def param_shardings(self, params, specs):
-        raise unported("ShardingCtx.param_shardings", "queue A item 17")
+        raise unported("ShardingCtx.param_shardings", "queue A item 18")
 
     def batch_sharding(self, ndim: int = 2):
-        raise unported("ShardingCtx.batch_sharding", "queue A item 17")
+        raise unported("ShardingCtx.batch_sharding", "queue A item 18")
 
 
 def null_ctx() -> ShardingCtx:

@@ -62,3 +62,39 @@ def unported(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to repro_torch yet (ROADMAP.md {item})"
     )
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict / list / tuple, dict keys in sorted order
+    (``jax.tree.leaves``' order); ``None`` is an empty subtree."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same structure), keeping ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s structure holding ``leaves``, taken in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return None if t is None else next(it)
+
+    return build(template)

@@ -142,7 +142,8 @@ def test_load_of_unported_generations_and_mesh_raise(tmp_path):
     bit-identically, and a generation saved by the JAX package's sharded
     index loads into the port's, on a mesh and without one; a mesh that is
     not a ``Mesh`` is a ``TypeError``; the manager's ``restore(mesh=)`` (the
-    trainer's elastic restart) still raises, naming queue A item 17.
+    trainer's elastic restart onto a mesh) still raises, naming queue A
+    item 18.
     Projected generations (l2 over a PCA fit, ip over the MIPS fit) cross
     between the packages in both directions with their fitted map and the
     same answers."""
@@ -157,7 +158,7 @@ def test_load_of_unported_generations_and_mesh_raise(tmp_path):
     np.testing.assert_array_equal(got.dists, want.dists)
     with pytest.raises(TypeError, match="got object"):
         KNNIndex.load(str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 17"):
+    with pytest.raises(NotImplementedError, match="queue A item 18"):
         CheckpointManager(str(tmp_path)).restore({"points_r": 0}, mesh=object())
     # A JAX ShardedKNNIndex's generation (a one-device mesh on this process),
     # dirty, loads into the port with and without a mesh.

@@ -287,7 +287,7 @@ def test_serving_mesh_shapes_and_slots():
         make_serving_mesh(replicas=2, device="cpu")                # 1 device, 2 groups
     host = mesh_lib.make_host_mesh(device="cpu")
     assert host.axis_names == ("data", "model") and host.devices.shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="queue A item 17"):
+    with pytest.raises(NotImplementedError, match="queue A item 18"):
         mesh_lib.make_production_mesh()
     assert hash(m) == hash(make_serving_mesh(4, device="cpu")) and isinstance(m, Mesh)
     # shard slots of a replicated mesh: replica 0's row
