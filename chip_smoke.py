@@ -187,6 +187,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          the clean run's); ``--resume`` after the step-10 checkpoint and
          ``LATEST`` are removed (steps 5–9 again, bit-identical); save and
          restore seconds and bytes.
+  (t)    the sharded train step on a 2 × 4 mesh of logical slots, all on
+         ``cuda:0`` (``make_host_mesh(4, slots=8)``; no kernel of ``csrc/``
+         runs on it).  (t1) olmo_1b's published config from seed 0 placed by
+         ``build_train``'s shardings (every weight split four ways over
+         "model", replicated over the two data slots; each slot's bytes of
+         masters and moments checked against the spec's share), batch 4 ×
+         seq 4,096, 6 steps: every loss finite and falling, step 1 against
+         the one-device step of the same weights and batch (|Δloss|,
+         grad_norm gap, and the masters after it within two learning-rate
+         steps, at most ``SPMD_FLIP_SHARE`` of them apart by more than one);
+         step times and tokens/s beside (s1)'s, peak memory, and one step
+         under ``torch.profiler`` with the device time of the
+         ``spmd.collective`` ranges apart.  (t2) ``launch/train.py`` with
+         ``--model-axis 4 --slots 8`` at (s2)'s depth and sizes under
+         deterministic algorithms: a clean run and one with ``--inject-fault
+         7`` (one restart, losses bit-identical); the latest save restored
+         with ``shardings=`` onto a 4 × 2 mesh and onto one device, bit for
+         bit; two more steps on 4 × 2 within (s1)'s tolerances of the same
+         steps on 2 × 4.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -195,8 +214,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 its brute call over the 5M corpus.
 
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
-(q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1) and
-(s2) —
+(q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
+(s2), (t1) and (t2) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -292,6 +311,23 @@ DRILL_BATCH = 4
 DRILL_STEPS = 10
 DRILL_EVERY = 5                    # --checkpoint-every
 DRILL_FAULT = 7                    # --inject-fault
+SPMD_MODEL = 4                     # (t): make_host_mesh(model=4, slots=8), 2 × 4 slots on cuda:0
+SPMD_SLOTS = 8
+SPMD_STEPS = 6
+SPMD_MORE = 2                      # (t2): steps after the elastic restore, 4 × 2 against 2 × 4
+# (t1) step 1 on the 2 × 4 slots against the one-device step, both in bf16
+# activations from the same masters and batch.  The slot program rounds in
+# other places (each row-parallel partial rounded to bf16, then summed in
+# float32; the vocab-parallel logsumexp), a subset of the roundings by which
+# (s1)'s bf16 step differs from float32, so (s1)'s bounds apply to the loss
+# and grad_norm.  Adam's first step moves a weight by lr·g/(|g| + eps) plus
+# the decay, so two runs' masters differ by at most 2·lr where a gradient
+# element sits within the rounding noise of 0 and flips sign:
+# max gap ≤ 2·lr₁ + SPMD_MASTER_ATOL (float32 rounding of the masters), and
+# at most SPMD_FLIP_SHARE of all elements apart by more than lr₁ — a block
+# whose gradient were lost or taken from another shard would move all of it.
+SPMD_MASTER_ATOL = 1e-6
+SPMD_FLIP_SHARE = 0.05
 
 
 def log(msg: str) -> None:
@@ -311,6 +347,17 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def synced(fn):
+    """(fn(), its seconds on the host clock, the card synchronised before
+    and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def timed(fn):
@@ -1026,13 +1073,6 @@ def train_phase(dev, reset_counts, read_counts):
     def on_card(tensors, what):
         assert all(t.device == card for t in tensors), f"(s) {what} not all on cuda:0"
 
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     # -- (s1) the published config, 12 steps ------------------------------------
     cfg = get_config("olmo_1b")
     shape = SHAPES["train_4k"]
@@ -1218,6 +1258,259 @@ def train_phase(dev, reset_counts, read_counts):
         "(s2) --resume did not continue from the latest durable step"
     assert res_loss and res_par, "(s2) the resumed run differs from the uninterrupted run"
     log(f"[s] phase {time.perf_counter() - t_s:.2f}s")
+    return {"median_s": med, "tokens_per_s": tokens / med, "peak": peak}
+
+
+def device_time(prof, skip=()):
+    """(ms by kernel name of the card's events, names in ``skip`` left
+    out) from a ``torch.profiler`` run."""
+    import torch
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in skip:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def sharded_train_phase(dev, reset_counts, read_counts, s1):
+    """(t) the sharded train step at olmo_1b's full width on a 2 × 4 mesh of
+    logical slots on cuda:0: (t1) SPMD_STEPS steps of ``build_train``'s step
+    from seed TRAIN_SEED, step 1 held to the one-device step; (t2)
+    ``launch/train.py`` on the 2 × 4 slots at depth DRILL_LAYERS with a
+    fault drill, the latest save restored onto 4 × 2 and onto one device."""
+    import dataclasses
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import spmd
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.sharding import NamedSharding, PartitionSpec
+    from repro_torch.utils import tree_leaves
+
+    t_t = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[t] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # -- (t1) the published config on 2 × 4 slots ---------------------------------
+    cfg = get_config("olmo_1b")
+    shape = SHAPES["train_4k"]
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    assert mesh.sizes == (SPMD_SLOTS // SPMD_MODEL, SPMD_MODEL)
+    assert set(mesh.slot_devices) == {"cuda:0"}, "(t1) every slot on cuda:0"
+    opt_cfg = OptConfig(total_steps=SPMD_STEPS, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+    step, _, (st_sh, _) = steps.build_train(cfg, shape, mesh, opt_cfg)
+    pipe = TokenPipeline(cfg, shape, batch_override=TRAIN_BATCH)
+    tokens = TRAIN_BATCH * pipe.seq
+    batch0 = pipe.next_batch(dev)
+
+    # The yardstick: the one-device step 1 on the same weights and batch.
+    ref = lm.init_params(TRAIN_SEED, cfg, device=dev)
+    fingerprint = ref.embed["tok"][:4096].clone()
+    ref_state = {"params": ref, "opt": init_opt_state(ref.tree(), opt_cfg)}
+    torch.cuda.reset_peak_memory_stats()
+    (ref_state, ref_m), ref_s = synced(
+        lambda: steps.make_train_step(cfg, opt_cfg)(ref_state, batch0))
+    ref_peak = torch.cuda.max_memory_allocated()
+    ref_loss, ref_gn, lr1 = (ref_m[k].item() for k in ("loss", "grad_norm", "lr"))
+    del ref_state
+    torch.cuda.empty_cache()
+    log(f"[t1] the one-device step 1 (make_train_step on a Transformer): loss {ref_loss:.6f}, "
+        f"grad_norm {ref_gn:.6f}, lr {lr1:.3e}, {ref_s:.3f}s, peak {ref_peak / 2**30:.2f} GiB")
+
+    model = lm.init_params(TRAIN_SEED, cfg, device=dev)
+    assert torch.equal(model.embed["tok"][:4096], fingerprint), "(t1) the seed drew other weights"
+    state = steps.init_placed_state(model.tree(), opt_cfg, st_sh)
+    del model, fingerprint
+    torch.cuda.empty_cache()
+
+    # Layout: each slot's bytes against the global bytes over the shard factor.
+    def slot_bytes(tree):
+        arrs = tree_leaves(tree)
+        got = [sum(a.slot_nbytes(s) for a in arrs) for s in range(SPMD_SLOTS)]
+        want = sum(int(np.prod(a.shape)) * a.blocks[0].element_size() // a.sharding.shard_factor
+                   for a in arrs)
+        glob = sum(int(np.prod(a.shape)) * a.blocks[0].element_size() for a in arrs)
+        return got, want, glob
+
+    b_master, w_master, g_master = slot_bytes(state["params"])
+    b_mom, w_mom, g_mom = slot_bytes([state["opt"]["mu"], state["opt"]["nu"]])
+    specs = sorted({str(a.sharding.spec) for a in tree_leaves(state["params"])})
+    log(f"[t1] {cfg.name} on a {mesh.sizes[0]} × {mesh.sizes[1]} mesh of {SPMD_SLOTS} slots "
+        f"({dict(mesh.shape)}), batch {TRAIN_BATCH} × seq {pipe.seq} = {tokens} tokens a step "
+        f"(no cut), {pipe.seq} tokens × {TRAIN_BATCH // mesh.sizes[0]} rows a data group; "
+        f"specs {specs}; per slot: masters {b_master[0]} B (global {g_master} B / shard factor "
+        f"= {w_master}), moments {b_mom[0]} B (global {g_mom} / factor = {w_mom}); all slots: "
+        f"masters {sum(b_master) / 2**30:.3f} GiB, moments {sum(b_mom) / 2**30:.3f} GiB")
+    assert b_master == [w_master] * SPMD_SLOTS and b_mom == [w_mom] * SPMD_SLOTS, \
+        "(t1) a slot holds other bytes than its spec's share"
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+    for i in range(SPMD_STEPS):
+        batch = batch0 if i == 0 else pipe.next_batch(dev)
+        (state, m), sec = synced(lambda: step(state, batch))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+        secs.append(sec)
+        log(f"[t1] step {i + 1}: loss {losses[-1]:.6f}, grad_norm {gnorms[-1]:.6f}, "
+            f"lr {m['lr'].item():.3e}, {sec:.3f}s")
+        if i == 0:
+            gap, n_far, n_all = 0.0, 0, 0
+            with torch.no_grad():
+                for a, r in zip(tree_leaves(state["params"]), tree_leaves(ref.tree())):
+                    d = (a.gather() - r).abs()
+                    gap = max(gap, d.max().item())
+                    n_far += int((d > lr1).sum().item())
+                    n_all += d.numel()
+            del ref, d
+            torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    read_counts("(t1) sharded train steps (no custom kernel on this path)")
+    med = float(np.median(secs[1:]))
+    d_loss, d_gn = abs(losses[0] - ref_loss), abs(gnorms[0] - ref_gn) / ref_gn
+    log(f"[t1] {SPMD_STEPS} steps: median step {med:.3f}s over steps 2–{SPMD_STEPS} "
+        f"[{min(secs[1:]):.3f}–{max(secs[1:]):.3f}], the first {secs[0]:.3f}s; "
+        f"{tokens / med:.1f} tokens/s ((s1) on one device: {s1['median_s']:.3f}s, "
+        f"{s1['tokens_per_s']:.1f} tokens/s, peak {s1['peak'] / 2**30:.2f} GiB); peak device "
+        f"memory {peak / 2**30:.2f} GiB; loss mean of the first 3 {np.mean(losses[:3]):.6f}, of "
+        f"the last 3 {np.mean(losses[-3:]):.6f}")
+    log(f"[t1] step 1 against the one-device step: |Δloss| {d_loss:.3e} (≤ {TRAIN_LOSS_TOL}), "
+        f"grad_norm gap {d_gn:.3e} (≤ {TRAIN_GNORM_RTOL}), max |Δmaster| {gap:.3e} (≤ 2·lr₁ + "
+        f"{SPMD_MASTER_ATOL} = {2 * lr1 + SPMD_MASTER_ATOL:.3e}), {n_far} of {n_all} masters "
+        f"({n_far / n_all:.3e}) apart by more than lr₁ (≤ {SPMD_FLIP_SHARE})")
+    assert np.isfinite(losses).all() and np.isfinite(gnorms).all(), "(t1) a non-finite loss"
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), f"(t1) the loss did not fall: {losses}"
+    assert d_loss <= TRAIN_LOSS_TOL, "(t1) step 1's loss strays from the one-device step's"
+    assert d_gn <= TRAIN_GNORM_RTOL, "(t1) step 1's grad_norm strays from the one-device step's"
+    assert gap <= 2 * lr1 + SPMD_MASTER_ATOL, "(t1) a master strays past two steps"
+    assert n_far <= SPMD_FLIP_SHARE * n_all, "(t1) too many masters off the one-device step"
+
+    # One more step under torch.profiler (printed, not gated): busy share and
+    # the device time of the collectives (spmd.collective ranges: the
+    # broadcasts, row-parallel sums, vocab-parallel combines, their
+    # backwards and the gradient sum over replicas).
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    batch = pipe.next_batch(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        (state, _), sec = synced(lambda: step(state, batch))
+    by_name = device_time(prof, skip=(spmd.COLLECTIVE,))
+    busy = sum(by_name.values())
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == spmd.COLLECTIVE:
+                return True
+            p = p.cpu_parent
+        return False
+
+    ranges = [e for e in prof.events()
+              if e.name == spmd.COLLECTIVE and e.device_type == torch.autograd.DeviceType.CPU]
+    coll = sum(e.device_time_total for e in ranges if not nested(e)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[t1] one step under torch.profiler: the card busy {busy:.1f} ms of the step's "
+        f"{sec * 1e3:.1f} ms (busy share {busy / (sec * 1e3):.3f}); collectives "
+        f"({len(ranges)} spmd.collective ranges) " +
+        (f"{coll:.1f} ms of device time ({coll / busy:.4f} of busy)" if coll > 0 else
+         "not measured (no device time under the ranges)") + "; by kernel: " +
+        "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
+    del state, batch0, batch, pipe, step, prof, ranges
+    torch.cuda.empty_cache()
+
+    # -- (t2) launch/train.py on 2 × 4 slots, the fault drill, the elastic restore --
+    cut = dataclasses.replace(cfg, n_layers=DRILL_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    flags = ["--arch", "olmo_1b", "--steps", str(DRILL_STEPS), "--batch", str(DRILL_BATCH),
+             "--seq", str(DRILL_SEQ), "--checkpoint-every", str(DRILL_EVERY), "--device", "cuda",
+             "--model-axis", str(SPMD_MODEL), "--slots", str(SPMD_SLOTS)]
+    log(f"[t2] launch/train.py on {SPMD_SLOTS} slots (--model-axis {SPMD_MODEL}) at olmo_1b's "
+        f"width with n_layers cut {cfg.n_layers} → {DRILL_LAYERS}, seq {DRILL_SEQ}, batch "
+        f"{DRILL_BATCH}, {DRILL_STEPS} steps, a checkpoint every {DRILL_EVERY}, deterministic "
+        f"algorithms on")
+    loads = Spy(CheckpointManager, "restore", keep=False)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with mock.patch.object(train, "get_config", lambda arch: cut), loads:
+            reset_counts()
+            clean = train.main(flags + ["--ckpt-dir", os.path.join(root, "clean")])
+            clean_report, clean_loss = clean.report, dict(clean.losses)
+            del clean
+            drill_dir = os.path.join(root, "drill")
+            drill = train.main(flags + ["--ckpt-dir", drill_dir,
+                                        "--inject-fault", str(DRILL_FAULT)])
+            read_counts("(t2) launch/train.py on slots: clean and drilled runs")
+            report, drill_losses = drill.report, drill.losses
+            state = drill.state
+            del drill
+            mgr = CheckpointManager(drill_dir)
+            template = train.state_tree(state)
+            saved, extra, at = mgr.restore(template)
+            _, _, (sh42, _) = steps.build_train(
+                cut, shape, make_host_mesh(SPMD_SLOTS // SPMD_MODEL, slots=SPMD_SLOTS, device=dev),
+                OptConfig(total_steps=DRILL_STEPS, warmup_steps=max(DRILL_STEPS // 10, 1),
+                          moment_dtype=cut.opt_state_dtype))
+            on42, _, _ = mgr.restore(template, shardings=sh42)
+            one = NamedSharding(make_host_mesh(device=dev), PartitionSpec())
+            on1, _, _ = mgr.restore(template, shardings=one)
+            same42 = same1 = same_live = True
+            for want, a42, a1, live in zip(tree_leaves(saved), tree_leaves(on42),
+                                           tree_leaves(on1), tree_leaves(template)):
+                want = torch.as_tensor(want).to(dev)
+                same42 &= a42.sharding.mesh.sizes == (SPMD_MODEL, SPMD_SLOTS // SPMD_MODEL) and \
+                    torch.equal(a42.gather(), want)
+                same1 &= a1.blocks[0].device == one.device(0) and torch.equal(a1.blocks[0], want)
+                same_live &= torch.equal(live.gather(), want)
+            del saved, on1
+            # A few more steps from the restore: 4 × 2 against the live 2 × 4 state.
+            opt_more = OptConfig(total_steps=DRILL_STEPS, warmup_steps=max(DRILL_STEPS // 10, 1),
+                                 moment_dtype=cut.opt_state_dtype)
+            step24 = steps.make_train_step(cut, opt_more)
+            more = TokenPipeline(cut, shape, batch_override=DRILL_BATCH, seq_override=DRILL_SEQ)
+            more.load_state_dict(extra)
+            more_24, more_42 = [], []
+            for _ in range(SPMD_MORE):
+                b = more.next_batch(dev)
+                state, m24 = step24(state, b)
+                on42, m42 = step24(on42, b)
+                more_24.append((m24["loss"].item(), m24["grad_norm"].item()))
+                more_42.append((m42["loss"].item(), m42["grad_norm"].item()))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    replayed = [st for st, _ in drill_losses]
+    same_loss = all(clean_loss[st] == l for st, l in drill_losses)
+    log(f"[t2] clean run: losses {[round(clean_loss[k], 6) for k in sorted(clean_loss)]}")
+    log(f"[t2] drilled run: completed={report.completed}, restarts {report.restarts}; steps "
+        f"executed {replayed}; losses bit-identical to the clean run's: {same_loss}")
+    log(f"[t2] the step-{at} save (the final state: {same_live}) restored with shardings= onto "
+        f"4 × 2 ({sh42['params']['embed']['tok'].spec} for embed/tok) and onto one device "
+        f"(P()), bit-identical to the saved arrays: {same42}, {same1}; restore "
+        f"{', '.join(f'{t:.3f}' for t in loads.times)} s")
+    log(f"[t2] {SPMD_MORE} more steps (loss, grad_norm): 2 × 4 {more_24}, 4 × 2 {more_42}")
+    assert clean_report.completed and clean_report.restarts == 0, "(t2) the clean run failed"
+    assert report.completed and report.restarts == 1, "(t2) the drill did not restart exactly once"
+    assert replayed == list(range(DRILL_FAULT)) + list(range(DRILL_EVERY, DRILL_STEPS))
+    assert same_loss, "(t2) the replay differs from the uninterrupted run"
+    assert at == DRILL_STEPS and same_live, "(t2) the latest save is not the final state"
+    assert same42 and same1, "(t2) an elastic restore differs from the save"
+    for (l24, g24), (l42, g42) in zip(more_24, more_42):
+        assert np.isfinite([l24, l42]).all()
+        assert abs(l24 - l42) <= TRAIN_LOSS_TOL and abs(g24 - g42) <= TRAIN_GNORM_RTOL * g24, \
+            "(t2) the 4 × 2 steps stray from the 2 × 4 steps"
+    del state, on42
+    torch.cuda.empty_cache()
+    log(f"[t] phase {time.perf_counter() - t_t:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -2792,7 +3085,10 @@ def main(argv=None) -> int:
     lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
 
     # -- path 15: (s) the dense training path at olmo_1b's full width -----------
-    train_phase(dev, reset_counts, read_counts)
+    s1 = train_phase(dev, reset_counts, read_counts)
+
+    # -- path 16: (t) the sharded train step on 2 × 4 slots at olmo_1b's width --
+    sharded_train_phase(dev, reset_counts, read_counts, s1)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -13,15 +13,16 @@ Layout per step::
                    checkpoint, and LATEST is updated only after rename.
   * async        — ``save()`` snapshots to host memory synchronously and
                    does serialization/IO on a background thread.
-  * placement    — arrays are stored whole; ``restore(..., device=...)``
-                   puts them on a device.  ``restore(mesh=...)`` — the
-                   counterpart of the JAX ``restore(shardings=...)``, whose
-                   only caller is the trainer's elastic restart onto a
-                   mesh — waits for the sharded train step (ROADMAP.md
-                   queue A item 18; the one-device trainer restores with
-                   ``device=``); no
-                   KNN path needs it (an index loads onto a mesh through
-                   ``KNNIndex.load(mesh=...)``).
+  * placement    — arrays are stored whole: ``save`` of a placed leaf
+                   (a ``sharding.SlotArray``) writes the gathered global
+                   array, so a checkpoint does not depend on a layout.
+                   ``restore(..., device=...)`` puts the arrays on a
+                   device; ``restore(..., shardings=...)`` — the elastic
+                   restart — lays each onto the current slot mesh (a
+                   ``NamedSharding`` tree matching the template, or one
+                   for every leaf), so a 2 × 4 save restores onto 4 × 2 or
+                   one device.  An index loads onto a mesh through
+                   ``KNNIndex.load(mesh=...)``.
   * validation   — restore checks shapes/dtypes/crc against the manifest
                    and refuses partial checkpoints.
 
@@ -44,7 +45,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.utils import unported
+from repro_torch.sharding import NamedSharding, SlotArray
+from repro_torch.utils import tree_map
 
 _SEP = "/"
 FORMAT_VERSION = 1
@@ -71,6 +73,8 @@ class _Leaf:
 
 
 def _leaf(x) -> _Leaf:
+    if isinstance(x, SlotArray):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         name = _TORCH_ONLY_NAME.get(t.dtype)
@@ -240,13 +244,16 @@ class CheckpointManager:
             return durable[-1]
         return None
 
-    def restore(self, template: Any, *, step: Optional[int] = None, device=None,
-                mesh=None):
+    def restore(self, template: Any, *, step: Optional[int] = None, shardings: Any = None,
+                device=None):
         """Load into ``template``'s structure.  Leaves come back as numpy
-        arrays (torch tensors for bfloat16/float8), or as torch tensors on
-        ``device`` when one is given.  Returns (tree, extra, step)."""
-        if mesh is not None:
-            raise unported("CheckpointManager.restore(mesh=...)", "queue A item 18")
+        arrays (torch tensors for bfloat16/float8), as torch tensors on
+        ``device`` when one is given, or placed on a slot mesh as
+        ``SlotArray``s when ``shardings`` is given (a tree of
+        ``NamedSharding`` matching the template, or a single one for every
+        leaf) — the elastic restart.  Returns (tree, extra, step)."""
+        if shardings is not None and device is not None:
+            raise ValueError("restore takes shardings= or device=, not both")
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -281,4 +288,8 @@ class CheckpointManager:
         tree = _unflatten_into(template, flat)
         if device is not None:
             tree = _to_device(tree, torch.device(device))
+        elif isinstance(shardings, NamedSharding):
+            tree = tree_map(shardings.place, tree)
+        elif shardings is not None:
+            tree = tree_map(lambda x, s: s.place(x), tree, shardings)
         return tree, manifest["extra"], step

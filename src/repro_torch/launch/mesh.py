@@ -73,17 +73,24 @@ def _slots(dev: torch.device, n_slots: int) -> Tuple[str, ...]:
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The dry-run's 256/512-chip TPU pod mesh has no counterpart yet."""
-    raise unported("make_production_mesh", "queue A item 18")
+    """The dry run's 256/512-chip TPU pod mesh has no counterpart yet."""
+    raise unported("make_production_mesh (the dry run)", "queue A item 18b")
 
 
-def make_host_mesh(model: int = 1, *, device="cuda") -> Mesh:
-    """A ("data", "model") mesh over however many devices exist: the cards
-    of this host, or one CPU slot."""
+def make_host_mesh(model: int = 1, *, device="cuda", slots=None) -> Mesh:
+    """A ("data", "model") mesh of ``(slots // model, model)``.
+
+    ``slots=None`` takes one slot per device that exists (the cards of this
+    host, or one CPU slot), as the reference takes ``jax.devices()``.  An
+    explicit ``slots`` stands in for the JAX tests'
+    ``--xla_force_host_platform_device_count``: the slots wrap onto the
+    cards as ``make_serving_mesh``'s do, so ``make_host_mesh(4, slots=8)``
+    on one card is a 2 × 4 mesh of eight ``cuda:0`` slots."""
     dev = resolve_device(device)
-    data = _card_count(dev) // model
-    if data < 1:
-        raise ValueError(f"model={model} exceeds the {_card_count(dev)} devices")
+    n = _card_count(dev) if slots is None else int(slots)
+    data = n // model
+    if data < 1 or (slots is not None and n % model):
+        raise ValueError(f"model={model} does not divide {n} slots into a data axis")
     return Mesh(("data", "model"), (data, model), _slots(dev, data * model))
 
 

@@ -9,22 +9,31 @@ sums of ``g / micro``, the metrics those of the last micro-batch), then
 the step writes the masters and the moments in place, as the reference
 donates its state.
 
-The reference's other builders return ``ShapeDtypeStruct`` specs and
-shardings for ``jax.jit(...).lower`` — the multi-pod dry run and the
-sharded step.  ``batch_specs`` gives the batch's shapes as tensors on the
-``meta`` device (no storage); ``build_train``, ``build_prefill``,
-``build_decode`` and ``build_cell`` raise until ROADMAP queue A item 18.
+A state placed on a slot mesh (every leaf a ``sharding.SlotArray``: the
+params tree ``Transformer.tree()``'s shape, ``count`` replicated) takes the
+sharded step, the reference's jitted step under GSPMD: each data group runs
+``models/spmd.loss_fn`` on its rows, each block's gradient is summed over
+the slots holding that block (the data-axis mean of the loss's gradient,
+as the loss is the global mean), and AdamW runs per block with the global
+gradient norm counting each element once.
+
+``build_train`` returns the step with its input specs (``meta`` tensors:
+shapes and dtypes, no storage) and ``NamedSharding`` trees, as the
+reference's does for ``jax.jit``; ``params_specs`` / ``state_specs`` give
+the specs.  ``build_prefill``, ``build_decode`` and ``build_cell`` (the dry
+run's lowering) raise until ROADMAP queue A item 18b.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.configs.base import ModelConfig, ShapeConfig, torch_dtype
+from repro_torch.models import spmd, transformer
 from repro_torch.optim import OptConfig, adamw_update
-from repro_torch.utils import tree_map, unported
+from repro_torch.sharding import ShardingCtx, SlotArray
+from repro_torch.utils import tree_leaves, tree_map, unported
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
@@ -60,19 +69,140 @@ def loss_and_grads(model: transformer.Transformer, cfg: ModelConfig, batch, shd=
             tree_map(lambda p: by_id[id(p)], model.tree()))
 
 
+def params_specs(cfg: ModelConfig) -> Tuple[Any, Any]:
+    """(``meta`` tensor tree, logical-spec tree), shaped like
+    ``Transformer.tree()``, without allocation."""
+    return transformer.param_shapes(cfg), transformer.param_specs(cfg)
+
+
+def state_specs(cfg: ModelConfig, opt_cfg: OptConfig):
+    """Train state = params + AdamW moments, as specs."""
+    p_shapes, p_specs = params_specs(cfg)
+    moments = lambda: transformer.param_shapes(cfg, torch_dtype(opt_cfg.moment_dtype))
+    count = torch.empty((), dtype=torch.int32, device="meta")
+    return ({"params": p_shapes, "opt": {"mu": moments(), "nu": moments(), "count": count}},
+            {"params": p_specs, "opt": {"mu": p_specs, "nu": p_specs, "count": ()}})
+
+
+def _batch_shardings(shd: ShardingCtx, batch):
+    return {k: shd.named(["act_batch"] + [None] * (len(v.shape) - 1), tuple(v.shape))
+            for k, v in batch.items()}
+
+
+def place(tree, shardings):
+    """Each leaf of ``tree`` placed by the matching ``NamedSharding``."""
+    return tree_map(lambda x, s: s.place(x), tree, shardings)
+
+
+def init_placed_state(params, opt_cfg: OptConfig, shardings):
+    """The train state on a slot mesh: ``params`` (``Transformer.tree()``)
+    placed by ``shardings["params"]``, the moments zero blocks in
+    ``moment_dtype`` laid out as the params, and the step count 0 placed by
+    ``shardings["opt"]["count"]`` — ``init_opt_state`` without a global
+    copy of the moments."""
+    placed = place(params, shardings["params"])
+    dt = torch_dtype(opt_cfg.moment_dtype)
+    zeros = lambda a: SlotArray(a.sharding, a.shape,
+                                [torch.zeros(b.shape, dtype=dt, device=b.device)
+                                 for b in a.blocks])
+    count = torch.zeros((), dtype=torch.int32)
+    return {"params": placed, "opt": {"mu": tree_map(zeros, placed),
+                                      "nu": tree_map(zeros, placed),
+                                      "count": shardings["opt"]["count"].place(count)}}
+
+
+# --------------------------------------------------------------------------
+# train
+# --------------------------------------------------------------------------
+
+def _slot_grads(params, cfg: ModelConfig, batch):
+    """The sharded step's loss, metrics and gradients: per leaf of
+    ``params``, one gradient per slot, each the sum over the block's
+    replicas (holders of one block share the tensor)."""
+    arrs = tree_leaves(params)
+    masters = [b for a in arrs for b in a.blocks]
+    for b in masters:
+        b.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = spmd.loss_fn(params, cfg, batch)
+        flat = list(torch.autograd.grad(loss, masters, allow_unused=True,
+                                        materialize_grads=True))
+    out = []
+    with torch.no_grad(), torch.profiler.record_function(spmd.COLLECTIVE):
+        for a in arrs:
+            g, flat[:len(a.blocks)] = flat[:len(a.blocks)], []
+            for group in a.sharding.replica_groups(len(a.shape)):
+                acc = g[group[0]]
+                for s in group[1:]:
+                    acc = acc + g[s].to(acc.device)
+                for s in group:
+                    g[s] = acc.to(a.sharding.device(s))
+            out.append(g)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, out
+
+
+def _slot_norm(arrs, grads) -> torch.Tensor:
+    """The global norm of the gradient, each element counted once: one
+    holder per block."""
+    dev = arrs[0].sharding.device(0)
+    total = None
+    for a, g in zip(arrs, grads):
+        for group in a.sharding.replica_groups(len(a.shape)):
+            sq = torch.sum(torch.square(g[group[0]].float())).to(dev)
+            total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _slot_train_step(cfg: ModelConfig, opt_cfg: OptConfig, state, batch):
+    micro = max(cfg.micro_steps, 1)
+    params = state["params"]
+    arrs = tree_leaves(params)
+    batch = {k: (v.gather() if isinstance(v, SlotArray) else v) for k, v in batch.items()
+             if v is not None}
+    if micro == 1:
+        loss, metrics, grads = _slot_grads(params, cfg, batch)
+    else:
+        rows = next(iter(batch.values())).shape[0] // micro
+        grads = [[torch.zeros(b.shape, dtype=torch.float32, device=b.device) for b in a.blocks]
+                 for a in arrs]
+        loss = None
+        for i in range(micro):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            l, metrics, g = _slot_grads(params, cfg, mb)
+            with torch.no_grad():
+                for acc, gi in zip(grads, g):
+                    for a, b in zip(acc, gi):
+                        a.add_(b.float() / micro)
+            loss = l / micro if loss is None else loss + l / micro
+    gnorm = _slot_norm(arrs, grads)
+    count = state["opt"]["count"]
+    flat = lambda t: [b for a in tree_leaves(t) for b in a.blocks]
+    _, opt, om = adamw_update([b for g in grads for b in g],
+                              {"mu": flat(state["opt"]["mu"]), "nu": flat(state["opt"]["nu"]),
+                               "count": count.blocks[0]},
+                              [b for a in arrs for b in a.blocks], opt_cfg, grad_norm=gnorm)
+    new_opt = {"mu": state["opt"]["mu"], "nu": state["opt"]["nu"],
+               "count": count.sharding.place(opt["count"])}
+    return {"params": params, "opt": new_opt}, {"loss": loss, **metrics, **om}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, shd=None, grad_shardings=None):
     """(state, batch) -> (state, metrics) with ``cfg.micro_steps`` gradient
     accumulation.  ``metrics``: ``loss``, ``xent``, ``moe_aux``,
-    ``grad_norm``, ``lr`` (0-d tensors on the model's device).
+    ``grad_norm``, ``lr`` (0-d tensors on the model's device, or slot 0's).
 
+    A state whose params are a ``Transformer`` runs on its device; one
+    placed on a slot mesh (``SlotArray`` leaves) takes the sharded step.
     ``grad_shardings`` pins the reference's gradients to the parameter
-    layout, a layout constraint that never changes values; one device has
-    no layout to pin, so it is accepted and the gradients pass unchanged,
-    as ``ShardingCtx.constrain`` passes activations."""
+    layout, a layout constraint that never changes values: the port's
+    gradients come out in their parameters' layout already (one block per
+    slot), so it is accepted and changes nothing."""
     micro = max(cfg.micro_steps, 1)
 
     def train_step(state, batch):
         model = state["params"]
+        if not isinstance(model, transformer.Transformer):
+            return _slot_train_step(cfg, opt_cfg, state, batch)
         if micro == 1:
             loss, metrics, grads = loss_and_grads(model, cfg, batch, shd)
         else:
@@ -92,17 +222,27 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, shd=None, grad_shardin
 
 
 def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_cfg: Optional[OptConfig] = None):
-    raise unported("build_train (the dry run's lowering, the sharded train step)",
-                   "queue A item 18")
+    """(step, (state specs, batch specs), (state shardings, batch
+    shardings)): the specs ``meta`` tensors, the shardings trees of
+    ``NamedSharding`` over ``mesh`` by the logical rules (``cfg.fsdp``,
+    ``cfg.seq_shard``).  Place a state with ``place(tree, shardings)``."""
+    opt_cfg = opt_cfg or OptConfig(moment_dtype=cfg.opt_state_dtype)
+    shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
+    st_shapes, st_specs = state_specs(cfg, opt_cfg)
+    st_shard = shd.param_shardings(st_shapes, st_specs)
+    b_specs = batch_specs(cfg, shape)
+    b_shard = _batch_shardings(shd, b_specs)
+    fn = make_train_step(cfg, opt_cfg, shd, grad_shardings=st_shard["params"])
+    return fn, (st_shapes, b_specs), (st_shard, b_shard)
 
 
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    raise unported("build_prefill (the dry run's lowering)", "queue A item 18")
+    raise unported("build_prefill (the dry run's lowering)", "queue A item 18b")
 
 
 def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    raise unported("build_decode (the dry run's lowering)", "queue A item 18")
+    raise unported("build_decode (the dry run's lowering)", "queue A item 18b")
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Any:
-    raise unported("build_cell (the dry run's lowering)", "queue A item 18")
+    raise unported("build_cell (the dry run's lowering)", "queue A item 18b")

@@ -5,9 +5,10 @@ Parameters are mappings of tensors (a plain dict, or an
 ``nn.ParameterDict`` of ``models.transformer.Block``), with the JAX
 package's names and layouts: ``wq`` (d, h, hd), ``wo`` (h, hd, d), ``tok``
 (vocab, d), so weights cross between the packages unchanged.  Every init
-draws from an explicit ``torch.Generator`` and returns the tensor alone
-(the reference also returns logical sharding axes, which the port has no
-use for; see ``sharding.py``).
+draws from an explicit ``torch.Generator`` and returns the tensors alone;
+each sublayer's shapes and logical sharding axes (which the reference's
+inits return beside the tensors) come from one table, ``*_table(cfg)``,
+that the init and ``transformer.param_specs`` both read.
 
 The arithmetic follows the reference step for step, including where it
 rounds: norms in float32 and cast back; ``_gqa_attend``'s logits in the
@@ -57,13 +58,19 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None,
 # norms
 # --------------------------------------------------------------------------
 
-def init_norm(cfg: ModelConfig, dtype, *, device) -> dict:
+def norm_table(cfg: ModelConfig) -> dict:
+    """name -> (shape, logical axes) of a norm's parameters."""
     if cfg.nonparam_norm:
         return {}
-    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    t = {"scale": ((cfg.d_model,), ("embed",))}
     if cfg.use_layernorm:
-        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    return p
+        t["bias"] = ((cfg.d_model,), ("embed",))
+    return t
+
+
+def init_norm(cfg: ModelConfig, dtype, *, device) -> dict:
+    return {k: (torch.ones if k == "scale" else torch.zeros)(shp, dtype=dtype, device=device)
+            for k, (shp, _) in norm_table(cfg).items()}
 
 
 def apply_norm(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -119,21 +126,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # attention (GQA; global / local; prefill + decode)
 # --------------------------------------------------------------------------
 
+def attention_table(cfg: ModelConfig) -> dict:
+    """name -> (shape, logical axes) of a self-attention's parameters, in
+    the order ``init_attention`` draws them."""
+    d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    t = {"wq": ((d, h, hd), ("embed", "heads", "head_dim")),
+         "wk": ((d, g, hd), ("embed", "kv_heads", "head_dim")),
+         "wv": ((d, g, hd), ("embed", "kv_heads", "head_dim")),
+         "wo": ((h, hd, d), ("heads", "head_dim", "embed"))}
+    if cfg.qk_norm:
+        t["q_norm"] = ((hd,), ("head_dim",))
+        t["k_norm"] = ((hd,), ("head_dim",))
+    return t
+
+
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, *, device,
                    cross: bool = False) -> dict:
     if cross:
         raise unported("cross-attention (init_attention(cross=True))", "queue A item 21")
-    d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {
-        "wq": dense_init(gen, (d, h, hd), dtype, device=device),
-        "wk": dense_init(gen, (d, g, hd), dtype, device=device),
-        "wv": dense_init(gen, (d, g, hd), dtype, device=device),
-        "wo": dense_init(gen, (h, hd, d), dtype, fan_in=h * hd, device=device),
-    }
-    if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
-        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
-    return p
+    fan_in = {"wo": cfg.n_heads * cfg.hd}
+    return {k: (torch.ones(shp, dtype=dtype, device=device) if k.endswith("_norm") else
+                dense_init(gen, shp, dtype, fan_in=fan_in.get(k), device=device))
+            for k, (shp, _) in attention_table(cfg).items()}
 
 
 def _qkv(params, cfg: ModelConfig, x, kv_input, positions, kv_positions):
@@ -255,12 +269,19 @@ def attention_forward_collect(params, cfg: ModelConfig, x, *, kind: str = "attn"
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, cfg, x, x, positions, positions)
-    if cfg.attn_chunk and s > cfg.attn_chunk:
-        out = _flash_attend(cfg, q, k, v, kind=kind, q_chunk=cfg.attn_chunk,
-                            kv_chunk=cfg.attn_chunk, causal_skip=cfg.causal_skip)
-    else:
-        out = _gqa_attend(cfg, q, k, v, _self_mask(cfg, kind, s, x.device))
+    out = self_attend(cfg, q, k, v, kind=kind)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def self_attend(cfg: ModelConfig, q, k, v, *, kind: str):
+    """Causal self-attention of roped q (B,S,H,hd) over k/v (B,S,G,hd), H
+    and G as ``cfg`` gives them: the flash loop when the sequence is longer
+    than ``cfg.attn_chunk``, else the dense ``_gqa_attend``."""
+    s = q.shape[1]
+    if cfg.attn_chunk and s > cfg.attn_chunk:
+        return _flash_attend(cfg, q, k, v, kind=kind, q_chunk=cfg.attn_chunk,
+                             kv_chunk=cfg.attn_chunk, causal_skip=cfg.causal_skip)
+    return _gqa_attend(cfg, q, k, v, _self_mask(cfg, kind, s, q.device))
 
 
 def attention_forward(params, cfg: ModelConfig, x, *, kind: str = "attn",
@@ -323,14 +344,18 @@ def init_cross_cache(params, cfg: ModelConfig, encoder_out):
 # MLP (SwiGLU / GELU)
 # --------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
+def mlp_table(cfg: ModelConfig) -> dict:
+    """name -> (shape, logical axes) of the MLP's weights, in draw order."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.gelu_mlp:
-        return {"w_in": dense_init(gen, (d, f), dtype, device=device),
-                "w_out": dense_init(gen, (f, d), dtype, device=device)}
-    return {"w_gate": dense_init(gen, (d, f), dtype, device=device),
-            "w_up": dense_init(gen, (d, f), dtype, device=device),
-            "w_down": dense_init(gen, (f, d), dtype, device=device)}
+        return {"w_in": ((d, f), ("embed", "mlp")), "w_out": ((f, d), ("mlp", "embed"))}
+    return {"w_gate": ((d, f), ("embed", "mlp")), "w_up": ((d, f), ("embed", "mlp")),
+            "w_down": ((f, d), ("mlp", "embed"))}
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
+    return {k: dense_init(gen, shp, dtype, device=device)
+            for k, (shp, _) in mlp_table(cfg).items()}
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -368,12 +393,18 @@ def apply_moe(params, cfg: ModelConfig, x, shd=None):
 # embeddings / unembedding
 # --------------------------------------------------------------------------
 
-def init_embeddings(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
-    p = {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, fan_in=cfg.d_model,
-                           device=device)}
+def embedding_table(cfg: ModelConfig) -> dict:
+    """name -> (shape, logical axes) of the embeddings, in draw order."""
+    t = {"tok": ((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype, device=device)
-    return p
+        t["unembed"] = ((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return t
+
+
+def init_embeddings(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
+    fan_in = {"tok": cfg.d_model}
+    return {k: dense_init(gen, shp, dtype, fan_in=fan_in.get(k), device=device)
+            for k, (shp, _) in embedding_table(cfg).items()}
 
 
 def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -389,37 +420,48 @@ def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
-def chunked_xent(logits_fn, x, labels, mask, chunk: int = 512):
-    """Mean next-token cross-entropy over sequence chunks, so the (B, S, V)
-    logits are never all materialized (peak B·chunk·V): the sequence is
-    padded to a multiple of ``chunk``; per chunk, float32 logits, their
-    ``logsumexp``, the gold logit and the masked NLL; the sum over ``max(the
-    mask's sum, 1)``.  With gradients on, each chunk runs under a
-    (non-reentrant) checkpoint, so backward too holds one chunk's logits at
-    a time and recomputes them, where the reference's ``lax.map`` keeps its
-    residuals."""
-    b, s, _ = x.shape
+def chunked_nll(nll_fn, xs, labels, mask, chunk: int = 512):
+    """The masked next-token NLL summed over sequence chunks, and the
+    mask's sum: (Σ nll·mask, Σ mask).  Each tensor of ``xs`` (B, S, ...),
+    ``labels`` and ``mask`` is padded to a multiple of ``chunk`` along S;
+    ``nll_fn(*x_chunks, label_chunk)`` gives a chunk's per-token NLL.  With
+    gradients on, each chunk runs under a (non-reentrant) checkpoint, so
+    backward holds one chunk's logits at a time and recomputes them, where
+    the reference's ``lax.map`` keeps its residuals."""
+    s = labels.shape[1]
     chunk = min(chunk, s)
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
+        xs = [F.pad(x, (0, 0, 0, pad)) for x in xs]
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
 
-    def one(xi, li, mi):
-        logits = logits_fn(xi).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
-        nll = (lse - gold) * mi
+    def one(li, mi, *xi):
+        nll = nll_fn(*xi, li) * mi
         return nll.sum(), mi.sum()
 
     tot, cnt = [], []
     for i in range(n_chunks):
-        part = (x[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk],
-                mask[:, i * chunk:(i + 1) * chunk])
+        cut = slice(i * chunk, (i + 1) * chunk)
+        part = (labels[:, cut], mask[:, cut]) + tuple(x[:, cut] for x in xs)
         t, c = (checkpoint(one, *part, use_reentrant=False) if torch.is_grad_enabled()
                 else one(*part))
         tot.append(t)
         cnt.append(c)
-    return torch.stack(tot).sum() / torch.clamp(torch.stack(cnt).sum(), min=1.0)
+    return torch.stack(tot).sum(), torch.stack(cnt).sum()
+
+
+def chunked_xent(logits_fn, x, labels, mask, chunk: int = 512):
+    """Mean next-token cross-entropy over sequence chunks, so the (B, S, V)
+    logits are never all materialized (peak B·chunk·V): per chunk
+    (``chunked_nll``), float32 logits, their ``logsumexp``, the gold logit
+    and the masked NLL; the sum over ``max(the mask's sum, 1)``."""
+    def nll(xi, li):
+        logits = logits_fn(xi).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return lse - gold
+
+    tot, cnt = chunked_nll(nll, [x], labels, mask, chunk)
+    return tot / torch.clamp(cnt, min=1.0)

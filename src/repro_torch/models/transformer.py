@@ -193,6 +193,41 @@ def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
     return Transformer(cfg, embed, final_norm, layers)
 
 
+def _tables(cfg: ModelConfig) -> Params:
+    """The model's (shape, logical axes) pairs in ``Transformer.tree()``'s
+    layout, from the sublayers' tables."""
+    _check_supported(cfg)
+    layer = {"norm1": L.norm_table(cfg), "attn": L.attention_table(cfg),
+             "norm2": L.norm_table(cfg), "mlp": L.mlp_table(cfg)}
+    return {"embed": L.embedding_table(cfg), "final_norm": L.norm_table(cfg),
+            "layers": [layer for _ in layer_plan(cfg).kinds]}
+
+
+def _map_pairs(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_pairs(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_pairs(v, fn) for v in tree]
+    return fn(*tree)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The logical sharding axes of every parameter, a tuple of names per
+    dim, shaped like ``Transformer.tree()``: the reference's
+    ``init_params`` specs in the unstacked layout (its scanned leaves'
+    leading ``"layers"`` axis dropped)."""
+    return _map_pairs(_tables(cfg), lambda shape, axes: tuple(axes))
+
+
+def param_shapes(cfg: ModelConfig, dtype=None) -> Params:
+    """Every parameter as a ``meta`` tensor (shape and dtype, no storage),
+    shaped like ``Transformer.tree()``; ``dtype`` defaults to
+    ``cfg.param_dtype``."""
+    dt = torch_dtype(cfg.param_dtype) if dtype is None else dtype
+    return _map_pairs(_tables(cfg),
+                      lambda shape, axes: torch.empty(shape, dtype=dt, device="meta"))
+
+
 def _layer_sources(cfg: ModelConfig):
     """For each layer in execution order: (kind, where its parameters sit
     in the reference's tree) — ("blocks", pattern position, group) or

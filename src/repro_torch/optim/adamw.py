@@ -67,20 +67,29 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """``tree`` scaled so its global norm is at most ``max_norm``, and that
+    norm (``norm`` when the caller has it: the sharded step counts each
+    element once where ``tree`` holds replicas)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+    return tree_map(lambda g: (g.float() * scale.to(g.device)).to(g.dtype), tree), norm
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: OptConfig):
+def adamw_update(grads, opt_state, params, cfg: OptConfig, *, grad_norm=None):
     """One AdamW step.  Writes ``params`` and the moments in place and
-    returns (params, new_opt_state, metrics) as the reference does."""
+    returns (params, new_opt_state, metrics) as the reference does.
+
+    The update is elementwise, so the sharded step passes flat lists of
+    every slot's blocks (replicas included) with ``grad_norm``, the global
+    norm counting each element once; the clip and the ``grad_norm`` metric
+    use it.  The learning rate lives on ``count``'s device and is moved to
+    each block's."""
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
     count = opt_state["count"] + 1
     lr = warmup_cosine(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
@@ -92,9 +101,9 @@ def adamw_update(grads, opt_state, params, cfg: OptConfig):
         g32 = g.float()
         mu32 = b1 * mu.float() + (1 - b1) * g32
         nu32 = b2 * nu.float() + (1 - b2) * g32 * g32
-        step = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + cfg.eps)
+        step = (mu32 / bc1.to(p.device)) / (torch.sqrt(nu32 / bc2.to(p.device)) + cfg.eps)
         step = step + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
+        p.copy_(p.float() - lr.to(p.device) * step)
         mu.copy_(mu32)
         nu.copy_(nu32)
 

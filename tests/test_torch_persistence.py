@@ -23,6 +23,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import HybridConfig
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.runtime import KNNIndex, ShardedKNNIndex
+from repro_torch.sharding import NamedSharding, PartitionSpec
 from test_projection_front import _lowrank
 from test_torch_mutation import _match
 from test_torch_projection import _hold
@@ -141,9 +142,9 @@ def test_load_of_unported_generations_and_mesh_raise(tmp_path):
     """A generation loads onto a CPU mesh as a ``ShardedKNNIndex`` answering
     bit-identically, and a generation saved by the JAX package's sharded
     index loads into the port's, on a mesh and without one; a mesh that is
-    not a ``Mesh`` is a ``TypeError``; the manager's ``restore(mesh=)`` (the
-    trainer's elastic restart onto a mesh) still raises, naming queue A
-    item 18.
+    not a ``Mesh`` is a ``TypeError``; the manager's ``restore(shardings=)``
+    (the trainer's elastic restart onto a mesh) lays a saved array onto a
+    slot mesh bit for bit, and refuses ``device=`` beside it.
     Projected generations (l2 over a PCA fit, ip over the MIPS fit) cross
     between the packages in both directions with their fitted map and the
     same answers."""
@@ -158,8 +159,14 @@ def test_load_of_unported_generations_and_mesh_raise(tmp_path):
     np.testing.assert_array_equal(got.dists, want.dists)
     with pytest.raises(TypeError, match="got object"):
         KNNIndex.load(str(tmp_path), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 18"):
-        CheckpointManager(str(tmp_path)).restore({"points_r": 0}, mesh=object())
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    mgr.save(0, {"points_r": db})
+    row = NamedSharding(make_serving_mesh(2, axis="data", device="cpu"), PartitionSpec("data"))
+    placed, _, _ = mgr.restore({"points_r": 0}, shardings=row)
+    assert [tuple(b.shape) for b in placed["points_r"].blocks] == [(150, db.shape[1])] * 2
+    np.testing.assert_array_equal(placed["points_r"].gather().numpy(), db)
+    with pytest.raises(ValueError, match="not both"):
+        mgr.restore({"points_r": 0}, shardings=row, device="cpu")
     # A JAX ShardedKNNIndex's generation (a one-device mesh on this process),
     # dirty, loads into the port with and without a mesh.
     from repro.launch.mesh import make_serving_mesh as jax_serving_mesh
