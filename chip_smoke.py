@@ -189,11 +189,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          restore seconds and bytes.
   (t)    the sharded train step on a 2 × 4 mesh of logical slots, all on
          ``cuda:0`` (``make_host_mesh(4, slots=8)``; no kernel of ``csrc/``
-         runs on it).  (t1) olmo_1b's published config from seed 0 placed by
-         ``build_train``'s shardings (every weight split four ways over
-         "model", replicated over the two data slots; each slot's bytes of
-         masters and moments checked against the spec's share), batch 4 ×
-         seq 4,096, 6 steps: every loss finite and falling, step 1 against
+         runs on it).  (t1) olmo_1b's width (d_model 2,048, 16 heads, d_ff
+         8,192, vocab 50,304) at depth 8 (cut from 16 to make room for (u))
+         from seed 0, placed by ``build_train``'s shardings (every weight
+         split four ways over "model", replicated over the two data slots;
+         each slot's bytes of masters and moments checked against the spec's
+         share), batch 4 × seq 4,096, 6 steps: every loss finite and falling, step 1 against
          the one-device step of the same weights and batch (|Δloss|,
          grad_norm gap, and the masters after it within two learning-rate
          steps, at most ``SPMD_FLIP_SHARE`` of them apart by more than one);
@@ -206,6 +207,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          with ``shardings=`` onto a 4 × 2 mesh and onto one device, bit for
          bit; two more steps on 4 × 2 within (s1)'s tolerances of the same
          steps on 2 × 4.
+  (u)    the sharded serving steps on the same 2 × 4 slots at olmo_1b's full
+         width with bf16 weights from seed 0 (no kernel of ``csrc/`` runs on
+         it).  (u1) ``build_prefill``'s step on a 2 × 16,384 prompt
+         (``prefill_32k``, batch cut 32 → 2, prompt 32,768 → 16,384), three
+         times: the first run's
+         last logits and cache (each layer gathered) held to the one-device
+         ``transformer.prefill`` of the same weights (``SERVE_LOGIT_ATOL``,
+         ``SERVE_KV_RTOL``); each run timed.  (u2) ``build_decode``'s step
+         (``decode_32k``, batch cut 128 → 4) over a seeded cache of 32,768
+         positions placed by ``cache_shapes_and_shardings``, 16 steps from
+         pos 32,752, each step's logits and written K/V held to the
+         one-device ``decode_step`` on the global copy of the cache; step
+         times and tokens/s, the last step under ``torch.profiler`` (busy
+         share, ``spmd.collective`` device time).  (u3) ``dryrun``'s records
+         of the two cells on a 2 × 4 mesh of ``meta`` slots: per-slot argument
+         and output bytes equal to the card's blocks, the analytic FLOPs and
+         HBM bytes, the counted collectives, and the roofline of eight slots
+         on one card beside the measured times.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -215,7 +234,7 @@ its brute call over the 5M corpus.
 
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
-(s2), (t1) and (t2) —
+(s2), (t1), (t2), (u1) and (u2) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -313,6 +332,7 @@ DRILL_EVERY = 5                    # --checkpoint-every
 DRILL_FAULT = 7                    # --inject-fault
 SPMD_MODEL = 4                     # (t): make_host_mesh(model=4, slots=8), 2 × 4 slots on cuda:0
 SPMD_SLOTS = 8
+SPMD_LAYERS = 8                    # (t1): olmo_1b's width, depth cut 16 → 8 (room for (u))
 SPMD_STEPS = 6
 SPMD_MORE = 2                      # (t2): steps after the elastic restore, 4 × 2 against 2 × 4
 # (t1) step 1 on the 2 × 4 slots against the one-device step, both in bf16
@@ -328,6 +348,32 @@ SPMD_MORE = 2                      # (t2): steps after the elastic restore, 4 ×
 # whose gradient were lost or taken from another shard would move all of it.
 SPMD_MASTER_ATOL = 1e-6
 SPMD_FLIP_SHARE = 0.05
+SERVE_SEED = 0                     # (u): bf16 weights, prompt, cache and tokens
+SERVE_PROMPT = 16_384              # (u1): prefill_32k's prompt cut 32,768 → 16,384: uncut, (u)
+                                   # took 299.6 s alone on an H100, past its 150 s
+SERVE_PREFILL_BATCH = 2            # (u1): prefill_32k's global batch 32 cut to 2 (one card)
+SERVE_PREFILL_RUNS = 3             # (u1): timed sharded prefills (the first one checked)
+SERVE_CACHE = 32_768               # (u2): decode_32k's cache, uncut
+SERVE_DECODE_BATCH = 4             # (u2): decode_32k's global batch 128 cut to 4
+SERVE_STEPS = 16                   # (u2): decode steps from pos = SERVE_CACHE − SERVE_STEPS
+# (u) the sharded serving steps against the one-device functions, both in
+# bf16 from the same bf16 weights.  As in (t1), the slot program rounds in
+# other places than the one-device step (each row-parallel partial rounded
+# to bf16 and summed in float32; its per-head GEMMs), a subset of the
+# roundings by which a bf16 forward differs from a float32 one.  At this
+# width (r) measured that difference at 0.10 in the logits (max |Δ| over
+# 40 logit rows, |logit| ≤ 4.9; two bf16 orders 0.07 apart): the logits stay
+# within SERVE_LOGIT_ATOL, 5× that, and the argmax agrees wherever the
+# reference's top two are further apart than twice the gap.  Cached K/V: the
+# gap grows with depth (a CPU rehearsal at width 128 and 4 layers: relative
+# RMS 0.7 % at layer 1, 1.2 % at layer 3; √depth to 16 layers ≈ 3 %), so a
+# layer's relative RMS gap stays within SERVE_KV_RTOL (4× that); the first
+# layer's within SERVE_KV0_RTOL (one projection of the same embedding: a
+# GEMM's summation order at most).  A misplaced block, head or vocab slice
+# moves its values by their own scale (relative gap ~1.4).
+SERVE_LOGIT_ATOL = 0.5
+SERVE_KV_RTOL = 2.0 ** -3
+SERVE_KV0_RTOL = 2.0 ** -7
 
 
 def log(msg: str) -> None:
@@ -1272,10 +1318,47 @@ def device_time(prof, skip=()):
     return by_name
 
 
+def profiled(fn):
+    """One call of ``fn`` under ``torch.profiler``: (fn(), seconds on the host
+    clock, the card's busy ms, the device ms under the outermost
+    ``spmd.collective`` ranges, the number of ranges, the six largest
+    kernels by device ms)."""
+    import torch
+    from repro_torch.models import spmd
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out, sec = synced(fn)
+    by_name = device_time(prof, skip=(spmd.COLLECTIVE,))
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == spmd.COLLECTIVE:
+                return True
+            p = p.cpu_parent
+        return False
+
+    ranges = [e for e in prof.events()
+              if e.name == spmd.COLLECTIVE and e.device_type == torch.autograd.DeviceType.CPU]
+    coll = sum(e.device_time_total for e in ranges if not nested(e)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return out, sec, sum(by_name.values()), coll, len(ranges), top
+
+
+def profile_line(sec, busy, coll, n_ranges, top) -> str:
+    return (f"the card busy {busy:.1f} ms of the step's {sec * 1e3:.1f} ms (busy share "
+            f"{busy / (sec * 1e3):.3f}); collectives ({n_ranges} spmd.collective ranges) " +
+            (f"{coll:.1f} ms of device time ({coll / busy:.4f} of busy)" if coll > 0 else
+             "not measured (no device time under the ranges)") + "; by kernel: " +
+            "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
+
+
 def sharded_train_phase(dev, reset_counts, read_counts, s1):
     """(t) the sharded train step at olmo_1b's full width on a 2 × 4 mesh of
     logical slots on cuda:0: (t1) SPMD_STEPS steps of ``build_train``'s step
-    from seed TRAIN_SEED, step 1 held to the one-device step; (t2)
+    at depth SPMD_LAYERS from seed TRAIN_SEED, step 1 held to the one-device
+    step; (t2)
     ``launch/train.py`` on the 2 × 4 slots at depth DRILL_LAYERS with a
     fault drill, the latest save restored onto 4 × 2 and onto one device."""
     import dataclasses
@@ -1290,7 +1373,6 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     from repro_torch.data import TokenPipeline
     from repro_torch.launch import steps, train
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import spmd
     from repro_torch.models import transformer as lm
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.sharding import NamedSharding, PartitionSpec
@@ -1301,8 +1383,8 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     log(f"[t] device memory held from earlier phases: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    # -- (t1) the published config on 2 × 4 slots ---------------------------------
-    cfg = get_config("olmo_1b")
+    # -- (t1) olmo_1b's width at depth SPMD_LAYERS on 2 × 4 slots -----------------
+    cfg = dataclasses.replace(get_config("olmo_1b"), n_layers=SPMD_LAYERS)
     shape = SHAPES["train_4k"]
     mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
     assert mesh.sizes == (SPMD_SLOTS // SPMD_MODEL, SPMD_MODEL)
@@ -1345,9 +1427,10 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     b_master, w_master, g_master = slot_bytes(state["params"])
     b_mom, w_mom, g_mom = slot_bytes([state["opt"]["mu"], state["opt"]["nu"]])
     specs = sorted({str(a.sharding.spec) for a in tree_leaves(state["params"])})
-    log(f"[t1] {cfg.name} on a {mesh.sizes[0]} × {mesh.sizes[1]} mesh of {SPMD_SLOTS} slots "
-        f"({dict(mesh.shape)}), batch {TRAIN_BATCH} × seq {pipe.seq} = {tokens} tokens a step "
-        f"(no cut), {pipe.seq} tokens × {TRAIN_BATCH // mesh.sizes[0]} rows a data group; "
+    log(f"[t1] {cfg.name} (depth cut 16 → {cfg.n_layers} layers, width kept) on a "
+        f"{mesh.sizes[0]} × {mesh.sizes[1]} mesh of {SPMD_SLOTS} slots "
+        f"({dict(mesh.shape)}), batch {TRAIN_BATCH} × seq {pipe.seq} = {tokens} tokens a step, "
+        f"{pipe.seq} tokens × {TRAIN_BATCH // mesh.sizes[0]} rows a data group; "
         f"specs {specs}; per slot: masters {b_master[0]} B (global {g_master} B / shard factor "
         f"= {w_master}), moments {b_mom[0]} B (global {g_mom} / factor = {w_mom}); all slots: "
         f"masters {sum(b_master) / 2**30:.3f} GiB, moments {sum(b_mom) / 2**30:.3f} GiB")
@@ -1400,32 +1483,10 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     # the device time of the collectives (spmd.collective ranges: the
     # broadcasts, row-parallel sums, vocab-parallel combines, their
     # backwards and the gradient sum over replicas).
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     batch = pipe.next_batch(dev)
-    with torch.profiler.profile(activities=acts) as prof:
-        (state, _), sec = synced(lambda: step(state, batch))
-    by_name = device_time(prof, skip=(spmd.COLLECTIVE,))
-    busy = sum(by_name.values())
-
-    def nested(e):
-        p = e.cpu_parent
-        while p is not None:
-            if p.name == spmd.COLLECTIVE:
-                return True
-            p = p.cpu_parent
-        return False
-
-    ranges = [e for e in prof.events()
-              if e.name == spmd.COLLECTIVE and e.device_type == torch.autograd.DeviceType.CPU]
-    coll = sum(e.device_time_total for e in ranges if not nested(e)) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[t1] one step under torch.profiler: the card busy {busy:.1f} ms of the step's "
-        f"{sec * 1e3:.1f} ms (busy share {busy / (sec * 1e3):.3f}); collectives "
-        f"({len(ranges)} spmd.collective ranges) " +
-        (f"{coll:.1f} ms of device time ({coll / busy:.4f} of busy)" if coll > 0 else
-         "not measured (no device time under the ranges)") + "; by kernel: " +
-        "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
-    del state, batch0, batch, pipe, step, prof, ranges
+    (state, _), *prof = profiled(lambda: step(state, batch))
+    log(f"[t1] one step under torch.profiler: {profile_line(*prof)}")
+    del state, batch0, batch, pipe, step, prof
     torch.cuda.empty_cache()
 
     # -- (t2) launch/train.py on 2 × 4 slots, the fault drill, the elastic restore --
@@ -1435,7 +1496,7 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
              "--seq", str(DRILL_SEQ), "--checkpoint-every", str(DRILL_EVERY), "--device", "cuda",
              "--model-axis", str(SPMD_MODEL), "--slots", str(SPMD_SLOTS)]
     log(f"[t2] launch/train.py on {SPMD_SLOTS} slots (--model-axis {SPMD_MODEL}) at olmo_1b's "
-        f"width with n_layers cut {cfg.n_layers} → {DRILL_LAYERS}, seq {DRILL_SEQ}, batch "
+        f"width with n_layers cut to {DRILL_LAYERS}, seq {DRILL_SEQ}, batch "
         f"{DRILL_BATCH}, {DRILL_STEPS} steps, a checkpoint every {DRILL_EVERY}, deterministic "
         f"algorithms on")
     loads = Spy(CheckpointManager, "restore", keep=False)
@@ -1511,6 +1572,198 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     del state, on42
     torch.cuda.empty_cache()
     log(f"[t] phase {time.perf_counter() - t_t:.2f}s")
+
+
+def sharded_serve_phase(dev, reset_counts, read_counts):
+    """(u) olmo_1b's sharded serving steps at full width on a 2 × 4 mesh of
+    logical slots on cuda:0, bf16 weights from seed SERVE_SEED: (u1)
+    ``build_prefill``'s step on a SERVE_PREFILL_BATCH × SERVE_PROMPT prompt,
+    (u2) ``build_decode``'s step for SERVE_STEPS steps over a seeded cache of
+    SERVE_CACHE positions, each held to the one-device function; (u3) the
+    dry run's records of the two cells on the same mesh, traced on ``meta``,
+    beside what the card holds and takes.  Returns the phase's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.hlo_analysis import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    t_u = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[u] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = dataclasses.replace(get_config("olmo_1b"), param_dtype="bfloat16")
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    assert set(mesh.slot_devices) == {str(dev) if dev.type == "cpu" else "cuda:0"}
+    n = SPMD_SLOTS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_SEED)
+    model = lm.init_params(gen, cfg, device=dev)
+
+    def slot_bytes(*trees):
+        arrs = tree_leaves(list(trees))
+        return [sum(a.slot_nbytes(s) for a in arrs) for s in range(n)]
+
+    def rel_rms(got, want):
+        d = (got.float() - want.float()).pow(2).mean().sqrt()
+        return (d / want.float().pow(2).mean().sqrt()).item()
+
+    def hold_logits(what, got, want):
+        gap = (got.float() - want.float()).abs().max().item()
+        top2 = want.float().topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * gap
+        agree = (got.float().argmax(-1) == want.float().argmax(-1))
+        assert gap <= SERVE_LOGIT_ATOL, f"{what}: logits {gap} from the one-device function's"
+        assert bool(agree[clear].all()), f"{what}: an argmax differs away from a tie"
+        return gap, int(agree.sum()), int(clear.sum())
+
+    # -- (u1) the sharded prefill ----------------------------------------------------
+    p_shape = ShapeConfig("prefill_32k", "prefill", SERVE_PROMPT, SERVE_PREFILL_BATCH)
+    prefill, _, (p_sh, b_sh) = steps.build_prefill(cfg, p_shape, mesh)
+    params = steps.place(model.tree(), p_sh)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_PREFILL_BATCH, SERVE_PROMPT),
+                           generator=gen, device=dev)
+    batch = steps.place({"tokens": tokens}, b_sh)
+    card_p = slot_bytes(params, batch)
+    log(f"[u1] olmo_1b's full width (16 layers, d_model 2048, vocab 50304, bf16 weights and "
+        f"activations, attn_chunk 1024) on {mesh.sizes[0]} × {mesh.sizes[1]} slots; prompt "
+        f"{SERVE_PREFILL_BATCH} × {SERVE_PROMPT} (prefill_32k, batch cut 32 → "
+        f"{SERVE_PREFILL_BATCH}, prompt 32768 → {SERVE_PROMPT}); per slot {card_p[0]} B of "
+        f"weights and tokens")
+    torch.cuda.reset_peak_memory_stats()
+    (ref_logits, ref_cache), ref_s = synced(lambda: lm.prefill(model, cfg, tokens, SERVE_PROMPT))
+    reset_counts()
+    secs = []
+    for i in range(SERVE_PREFILL_RUNS):
+        out, sec = synced(lambda: prefill(params, batch))
+        secs.append(sec)
+        if i == 0:
+            logits, cache = out
+            card_out_p = [logits.slot_nbytes(s) + sum(
+                a.slot_nbytes(s) for layer in cache for a in layer["kv"].values())
+                for s in range(n)]
+            gap, agree, clear = hold_logits("(u1)", logits.gather(), ref_logits)
+            kv_gaps = [max(rel_rms(c["kv"][k].gather(), r["kv"][k]) for k in ("k", "v"))
+                       for c, r in zip(cache, ref_cache)]
+            del logits, cache
+        del out
+    read_counts("(u1) sharded prefill (no custom kernel on this path)")
+    peak_p = torch.cuda.max_memory_allocated()
+    med_p = float(np.median(secs))
+    log(f"[u1] prefill: sharded {', '.join(f'{t:.3f}' for t in secs)} s (median {med_p:.3f} s, "
+        f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / med_p:.1f} tokens/s), one-device {ref_s:.3f} s; "
+        f"last logits max |Δ| {gap:.4f} (≤ {SERVE_LOGIT_ATOL}), argmax equal in {agree} of "
+        f"{SERVE_PREFILL_BATCH} rows ({clear} clear of a tie); cache relative RMS gap by layer "
+        f"{', '.join(f'{g:.2e}' for g in kv_gaps)} (layer 0 ≤ {SERVE_KV0_RTOL:.2e}, all ≤ "
+        f"{SERVE_KV_RTOL:.2e}); peak device memory {peak_p / 2**30:.2f} GiB")
+    assert kv_gaps[0] <= SERVE_KV0_RTOL and max(kv_gaps) <= SERVE_KV_RTOL, \
+        "(u1) the sharded cache strays from the one-device prefill's"
+    del ref_logits, ref_cache, batch, tokens
+    torch.cuda.empty_cache()
+
+    # -- (u2) the sharded decode over a seeded cache ----------------------------------
+    d_shape = ShapeConfig("decode_32k", "decode", SERVE_CACHE, SERVE_DECODE_BATCH)
+    step, _, (p_sh2, tok_sh, c_sh, pos_sh) = steps.build_decode(cfg, d_shape, mesh)
+    assert [a.spec for a in tree_leaves(p_sh2)] == [a.spec for a in tree_leaves(p_sh)]
+    ref_cache = [{"kv": {k: torch.randn(v.shape, generator=gen, device=dev, dtype=v.dtype)
+                         for k, v in layer["kv"].items()}}
+                 for layer in lm.cache_shapes(cfg, SERVE_DECODE_BATCH, SERVE_CACHE)]
+    placed = steps.place(ref_cache, c_sh)
+    pos0 = SERVE_CACHE - SERVE_STEPS
+    cache_gb = sum(x.numel() * x.element_size() for x in tree_leaves(ref_cache)) / 1e9
+    log(f"[u2] decode_32k (batch cut 128 → {SERVE_DECODE_BATCH}): a seeded cache of "
+        f"{SERVE_CACHE} positions, {cache_gb:.2f} GB, placed as {c_sh[0]['kv']['k'].spec}, beside "
+        f"the one-device copy: 2 × {cache_gb:.2f} GB of caches + "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB of "
+        f"weights on one device + {sum(slot_bytes(params)) / 1e9:.2f} GB placed (one copy a "
+        f"data group) < 80 GB; {SERVE_STEPS} steps from pos {pos0}")
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_STEPS, SERVE_DECODE_BATCH), generator=gen,
+                         device=dev)
+
+    def kv_at(arr, at):
+        out = torch.empty((arr.shape[0],) + tuple(arr.shape[2:]), dtype=arr.dtype, device=dev)
+        for s, b in enumerate(arr.blocks):
+            sl = arr.sharding.slices(s, arr.shape)
+            if sl[1].start <= at < sl[1].stop:
+                out[sl[0], sl[2]] = b[:, at - sl[1].start]
+        return out
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    d_secs, ref_secs, gaps, kv_step = [], [], [], []
+    prof = None
+    for i in range(SERVE_STEPS):
+        pos = pos0 + i
+        tok = tok_sh.place(toks[i])
+        pos_t = pos_sh.place(torch.tensor(pos, dtype=torch.int32))
+        if i == 0:
+            card_d = slot_bytes(params, tok, placed, pos_t)
+        if i == SERVE_STEPS - 1:
+            (logits, placed), *prof = profiled(lambda: step(params, tok, placed, pos_t))
+        else:
+            (logits, placed), sec = synced(lambda: step(params, tok, placed, pos_t))
+            d_secs.append(sec)
+        (want, ref_cache), rsec = synced(lambda: lm.decode_step(model, cfg, toks[i], ref_cache,
+                                                                pos))
+        ref_secs.append(rsec)
+        gaps.append(hold_logits(f"(u2) step {i + 1}", logits.gather(), want)[0])
+        kv_step.append(max(rel_rms(kv_at(c["kv"][k], pos), r["kv"][k][:, pos])
+                           for c, r in zip(placed, ref_cache) for k in ("k", "v")))
+    card_out_d = [logits.slot_nbytes(s) + sum(a.slot_nbytes(s) for layer in placed
+                                              for a in layer["kv"].values()) for s in range(n)]
+    read_counts("(u2) sharded decode (no custom kernel on this path)")
+    peak_d = torch.cuda.max_memory_allocated()
+    med_d = float(np.median(d_secs[1:]))
+    log(f"[u2] decode: sharded step median {med_d * 1e3:.3f} ms over steps 2–"
+        f"{SERVE_STEPS - 1} [{min(d_secs[1:]) * 1e3:.3f}–{max(d_secs[1:]) * 1e3:.3f}], the "
+        f"first {d_secs[0] * 1e3:.3f} ms, {SERVE_DECODE_BATCH / med_d:.1f} tokens/s; one-device "
+        f"step median {float(np.median(ref_secs[1:])) * 1e3:.3f} ms; logits max |Δ| by step "
+        f"{', '.join(f'{g:.4f}' for g in gaps)} (≤ {SERVE_LOGIT_ATOL}); the written K/V's "
+        f"largest relative RMS gap {max(kv_step):.2e} (≤ {SERVE_KV_RTOL:.2e}); peak device "
+        f"memory {peak_d / 2**30:.2f} GiB")
+    log(f"[u2] step {SERVE_STEPS} under torch.profiler: {profile_line(*prof)}")
+    assert max(kv_step) <= SERVE_KV_RTOL, "(u2) a written K/V strays from the one-device step's"
+    del placed, ref_cache, params, model, logits, want
+    torch.cuda.empty_cache()
+
+    # -- (u3) the dry run's records of the two cells beside the card ---------------
+    meta_mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device="meta")
+    recs = {}
+    for name, shape, card_in, card_out in (("prefill", p_shape, card_p, card_out_p),
+                                           ("decode", d_shape, card_d, card_out_d)):
+        rec = dryrun.record_cell("olmo_1b", shape, meta_mesh, cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        ma, an, rl = rec["memory_analysis"], rec["analytic"], rec["roofline"]
+        t_card = n * max(rl["t_compute_s"], rl["t_memory_s"])
+        t_coll = n * rec["collective_bytes_weighted"]["total"] / HBM_BW
+        log(f"[u3] {name}: dry run traced in {rec['t_lower_s']:.2f} s (depths "
+            f"{rec['trace']['depths']}); per slot: arguments {ma['argument_size_in_bytes']} B "
+            f"(on the card {card_in[0]}), outputs {ma['output_size_in_bytes']} B (on the card "
+            f"{card_out[0]}); analytic per slot {an['flops_per_device']:.4e} FLOP, "
+            f"{an['hbm_bytes_per_device']:.4e} HBM B; collectives per slot "
+            f"{rec['collective_bytes_weighted']} ({rec['collective_counts']} once); roofline "
+            f"per slot {rl['t_compute_s']:.4e} s compute, {rl['t_memory_s']:.4e} s memory, "
+            f"{rl['t_collective_s']:.4e} s NVLink ({rl['dominant']}-bound); {n} slots on one "
+            f"card: {t_card * 1e3:.3f} ms at {PEAK_FLOPS / 1e12:.0f} TFLOP/s and "
+            f"{HBM_BW / 1e12:.2f} TB/s (+ {t_coll * 1e3:.3f} ms if the collectives' bytes were "
+            f"HBM copies)")
+        assert card_in == [ma["argument_size_in_bytes"]] * n, \
+            f"(u3) the {name} cell's per-slot argument bytes differ from the card's"
+        assert card_out == [ma["output_size_in_bytes"]] * n, \
+            f"(u3) the {name} cell's per-slot output bytes differ from the card's"
+        recs[name] = t_card
+    log(f"[u3] measured beside the bound of 8 slots on one card: prefill {med_p:.3f} s against "
+        f"{recs['prefill']:.4f} s ({med_p / recs['prefill']:.1f}×), a decode step "
+        f"{med_d * 1e3:.3f} ms against {recs['decode'] * 1e3:.3f} ms "
+        f"({med_d / recs['decode']:.1f}×), {SERVE_DECODE_BATCH / med_d:.1f} tokens/s; decode "
+        f"busy share {prof[1] / (prof[0] * 1e3):.3f}, spmd.collective {prof[2]:.1f} ms")
+    log(f"[u] phase {time.perf_counter() - t_u:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -3089,6 +3342,9 @@ def main(argv=None) -> int:
 
     # -- path 16: (t) the sharded train step on 2 × 4 slots at olmo_1b's width --
     sharded_train_phase(dev, reset_counts, read_counts, s1)
+
+    # -- path 17: (u) the sharded serving steps and the dry run at olmo_1b's width --
+    sharded_serve_phase(dev, reset_counts, read_counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

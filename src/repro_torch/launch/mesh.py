@@ -11,6 +11,14 @@ No ``torch.distributed`` process group is involved.
 Slot (r, s) of an (r × n) mesh lives on card ``(r·n + s) mod
 torch.cuda.device_count()``, so on a machine with one card every slot is
 ``cuda:0``; ``device="cpu"`` puts every slot on the CPU (tests).
+
+``make_production_mesh`` gives the reference's 256-slot (16, 16) and
+512-slot (2, 16, 16) meshes.  The mesh constructors also take
+``device="meta"``: every slot then holds tensors without storage, which is
+how the dry run (``launch/dryrun.py``) traces a step for a pod's worth of
+slots on one host.  Only these constructors accept ``"meta"``; every entry
+point that computes resolves its device through ``utils.resolve_device``,
+which refuses it.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.utils import resolve_device, unported
+from repro_torch.utils import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,16 +73,25 @@ def _card_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def _mesh_device(device) -> torch.device:
+    """``resolve_device``, and ``"meta"`` for the dry run's slots."""
+    return torch.device("meta") if str(device) == "meta" else resolve_device(device)
+
+
 def _slots(dev: torch.device, n_slots: int) -> Tuple[str, ...]:
-    if dev.type == "cpu":
-        return ("cpu",) * n_slots
+    if dev.type in ("cpu", "meta"):
+        return (dev.type,) * n_slots
     count = _card_count(dev)
     return tuple(f"cuda:{i % count}" for i in range(n_slots))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The dry run's 256/512-chip TPU pod mesh has no counterpart yet."""
-    raise unported("make_production_mesh (the dry run)", "queue A item 18b")
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """The reference's pod meshes: (16, 16) ``("data", "model")``, or with
+    ``multi_pod`` (2, 16, 16) ``("pod", "data", "model")``, as logical
+    slots wrapped onto ``device``'s cards (``"meta"`` for the dry run)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(axes, shape, _slots(_mesh_device(device), int(np.prod(shape))))
 
 
 def make_host_mesh(model: int = 1, *, device="cuda", slots=None) -> Mesh:
@@ -86,7 +103,7 @@ def make_host_mesh(model: int = 1, *, device="cuda", slots=None) -> Mesh:
     ``--xla_force_host_platform_device_count``: the slots wrap onto the
     cards as ``make_serving_mesh``'s do, so ``make_host_mesh(4, slots=8)``
     on one card is a 2 × 4 mesh of eight ``cuda:0`` slots."""
-    dev = resolve_device(device)
+    dev = _mesh_device(device)
     n = _card_count(dev) if slots is None else int(slots)
     data = n // model
     if data < 1 or (slots is not None and n % model):

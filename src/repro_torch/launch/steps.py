@@ -17,11 +17,19 @@ the slots holding that block (the data-axis mean of the loss's gradient,
 as the loss is the global mean), and AdamW runs per block with the global
 gradient norm counting each element once.
 
-``build_train`` returns the step with its input specs (``meta`` tensors:
-shapes and dtypes, no storage) and ``NamedSharding`` trees, as the
-reference's does for ``jax.jit``; ``params_specs`` / ``state_specs`` give
-the specs.  ``build_prefill``, ``build_decode`` and ``build_cell`` (the dry
-run's lowering) raise until ROADMAP queue A item 18b.
+``build_train``, ``build_prefill`` and ``build_decode`` return a step
+with its input specs (``meta`` tensors: shapes and dtypes, no storage) and
+``NamedSharding`` trees, as the reference's do for ``jax.jit``;
+``params_specs`` / ``state_specs`` / ``cache_shapes_and_shardings`` give the
+specs, ``place`` lays a tree onto its shardings, and ``build_cell``
+dispatches on the shape's kind.  The serving steps take parameters placed
+on a slot mesh (``models/spmd.prefill`` / ``decode_step``: logits placed as
+``("act_batch", "act_vocab")``, the cache placed by
+``transformer.cache_specs``).  Every step runs alike on concrete placed
+tensors (the card's
+slots, CPU slots) and on ``meta`` slots, which is how ``launch/dryrun.py``
+traces a cell.  Token ids are int64 here, where the reference's are int32
+(``TokenPipeline`` gives int64).
 """
 from __future__ import annotations
 
@@ -32,8 +40,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig, torch_dtype
 from repro_torch.models import spmd, transformer
 from repro_torch.optim import OptConfig, adamw_update
-from repro_torch.sharding import ShardingCtx, SlotArray
-from repro_torch.utils import tree_leaves, tree_map, unported
+from repro_torch.sharding import NamedSharding, PartitionSpec, ShardingCtx, SlotArray
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
@@ -127,11 +135,21 @@ def _slot_grads(params, cfg: ModelConfig, batch):
         loss, metrics = spmd.loss_fn(params, cfg, batch)
         flat = list(torch.autograd.grad(loss, masters, allow_unused=True,
                                         materialize_grads=True))
+    # A leaf of a scanned layer past the first group: its gradient sum is
+    # a repeat of the scan body's in the record of collectives.
+    plan = transformer.layer_plan(cfg)
+    lp = len(plan.pattern)
+    repeats = [False] * len(tree_leaves([params["embed"], params["final_norm"]])) + [
+        plan.n_groups > 0 and lp <= i < plan.n_groups * lp
+        for i, layer in enumerate(params["layers"]) for _ in tree_leaves(layer)]
     out = []
     with torch.no_grad(), torch.profiler.record_function(spmd.COLLECTIVE):
-        for a in arrs:
+        for a, repeat in zip(arrs, repeats):
             g, flat[:len(a.blocks)] = flat[:len(a.blocks)], []
             for group in a.sharding.replica_groups(len(a.shape)):
+                if len(group) > 1:
+                    spmd.note("all-reduce", g[group[0]].numel() * g[group[0]].element_size(),
+                              group, repeat)
                 acc = g[group[0]]
                 for s in group[1:]:
                     acc = acc + g[s].to(acc.device)
@@ -145,6 +163,7 @@ def _slot_norm(arrs, grads) -> torch.Tensor:
     """The global norm of the gradient, each element counted once: one
     holder per block."""
     dev = arrs[0].sharding.device(0)
+    spmd.note("all-reduce", 4, range(arrs[0].sharding.n_slots))
     total = None
     for a, g in zip(arrs, grads):
         for group in a.sharding.replica_groups(len(a.shape)):
@@ -176,11 +195,12 @@ def _slot_train_step(cfg: ModelConfig, opt_cfg: OptConfig, state, batch):
             loss = l / micro if loss is None else loss + l / micro
     gnorm = _slot_norm(arrs, grads)
     count = state["opt"]["count"]
-    flat = lambda t: [b for a in tree_leaves(t) for b in a.blocks]
-    _, opt, om = adamw_update([b for g in grads for b in g],
+    slots = spmd.program_slots(arrs[0].sharding)
+    flat = lambda t: [a.blocks[s] for a in tree_leaves(t) for s in slots]
+    _, opt, om = adamw_update([g[s] for g in grads for s in slots],
                               {"mu": flat(state["opt"]["mu"]), "nu": flat(state["opt"]["nu"]),
                                "count": count.blocks[0]},
-                              [b for a in arrs for b in a.blocks], opt_cfg, grad_norm=gnorm)
+                              flat(params), opt_cfg, grad_norm=gnorm)
     new_opt = {"mu": state["opt"]["mu"], "nu": state["opt"]["nu"],
                "count": count.sharding.place(opt["count"])}
     return {"params": params, "opt": new_opt}, {"loss": loss, **metrics, **om}
@@ -236,13 +256,60 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_cfg: Optional[Op
     return fn, (st_shapes, b_specs), (st_shard, b_shard)
 
 
+# --------------------------------------------------------------------------
+# serve: prefill and decode
+# --------------------------------------------------------------------------
+
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    raise unported("build_prefill (the dry run's lowering)", "queue A item 18b")
+    """(prefill_fn, (param specs, batch specs), (param shardings, batch
+    shardings)): ``prefill_fn(params, batch)`` runs the prompt
+    ``batch["tokens"]`` (``shape.global_batch`` × ``shape.seq_len``) into a
+    cache of ``shape.seq_len`` positions and returns (last logits, cache)."""
+    shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
+    p_shapes, p_specs = params_specs(cfg)
+    p_shard = shd.param_shardings(p_shapes, p_specs)
+    b = batch_specs(cfg, shape, with_labels=False)
+    b_shard = _batch_shardings(shd, b)
+    cache_len = shape.seq_len
+
+    def prefill_fn(params, batch):
+        return spmd.prefill(params, cfg, batch["tokens"], cache_len)
+
+    return prefill_fn, (p_shapes, b), (p_shard, b_shard)
+
+
+def cache_shapes_and_shardings(cfg: ModelConfig, batch: int, cache_len: int, shd: ShardingCtx):
+    """(the decode state as ``meta`` tensors, its ``NamedSharding`` tree)."""
+    shapes = transformer.cache_shapes(cfg, batch, cache_len)
+    return shapes, shd.param_shardings(shapes, transformer.cache_specs(cfg))
 
 
 def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    raise unported("build_decode (the dry run's lowering)", "queue A item 18b")
+    """decode_* cells: one new token against a cache of ``shape.seq_len``.
+    (serve_step, (param specs, token, cache specs, pos), (their shardings)):
+    ``serve_step(params, token, cache, pos)`` -> (logits, cache), the cache
+    written in place; the token is placed by ``act_batch``, ``pos``
+    replicated."""
+    shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
+    p_shapes, p_specs = params_specs(cfg)
+    p_shard = shd.param_shardings(p_shapes, p_specs)
+    b = shape.global_batch
+    c_shapes, c_shard = cache_shapes_and_shardings(cfg, b, shape.seq_len, shd)
+    tok = torch.empty((b,), dtype=torch.int64, device="meta")
+    tok_shard = shd.named(["act_batch"], (b,))
+    pos = torch.empty((), dtype=torch.int32, device="meta")
+    pos_shard = NamedSharding(mesh, PartitionSpec())
+
+    def serve_step(params, token, cache, pos):
+        return spmd.decode_step(params, cfg, token, cache, pos)
+
+    return serve_step, (p_shapes, tok, c_shapes, pos), (p_shard, tok_shard, c_shard, pos_shard)
 
 
-def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Any:
-    raise unported("build_cell (the dry run's lowering)", "queue A item 18b")
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """Dispatch on the cell kind: train / prefill / decode."""
+    if shape.kind == "train":
+        return build_train(cfg, shape, mesh)
+    if shape.kind == "prefill":
+        return build_prefill(cfg, shape, mesh)
+    return build_decode(cfg, shape, mesh)

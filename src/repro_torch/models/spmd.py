@@ -35,12 +35,37 @@ device, broadcast to the group's slots before each sublayer.  Each block's
 gradient is the sum over every slot's use of that block; the step
 (``launch/steps.py``) then sums it over the block's replicas.  Collectives
 run under ``torch.profiler.record_function("spmd.collective")``.
+
+The serving steps, ``prefill`` and ``decode_step``, run the same slot
+program without gradients over a cache placed by ``transformer.cache_specs``
+(each slot holds one block of each layer's K and V).  Their logits come back
+placed as ``("act_batch", "act_vocab")``: each slot keeps its rows and its
+vocab slice, the whole vocabulary where it does not shard.  The cache's
+``kv_heads`` dim takes "model" where the KV heads divide the model axis
+(each slot attends over its own heads); otherwise its sequence dim does
+(``act_kv_seq``): a slot holds a block of positions for every head, prefill
+writes each slot's block, decode writes the new K/V on the slot owning
+``pos`` alone, every slot attends its query heads (gathered from the model
+group where Q shards) over its positions, and the group combines the
+partial softmax terms (max, sum of exponentials, weighted values) in
+float32.
+
+``record_collectives`` records, while a step runs, each collective the
+slot program performs: its kind in the reference's HLO terms
+(``all-reduce`` for a row-parallel sum or a gradient sum, ``all-gather``
+for an FSDP gather and for Q gathered over the model group, its backward a
+``reduce-scatter``) and its per-slot operand bytes, by the rules of
+``hlo_analysis._line_collective_bytes``.  The residual stream's copy to
+the model slots of its group, which GSPMD would not make, goes under
+``"broadcast"``.  ``launch/dryrun.py`` reads the record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
-from typing import Dict, List
+import math
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -48,10 +73,134 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.sharding import SlotArray, data_axis_names
+from repro_torch.sharding import ShardingCtx, SlotArray, _names, data_axis_names
 from repro_torch.utils import tree_leaves, tree_map, unported
 
 COLLECTIVE = "spmd.collective"
+
+
+# --------------------------------------------------------------------------
+# the record of collectives
+# --------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+BROADCAST = "broadcast"     # the residual stream copied to its group's slots
+
+
+@dataclasses.dataclass
+class CollectiveRecord:
+    """Per kind, per slot: operand bytes and calls of the collectives a
+    traced step made.  ``bytes`` / ``counts`` count every execution;
+    ``bytes_once`` / ``counts_once`` count a scanned layer group's body once
+    (the layers past the first group of ``layer_plan``'s ``n_groups`` left
+    out), as the reference's HLO text holds a scan body once."""
+    n_slots: int
+    bytes: Dict[str, np.ndarray]
+    counts: Dict[str, np.ndarray]
+    bytes_once: Dict[str, np.ndarray]
+    counts_once: Dict[str, np.ndarray]
+
+    @classmethod
+    def empty(cls, n_slots: int) -> "CollectiveRecord":
+        z = lambda: {k: np.zeros(n_slots, dtype=np.int64) for k in KINDS + (BROADCAST,)}
+        return cls(n_slots, z(), z(), z(), z())
+
+    def note(self, kind: str, nbytes: int, slots, repeat: bool) -> None:
+        for s in slots:
+            self.bytes[kind][s] += nbytes
+            self.counts[kind][s] += 1
+            if not repeat:
+                self.bytes_once[kind][s] += nbytes
+                self.counts_once[kind][s] += 1
+
+    def combine(self, other: "CollectiveRecord", k: int) -> "CollectiveRecord":
+        """``self + k · (other - self)``, field by field: with ``self`` and
+        ``other`` the records of traces one layer group apart, the record
+        ``k`` groups past ``self``'s."""
+        lin = lambda a, b: {n: a[n] + k * (b[n] - a[n]) for n in a}
+        return CollectiveRecord(self.n_slots, lin(self.bytes, other.bytes),
+                                lin(self.counts, other.counts),
+                                lin(self.bytes_once, other.bytes_once),
+                                lin(self.counts_once, other.counts_once))
+
+
+_REC: Optional[CollectiveRecord] = None
+_REPEAT = False             # inside a scanned layer past the first group
+_ONE_GROUP = False          # run data group 0's program alone (``one_data_group``)
+
+
+@contextlib.contextmanager
+def record_collectives(n_slots: int):
+    """Record the collectives of the slot program run inside the block."""
+    global _REC
+    prev, _REC = _REC, CollectiveRecord.empty(n_slots)
+    try:
+        yield _REC
+    finally:
+        _REC = prev
+
+
+@contextlib.contextmanager
+def one_data_group():
+    """Run only data group 0's program; every other group's outputs are
+    group 0's (the dry run's trace: each data group runs the same program on
+    blocks of the same shapes, so its record and output bytes are group 0's;
+    the values are not)."""
+    global _ONE_GROUP
+    prev, _ONE_GROUP = _ONE_GROUP, True
+    try:
+        yield
+    finally:
+        _ONE_GROUP = prev
+
+
+def _data_groups(groups) -> range:
+    return range(1 if _ONE_GROUP else groups.n_data)
+
+
+def program_slots(sharding) -> list:
+    """The slots whose programs run: all of ``sharding``'s mesh, or data
+    group 0's under ``one_data_group``."""
+    if _ONE_GROUP:
+        return list(groups_of(sharding).slots[0])
+    return list(range(sharding.n_slots))
+
+
+def _fill_groups(groups, per_slot: list) -> list:
+    """``per_slot`` with each slot no data group wrote given its model
+    index's slot of group 0's."""
+    for row in groups.slots[1:]:
+        for m, s in enumerate(row):
+            if per_slot[s] is None:
+                per_slot[s] = per_slot[groups.slots[0][m]]
+    return per_slot
+
+
+def note(kind: str, nbytes: int, slots, repeat: Optional[bool] = None) -> None:
+    """One collective over ``slots``, each with an operand of ``nbytes``."""
+    if _REC is not None:
+        _REC.note(kind, int(nbytes), slots, _REPEAT if repeat is None else repeat)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _scoped(i: int, plan, fn):
+    """``fn`` run as layer i: collectives past the first scanned group are
+    marked repeated (also when a checkpoint recomputes it)."""
+    lp = len(plan.pattern)
+    repeat = plan.n_groups > 0 and lp <= i < plan.n_groups * lp
+
+    def run(*args):
+        global _REPEAT
+        prev, _REPEAT = _REPEAT, repeat
+        try:
+            return fn(*args)
+        finally:
+            _REPEAT = prev
+
+    return run
 
 
 # --------------------------------------------------------------------------
@@ -60,32 +209,38 @@ COLLECTIVE = "spmd.collective"
 
 class _Broadcast(torch.autograd.Function):
     """x onto each of ``devices``; backward sums the copies' gradients (in
-    float32) back onto x's device."""
+    float32) back onto x's device.  Recorded as a ``"broadcast"`` of x over
+    ``slots``; its backward as an all-reduce."""
 
     @staticmethod
-    def forward(ctx, x, *devices):
+    def forward(ctx, x, slots, *devices):
         with torch.profiler.record_function(COLLECTIVE):
-            ctx.device = x.device
+            ctx.device, ctx.slots, ctx.repeat = x.device, slots, _REPEAT
+            note(BROADCAST, _nbytes(x), slots)
             return tuple(x.view_as(x) if d == x.device else x.to(d) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
         with torch.profiler.record_function(COLLECTIVE):
+            note("all-reduce", _nbytes(grads[0]), ctx.slots, ctx.repeat)
             acc = None
             for g in grads:
                 g = g.to(device=ctx.device, dtype=torch.float32)
                 acc = g if acc is None else acc + g
-            return (acc.to(grads[0].dtype),) + (None,) * len(grads)
+            return (acc.to(grads[0].dtype), None) + (None,) * len(grads)
 
 
 class _Reduce(torch.autograd.Function):
     """The sum of ``parts`` on ``device``, accumulated in float32 and
-    rounded once to ``dtype``; backward hands each part the gradient."""
+    rounded once to ``dtype``; backward hands each part the gradient.
+    Recorded as an all-reduce over ``slots``; its backward, a copy GSPMD
+    would not make, as a ``"broadcast"``."""
 
     @staticmethod
-    def forward(ctx, device, dtype, *parts):
+    def forward(ctx, device, dtype, slots, *parts):
         with torch.profiler.record_function(COLLECTIVE):
-            ctx.metas = [(p.device, p.dtype) for p in parts]
+            ctx.metas, ctx.slots, ctx.repeat = [(p.device, p.dtype) for p in parts], slots, _REPEAT
+            note("all-reduce", _nbytes(parts[0]), slots)
             acc = None
             for p in parts:
                 p = p.to(device=device, dtype=torch.float32)
@@ -95,15 +250,33 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with torch.profiler.record_function(COLLECTIVE):
-            return (None, None) + tuple(g.to(device=d, dtype=dt) for d, dt in ctx.metas)
+            note(BROADCAST, _nbytes(g), ctx.slots, ctx.repeat)
+            return (None, None, None) + tuple(g.to(device=d, dtype=dt) for d, dt in ctx.metas)
 
 
-def broadcast(x: torch.Tensor, devices) -> tuple:
-    return _Broadcast.apply(x, *devices)
+class _Gathered(torch.autograd.Function):
+    """Marks an FSDP-gathered weight (the value unchanged): its backward is
+    recorded as the reduce-scatter of the gathered gradient."""
+
+    @staticmethod
+    def forward(ctx, w, slot):
+        ctx.slot, ctx.repeat = slot, _REPEAT
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        note("reduce-scatter", _nbytes(g), (ctx.slot,), ctx.repeat)
+        return g, None
 
 
-def reduce_sum(parts: List[torch.Tensor], device, dtype=None) -> torch.Tensor:
-    return _Reduce.apply(torch.device(device), dtype or parts[0].dtype, *parts)
+def broadcast(x: torch.Tensor, devices, slots=()) -> tuple:
+    """x onto each of ``devices`` (those of ``slots``, recorded as such)."""
+    return _Broadcast.apply(x, tuple(slots), *devices)
+
+
+def reduce_sum(parts: List[torch.Tensor], device, dtype=None, slots=()) -> torch.Tensor:
+    """The float32 sum of ``parts`` (those of ``slots``) on ``device``."""
+    return _Reduce.apply(torch.device(device), dtype or parts[0].dtype, tuple(slots), *parts)
 
 
 # --------------------------------------------------------------------------
@@ -146,9 +319,11 @@ def groups_of(sharding) -> Groups:
                   tuple(tuple(sharding.device(s) for s in r) for r in slots))
 
 
-def model_dim(arr: SlotArray):
-    """The dim of ``arr`` sharded over "model" (alone), or None."""
-    for i, entry in enumerate(arr.sharding.spec):
+def model_dim(arr):
+    """The dim of ``arr`` (a ``SlotArray`` or a ``NamedSharding``) sharded
+    over "model" (alone), or None."""
+    spec = getattr(arr, "sharding", arr).spec
+    for i, entry in enumerate(spec):
         if entry == "model":
             return i
         if isinstance(entry, tuple) and "model" in entry:
@@ -167,13 +342,20 @@ def _check_model_dim(arr: SlotArray, name: str, want: int) -> bool:
 
 class _Placed:
     """A sublayer's placed leaves and their compute copies; ``local(k, s)``
-    is leaf k as slot s's program sees it (gathered over the data axes)."""
+    is leaf k as slot s's program sees it (gathered over the data axes,
+    recorded as an all-gather of slot s's block)."""
 
     def __init__(self, arrs: Dict[str, SlotArray], blocks: Dict[str, list]):
         self.arrs, self.blocks = arrs, blocks
 
     def local(self, k: str, s: int) -> torch.Tensor:
-        return self.arrs[k].sharding.local_view(self.blocks[k], s, keep=("model",))
+        sh = self.arrs[k].sharding
+        data = data_axis_names(sh.mesh)
+        if not any(a in data for e in sh.spec for a in _names(e)):
+            return sh.local_view(self.blocks[k], s, keep=("model",))
+        with torch.profiler.record_function(COLLECTIVE):
+            note("all-gather", _nbytes(self.blocks[k][s]), (s,))
+            return _Gathered.apply(sh.local_view(self.blocks[k], s, keep=("model",)), s)
 
     def slot(self, s: int) -> dict:
         return {k: self.local(k, s) for k in self.arrs}
@@ -182,6 +364,45 @@ class _Placed:
 # --------------------------------------------------------------------------
 # the slot program
 # --------------------------------------------------------------------------
+
+class _Program:
+    """Placed parameters as the slot programs read them: the mesh's data
+    groups, each sublayer's leaves with their compute copies (float leaves
+    cast to the activation dtype), and the embedding's masters, which the
+    unembedding uses uncast, as the reference's does."""
+
+    def __init__(self, params, cfg: ModelConfig):
+        T._check_supported(cfg)
+        first = tree_leaves(params)[0]
+        self.mesh = first.sharding.mesh
+        self.groups = groups_of(first.sharding)
+        self.plan = T.layer_plan(cfg)
+        dt = cfg.activation_dtype()
+
+        def cast(b):
+            return b.to(dt) if b.is_floating_point() and b.dtype != dt else b
+
+        compute = tree_map(lambda a: [cast(b) for b in a.blocks], params)
+        self.emb_c = _Placed(params["embed"], compute["embed"])
+        self.emb_m = _Placed(params["embed"], {k: a.blocks for k, a in params["embed"].items()})
+        self.fnorm = _Placed(params["final_norm"], compute["final_norm"])
+        self.layers = [{k: _Placed(lp[k], lc[k]) for k in T._SUBLAYERS}
+                       for lp, lc in zip(params["layers"], compute["layers"])]
+
+    def rows(self, n: int) -> int:
+        """Rows a data group takes of a global batch of ``n``."""
+        if n % self.groups.n_data:
+            raise ValueError(f"{n} rows do not split over {self.groups.n_data} data groups")
+        return n // self.groups.n_data
+
+    def ctx(self, cfg: ModelConfig) -> ShardingCtx:
+        return ShardingCtx.for_mesh(self.mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
+
+
+def _global(x):
+    """A global tensor from a placed input, or the input itself."""
+    return x.gather() if isinstance(x, SlotArray) else x
+
 
 def _embed(tok: _Placed, cfg: ModelConfig, tokens, groups: Groups, d: int):
     """Data group d's embedded tokens, on its first slot's device."""
@@ -198,32 +419,35 @@ def _embed(tok: _Placed, cfg: ModelConfig, tokens, groups: Groups, d: int):
         ok = (local >= 0) & (local < w.shape[0])
         e = w[local.clamp(0, w.shape[0] - 1)]
         outs.append(torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device)))
-    return reduce_sum(outs, groups.devices[d][0]) if sharded else outs[0]
+    return reduce_sum(outs, groups.devices[d][0], slots=groups.slots[d]) if sharded else outs[0]
+
+
+def _rep_heads(kv, cfg: ModelConfig, m: int, hl: int):
+    """K or V repeated to one head per query head, slot m's ``hl`` sliced."""
+    return kv.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)[:, :, m * hl:(m + 1) * hl]
 
 
 def _attention(p: dict, cfg: ModelConfig, h, kind: str, m: int, n_model: int,
                q_sharded: bool, kv_sharded: bool):
-    """Slot m's part of self-attention: its query heads, its share of
-    ``wo``'s output (the whole output where nothing shards)."""
+    """Slot m's part of self-attention: (its share of ``wo``'s output — the
+    whole output where nothing shards —, its K, its V), K/V roped and of
+    the slot's KV heads (all of them where they replicate)."""
     hd = cfg.hd
     hl = cfg.n_heads // n_model if q_sharded else cfg.n_heads
     gl = cfg.n_kv_heads // n_model if kv_sharded else cfg.n_kv_heads
     pos = torch.arange(h.shape[1], device=h.device)[None, :]
     q, k, v = L._qkv(p, cfg, h, h, pos, pos)
+    ka, va = k, v
     if q_sharded and not kv_sharded:
-        rep = cfg.n_heads // cfg.n_kv_heads
-        k = k.repeat_interleave(rep, dim=2)[:, :, m * hl:(m + 1) * hl]
-        v = v.repeat_interleave(rep, dim=2)[:, :, m * hl:(m + 1) * hl]
-        gl = hl
+        ka, va, gl = _rep_heads(k, cfg, m, hl), _rep_heads(v, cfg, m, hl), hl
     lcfg = dataclasses.replace(cfg, n_heads=hl, n_kv_heads=gl, head_dim=hd)
-    out = L.self_attend(lcfg, q, k, v, kind=kind)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = L.self_attend(lcfg, q, ka, va, kind=kind)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
-def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x):
-    """One decoder layer for data group d: x -> x + attn, then + mlp."""
+def _layout(lp: Dict[str, _Placed], cfg: ModelConfig):
+    """(Q sharded, K/V sharded, d_ff sharded) over "model" for one layer."""
     attn, mlp = lp["attn"], lp["mlp"]
-    n_model = groups.n_model
     q_sh = _check_model_dim(attn.arrs["wq"], "wq", 1)
     kv_sh = _check_model_dim(attn.arrs["wk"], "wk", 1)
     if _check_model_dim(attn.arrs["wo"], "wo", 0) != q_sh or (kv_sh and not q_sh):
@@ -233,20 +457,45 @@ def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, 
     for k in mlp.arrs:
         if k != down and _check_model_dim(mlp.arrs[k], k, 1) != f_sh:
             raise ValueError("the MLP's weights must shard d_ff together")
-    devs = groups.devices[d]
-    dev0 = devs[0]
+    return q_sh, kv_sh, f_sh
 
-    outs = []
-    for m, (s, xs) in enumerate(zip(groups.slots[d], broadcast(x, devs))):
+
+def _attn_block(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x,
+                layout):
+    """x + attention for data group d, and each slot's (K, V)."""
+    q_sh, kv_sh, _ = layout
+    slots, devs = groups.slots[d], groups.devices[d]
+    outs, kvs = [], []
+    for m, (s, xs) in enumerate(zip(slots, broadcast(x, devs, slots))):
         hn = L.apply_norm(lp["norm1"].slot(s), cfg, xs)
-        outs.append(_attention(attn.slot(s), cfg, hn, kind, m, n_model, q_sh, kv_sh))
-    x = x + (reduce_sum(outs, dev0) if q_sh else outs[0])
+        out, k, v = _attention(lp["attn"].slot(s), cfg, hn, kind, m, groups.n_model, q_sh, kv_sh)
+        outs.append(out)
+        kvs.append((k, v))
+    return x + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0]), kvs
 
+
+def _mlp_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int, x, f_sh: bool):
+    """x + the MLP for data group d."""
+    slots, devs = groups.slots[d], groups.devices[d]
     outs = []
-    for s, xs in zip(groups.slots[d], broadcast(x, devs)):
+    for s, xs in zip(slots, broadcast(x, devs, slots)):
         hn = L.apply_norm(lp["norm2"].slot(s), cfg, xs)
-        outs.append(L.apply_mlp(mlp.slot(s), cfg, hn))
-    return x + (reduce_sum(outs, dev0) if f_sh else outs[0])
+        outs.append(L.apply_mlp(lp["mlp"].slot(s), cfg, hn))
+    return x + (reduce_sum(outs, devs[0], slots=slots) if f_sh else outs[0])
+
+
+def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x):
+    """One decoder layer for data group d: x -> x + attn, then + mlp."""
+    layout = _layout(lp, cfg)
+    x, _ = _attn_block(lp, cfg, kind, groups, d, x, layout)
+    return _mlp_block(lp, cfg, groups, d, x, layout[2])
+
+
+def _final_hidden(prog: _Program, cfg: ModelConfig, d: int, x) -> list:
+    """The final norm of data group d's residual stream, on each slot."""
+    slots = prog.groups.slots[d]
+    return [L.apply_norm(prog.fnorm.slot(s), cfg, xs)
+            for s, xs in zip(slots, broadcast(x, prog.groups.devices[d], slots))]
 
 
 def _nll_fn(emb: _Placed, cfg: ModelConfig, groups: Groups, d: int):
@@ -266,7 +515,9 @@ def _nll_fn(emb: _Placed, cfg: ModelConfig, groups: Groups, d: int):
             return lse - gold
         logits = [L.unembed({key: emb.local(key, s)}, cfg, h).float() for s, h in zip(slots, hs)]
         with torch.profiler.record_function(COLLECTIVE):
-            mx = torch.stack([lg.detach().amax(-1).to(dev0) for lg in logits]).amax(0)
+            mxs = [lg.detach().amax(-1) for lg in logits]
+            note("all-reduce", _nbytes(mxs[0]), slots)
+            mx = torch.stack([a.to(dev0) for a in mxs]).amax(0)
         ses, golds = [], []
         for m, lg in enumerate(logits):
             mxm = mx.to(lg.device)
@@ -276,8 +527,8 @@ def _nll_fn(emb: _Placed, cfg: ModelConfig, groups: Groups, d: int):
             ok = (local >= 0) & (local < vl)
             g = torch.gather(lg, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
             golds.append(torch.where(ok, g, torch.zeros((), dtype=g.dtype, device=g.device)))
-        lse = mx + torch.log(reduce_sum(ses, dev0))
-        return lse - reduce_sum(golds, dev0)
+        lse = mx + torch.log(reduce_sum(ses, dev0, slots=slots))
+        return lse - reduce_sum(golds, dev0, slots=slots)
 
     return nll
 
@@ -291,51 +542,241 @@ def loss_fn(params, cfg: ModelConfig, batch):
     one-device forward does in training.  An unsharded vocabulary's logits are
     computed on the group's slot 0 alone (no other copy would reach the
     loss)."""
-    T._check_supported(cfg)
     if batch.get("frames") is not None or batch.get("patches") is not None:
         raise unported("the slot program's frames / patches", "queue A item 21")
-    first = tree_leaves(params)[0]
-    groups = groups_of(first.sharding)
-    dt = cfg.activation_dtype()
-
-    def cast(b):
-        return b.to(dt) if b.is_floating_point() and b.dtype != dt else b
-
-    compute = tree_map(lambda a: [cast(b) for b in a.blocks], params)
-    emb_c = _Placed(params["embed"], compute["embed"])
-    emb_m = _Placed(params["embed"], {k: a.blocks for k, a in params["embed"].items()})
-    fnorm = _Placed(params["final_norm"], compute["final_norm"])
-    layers = [{k: _Placed(lp[k], lc[k]) for k in T._SUBLAYERS}
-              for lp, lc in zip(params["layers"], compute["layers"])]
-
+    prog = _Program(params, cfg)
+    groups, plan = prog.groups, prog.plan
     tokens = T._tokens(batch["tokens"], groups.devices[0][0])
     labels = T._tokens(batch["labels"], groups.devices[0][0])
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device) if mask is None
             else torch.as_tensor(mask, device=labels.device).float())
-    rows = tokens.shape[0]
-    if rows % groups.n_data:
-        raise ValueError(f"{rows} rows do not split over {groups.n_data} data groups")
-    r = rows // groups.n_data
-    plan = T.layer_plan(cfg)
+    r = prog.rows(tokens.shape[0])
     n_scanned = plan.n_groups * len(plan.pattern)
     use_remat = cfg.remat and torch.is_grad_enabled()
 
     tots, cnts = [], []
-    for d in range(groups.n_data):
+    for d in _data_groups(groups):
         dev0 = groups.devices[d][0]
         cut = slice(d * r, (d + 1) * r)
-        x = _embed(emb_c, cfg, tokens[cut], groups, d)
+        x = _embed(prog.emb_c, cfg, tokens[cut], groups, d)
         for i, kind in enumerate(plan.kinds):
-            fn = functools.partial(_layer, layers[i], cfg, kind, groups, d)
+            fn = _scoped(i, plan, functools.partial(_layer, prog.layers[i], cfg, kind, groups, d))
             x = T._remat(cfg, fn)(x) if (use_remat and i < n_scanned) else fn(x)
-        hs = [L.apply_norm(fnorm.slot(s), cfg, xs)
-              for s, xs in zip(groups.slots[d], broadcast(x, groups.devices[d]))]
-        tot, cnt = L.chunked_nll(_nll_fn(emb_m, cfg, groups, d), hs, labels[cut].to(dev0),
+        hs = _final_hidden(prog, cfg, d, x)
+        tot, cnt = L.chunked_nll(_nll_fn(prog.emb_m, cfg, groups, d), hs, labels[cut].to(dev0),
                                  mask[cut].to(dev0), cfg.xent_chunk)
         tots.append(tot)
         cnts.append(cnt)
     dev = groups.devices[0][0]
+    note("all-reduce", 2 * _nbytes(tots[0]), range(len(prog.mesh.slot_devices)))
     xent = sum(t.to(dev) for t in tots) / torch.clamp(sum(c.to(dev) for c in cnts), min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
+
+
+# --------------------------------------------------------------------------
+# serving: prefill and decode over a placed cache
+# --------------------------------------------------------------------------
+
+def _logits(prog: _Program, cfg: ModelConfig, b: int, hidden: list):
+    """The logits of each slot's last hidden state (r, D), placed as
+    ``("act_batch", "act_vocab")``: a slot's vocab slice, or the whole
+    vocabulary where the embedding does not shard it."""
+    key = "tok" if cfg.tie_embeddings else "unembed"
+    sharded = _check_model_dim(prog.emb_m.arrs[key], key, 0 if cfg.tie_embeddings else 1)
+    sh = prog.ctx(cfg).named(("act_batch", "act_vocab"), (b, cfg.vocab_size))
+    if (len(sh.spec) > 1 and sh.spec[1] == "model") != sharded:
+        raise ValueError(f"the logits' spec {sh.spec} and the embedding's vocab shards disagree")
+    blocks = [L.unembed({key: prog.emb_m.local(key, s)}, cfg, hidden[s][:, None])[:, 0]
+              for s in range(len(prog.mesh.slot_devices))]
+    return SlotArray(sh, (b, cfg.vocab_size), blocks)
+
+
+def _cache_block(kv, sharding, s: int, shape, cfg: ModelConfig, kind: str, cache_len: int,
+                 heads_local: bool):
+    """Slot s's block of a layer's cached K or V from the K/V (r, S, G', hd)
+    its program computed (its own KV heads where ``heads_local``)."""
+    sl = sharding.slices(s, shape)
+    full = T.cache_layout(kv, cfg, kind, cache_len)
+    return full[:, sl[1], slice(None) if heads_local else sl[2]].clone(
+        memory_format=torch.contiguous_format)
+
+
+def _cache_dim(sharding, kv_sharded: bool):
+    """The dim of a cached K/V (its ``NamedSharding``) sharded over "model":
+    2 (its KV heads, where the layer's K/V shard), 1 (its positions) or None
+    (whole)."""
+    dim = model_dim(sharding)
+    if (dim == 2) != kv_sharded:
+        raise ValueError(f"the cache's spec {sharding.spec} shards the KV heads where the "
+                         f"layer's K/V {'do' if kv_sharded else 'do not'}")
+    return dim
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
+    """``transformer.prefill`` over placed parameters: the prompt ``tokens``
+    (B, S) — a tensor, or placed by ``act_batch`` — run through the slot
+    program.  Returns (logits (B, vocab) placed as ``("act_batch",
+    "act_vocab")`` — ``.gather()`` joins them —, the cache: one ``{"kv": {"k",
+    "v"}}`` of ``SlotArray`` per layer, placed by ``transformer.cache_specs``
+    on the parameters' mesh, each slot's block written by that slot)."""
+    prog = _Program(params, cfg)
+    groups, plan = prog.groups, prog.plan
+    tokens = T._tokens(_global(tokens), groups.devices[0][0])
+    b = tokens.shape[0]
+    r = prog.rows(b)
+    shapes = T.cache_shapes(cfg, b, cache_len)
+    shard = prog.ctx(cfg).param_shardings(shapes, T.cache_specs(cfg))
+    n_slots = len(prog.mesh.slot_devices)
+    blocks = [{"k": [None] * n_slots, "v": [None] * n_slots} for _ in plan.kinds]
+    hidden = [None] * n_slots
+
+    for d in _data_groups(groups):
+        slots = groups.slots[d]
+
+        def layer(i, kind, x):
+            lp = prog.layers[i]
+            layout = _layout(lp, cfg)
+            x, kvs = _attn_block(lp, cfg, kind, groups, d, x, layout)
+            for name, j in (("k", 0), ("v", 1)):
+                arr = shard[i]["kv"][name]
+                local = _cache_dim(arr, layout[1]) == 2
+                for s, kv in zip(slots, kvs):
+                    blocks[i][name][s] = _cache_block(kv[j], arr, s, shapes[i]["kv"][name].shape,
+                                                      cfg, kind, cache_len, local)
+            return _mlp_block(lp, cfg, groups, d, x, layout[2])
+
+        x = _embed(prog.emb_c, cfg, tokens[d * r:(d + 1) * r], groups, d)
+        for i, kind in enumerate(plan.kinds):
+            x = _scoped(i, plan, functools.partial(layer, i, kind))(x)
+        for s, h in zip(slots, _final_hidden(prog, cfg, d, x)):
+            hidden[s] = h[:, -1]
+    cache = [{"kv": {n: SlotArray(shard[i]["kv"][n], tuple(shapes[i]["kv"][n].shape),
+                                  _fill_groups(groups, blocks[i][n])) for n in ("k", "v")}}
+             for i in range(len(plan.kinds))]
+    return _logits(prog, cfg, b, _fill_groups(groups, hidden)), cache
+
+
+def _partial_attend(cfg: ModelConfig, q, k, v, t0: int, last: int):
+    """One slot's softmax terms of q (r, 1, H, hd) over its cached positions
+    t0 … t0 + T' − 1 (k, v (r, T', G, hd)), those past ``last`` masked as
+    ``_gqa_attend`` masks them: (max, sum of exponentials, exponential-
+    weighted values), float32, shaped (r, G, rep, 1[, hd])."""
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    b, sq = q.shape[:2]
+    qg = q.reshape(b, sq, g, h // g, hd)
+    logits = torch.einsum("bsgrk,btgk->bgrst", qg, k).float()
+    logits = logits / math.sqrt(hd)
+    keep = (t0 + torch.arange(k.shape[1], device=k.device)) <= last
+    logits = logits.masked_fill(~keep, L.MASKED)
+    mx = logits.amax(-1)
+    p = torch.exp(logits - mx[..., None])
+    acc = torch.einsum("bgrst,btgk->bgrsk", p.to(v.dtype), v).float()
+    return mx, p.sum(-1), acc
+
+
+def _seq_attend(cfg: ModelConfig, qs, ck: SlotArray, cv: SlotArray, slots, devs, q_sharded: bool,
+                last: int):
+    """Attention of the model group's queries over a cache sharded by
+    position: each slot's partial terms over its block for every query head
+    (Q gathered over the group where it shards), combined in float32 on the
+    group's first slot.  Returns (r, 1, H, hd) in the query dtype there."""
+    if q_sharded:
+        with torch.profiler.record_function(COLLECTIVE):
+            note("all-gather", _nbytes(qs[0]), slots)
+            qs = [torch.cat([q.to(dv) for q in qs], dim=2) for dv in devs]
+    parts = [_partial_attend(cfg, q, ck.blocks[s], cv.blocks[s], m * ck.blocks[s].shape[1], last)
+             for m, (s, q) in enumerate(zip(slots, qs))]
+    with torch.profiler.record_function(COLLECTIVE):
+        mx0, l0, a0 = parts[0]
+        note("all-reduce", _nbytes(mx0), slots)
+        note("all-reduce", _nbytes(l0) + _nbytes(a0), slots)
+        mx = torch.stack([p[0].to(devs[0]) for p in parts]).amax(0)
+        l = acc = 0.0
+        for p_mx, p_l, p_acc in parts:
+            w = torch.exp(p_mx.to(devs[0]) - mx)
+            l = l + p_l.to(devs[0]) * w
+            acc = acc + p_acc.to(devs[0]) * w[..., None]
+    out = acc / l[..., None]                                   # (r, G, rep, 1, hd)
+    b = out.shape[0]
+    return torch.movedim(out, 3, 1).reshape(b, 1, cfg.n_heads, cfg.hd).to(qs[0].dtype)
+
+
+def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int,
+                  kv: dict, pos: int, x1):
+    """One decoder layer of a decode step for data group d: the new token's
+    K/V written into the placed cache ``kv`` in place (on the slot that
+    holds position ``pos``), x1 (r, 1, D) -> x1 + attn, then + mlp."""
+    q_sh, kv_sh, f_sh = _layout(lp, cfg)
+    ck, cv = kv["k"], kv["v"]
+    cdim = _cache_dim(ck.sharding, kv_sh)
+    slots, devs = groups.slots[d], groups.devices[d]
+    n_model, r = groups.n_model, x1.shape[0]
+    hl = cfg.n_heads // n_model if q_sh else cfg.n_heads
+    gl = cfg.n_kv_heads // n_model if kv_sh else cfg.n_kv_heads
+    t_cache = ck.shape[1]
+    at = pos % t_cache if kind == "local" else pos
+    last = min(pos, t_cache - 1) if kind == "local" else pos
+
+    qs = []
+    for m, (s, xs) in enumerate(zip(slots, broadcast(x1, devs, slots))):
+        hn = L.apply_norm(lp["norm1"].slot(s), cfg, xs)
+        posb = torch.full((r, 1), pos, dtype=torch.int32, device=xs.device)
+        q, k1, v1 = L._qkv(lp["attn"].slot(s), cfg, hn, hn, posb, posb)
+        kb, vb = ck.blocks[s], cv.blocks[s]
+        t0 = m * kb.shape[1] if cdim == 1 else 0
+        if t0 <= at < t0 + kb.shape[1]:
+            kb[:, at - t0] = k1[:, 0]
+            vb[:, at - t0] = v1[:, 0]
+        qs.append(q)
+
+    wo = [lp["attn"].local("wo", s) for s in slots]
+    if cdim == 1:
+        out = _seq_attend(cfg, qs, ck, cv, slots, devs, q_sh, last)
+        if q_sh:
+            outs = [torch.einsum("bshk,hkd->bsd", out[:, :, m * hl:(m + 1) * hl].to(devs[m]), wo[m])
+                    for m in range(n_model)]
+            x1 = x1 + reduce_sum(outs, devs[0], slots=slots)
+        else:
+            x1 = x1 + torch.einsum("bshk,hkd->bsd", out, wo[0])
+    else:
+        outs = []
+        for m, s in enumerate(slots):
+            k, v, g_eff = ck.blocks[s], cv.blocks[s], gl
+            if q_sh and not kv_sh:
+                k, v, g_eff = _rep_heads(k, cfg, m, hl), _rep_heads(v, cfg, m, hl), hl
+            lcfg = dataclasses.replace(cfg, n_heads=hl, n_kv_heads=g_eff, head_dim=cfg.hd)
+            t = k.shape[1]
+            mask = (torch.arange(t, device=k.device) <= last)[None, None, :].expand(r, 1, t)
+            out = L._gqa_attend(lcfg, qs[m], k, v, mask)
+            outs.append(torch.einsum("bshk,hkd->bsd", out, wo[m]))
+        x1 = x1 + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0])
+    return _mlp_block(lp, cfg, groups, d, x1, f_sh)
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, token, cache, pos):
+    """``transformer.decode_step`` over placed parameters and a placed
+    cache (``prefill``'s, or one placed by ``transformer.cache_specs``):
+    ``token`` (B,) — a tensor, or placed by ``act_batch`` —, ``pos`` the
+    absolute position (an int, a 0-d tensor, or a replicated ``SlotArray``).
+    Writes the token's K/V into the cache's blocks in place and returns
+    (logits (B, vocab) placed as ``("act_batch", "act_vocab")``, cache)."""
+    prog = _Program(params, cfg)
+    groups, plan = prog.groups, prog.plan
+    pos = int(_global(pos))
+    tokens = T._tokens(_global(token), groups.devices[0][0])
+    b = tokens.shape[0]
+    r = prog.rows(b)
+    hidden = [None] * len(prog.mesh.slot_devices)
+    for d in _data_groups(groups):
+        x1 = _embed(prog.emb_c, cfg, tokens[d * r:(d + 1) * r, None], groups, d)
+        for i, kind in enumerate(plan.kinds):
+            fn = functools.partial(_decode_layer, prog.layers[i], cfg, kind, groups, d,
+                                   cache[i]["kv"], pos)
+            x1 = _scoped(i, plan, fn)(x1)
+        for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x1)):
+            hidden[s] = h[:, 0]
+    return _logits(prog, cfg, b, _fill_groups(groups, hidden)), cache

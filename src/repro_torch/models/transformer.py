@@ -18,7 +18,8 @@ and gradients are on (``remat_policy="dots"`` keeps the 2-D matmul
 outputs); the unscanned tail never does.
 
 The entry points keep the reference's names and arguments with the model
-in place of the parameter tree: ``init_params``, ``init_cache``,
+in place of the parameter tree: ``init_params``, ``init_cache`` (with
+``cache_specs`` and ``cache_shapes`` for a placed cache),
 ``forward_seq``, ``loss_fn``, ``prefill``, ``prefill_hidden``,
 ``decode_step_hidden`` and ``decode_step``.  ``_cast_params`` casts every
 float weight to ``cfg.dtype`` before compute, as the reference does.  For
@@ -312,6 +313,51 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -
             for kind in layer_plan(cfg).kinds]
 
 
+def _state_table(cfg: ModelConfig, kind: str, batch: int, cache_len: int) -> Params:
+    """(shape, logical axes, dtype) of each leaf of one layer's decode state,
+    the reference's ``_layer_state_shape`` / ``_layer_state_spec``: a KV
+    cache for attention layers (a window-sized ring for ``local``), the
+    recurrent state of ``rwkv`` and ``rglru`` layers, and the cross-attention
+    K/V of an encoder-decoder."""
+    dt, f32 = cfg.activation_dtype(), torch.float32
+    g, hd, d, rd = cfg.n_kv_heads, cfg.hd, cfg.d_model, cfg.rnn_d
+    st: Params = {}
+    if kind == "rwkv":
+        h = d // cfg.rnn_head_dim
+        st["rnn"] = {"wkv": ((batch, h, cfg.rnn_head_dim, cfg.rnn_head_dim),
+                             ("act_batch", "rnn_heads", None, None), f32),
+                     "shift_tm": ((batch, d), ("act_batch", "rnn"), dt),
+                     "shift_cm": ((batch, d), ("act_batch", "rnn"), dt)}
+    elif kind == "rglru":
+        st["rnn"] = {"h": ((batch, rd), ("act_batch", "rnn"), f32),
+                     "conv": ((batch, cfg.conv_width - 1, rd), ("act_batch", None, "rnn"), dt)}
+    else:
+        t = min(cache_len, cfg.window) if kind == "local" else cache_len
+        kv = ((batch, t, g, hd), ("act_batch", "act_kv_seq", "kv_heads", None), dt)
+        st["kv"] = {"k": kv, "v": kv}
+    if cfg.n_encoder_layers:
+        cross = ((batch, cfg.encoder_seq, g, hd), ("act_batch", None, "kv_heads", None), dt)
+        st["cross"] = {"k": cross, "v": cross}
+    return st
+
+
+def cache_specs(cfg: ModelConfig) -> List[Params]:
+    """The logical sharding axes of the decode state, shaped like
+    ``init_cache``'s list: the reference's ``cache_specs`` in the unstacked
+    layout (its scanned leaves' leading ``"layers"`` axis dropped), for every
+    layer kind."""
+    return [_map_pairs(_state_table(cfg, kind, 1, 1), lambda shape, axes, dt: tuple(axes))
+            for kind in layer_plan(cfg).kinds]
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> List[Params]:
+    """The decode state as ``meta`` tensors (shape and dtype, no storage),
+    shaped like ``init_cache``'s list."""
+    return [_map_pairs(_state_table(cfg, kind, batch, cache_len),
+                       lambda shape, axes, dt: torch.empty(shape, dtype=dt, device="meta"))
+            for kind in layer_plan(cfg).kinds]
+
+
 def opt_state_from_jax(opt_np: Params, cfg: ModelConfig, *, device="cuda") -> Params:
     """A JAX ``init_opt_state`` / ``adamw_update`` state (``mu``, ``nu`` in the
     parameter tree's layout, numpy leaves; ``count``) in the port's layout:
@@ -340,24 +386,27 @@ def _tokens(tokens, device) -> torch.Tensor:
                            else tokens, device=device).long()
 
 
+def cache_layout(kv: torch.Tensor, cfg: ModelConfig, kind: str, cache_len: int):
+    """A prefill's roped K or V (B, S, G, hd) in the decode cache's layout:
+    zero-padded to ``cache_len``, or for a local layer the trailing window in
+    the ring layout slot = pos % t."""
+    t = min(cache_len, cfg.window) if kind == "local" else cache_len
+    if kind == "local" and kv.shape[1] > t:
+        # tail element j (absolute position pos0 + j) lands at (pos0 + j) % t,
+        # a roll by pos0.
+        pos0 = kv.shape[1] - t
+        return torch.roll(kv[:, pos0:], pos0 % t, dims=1)
+    return L.pad_cache(kv, t)
+
+
 def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, cache_len: int,
                      collect: bool):
     h = L.apply_norm(p["norm1"], cfg, x)
     new_state: Params = {}
     if collect:
         mix, (kk, vv) = L.attention_forward_collect(p["attn"], cfg, h, kind=kind)
-        t = min(cache_len, cfg.window) if kind == "local" else cache_len
-        if kind == "local" and kk.shape[1] > t:
-            # keep the trailing window in the ring layout slot = pos % t:
-            # tail element j (absolute position pos0 + j) lands at
-            # (pos0 + j) % t, a roll by pos0.
-            pos0 = kk.shape[1] - t
-            kk = torch.roll(kk[:, pos0:], pos0 % t, dims=1)
-            vv = torch.roll(vv[:, pos0:], pos0 % t, dims=1)
-        else:
-            kk = L.pad_cache(kk, t)
-            vv = L.pad_cache(vv, t)
-        new_state["kv"] = {"k": kk, "v": vv}
+        new_state["kv"] = {"k": cache_layout(kk, cfg, kind, cache_len),
+                           "v": cache_layout(vv, cfg, kind, cache_len)}
     else:
         mix = L.attention_forward(p["attn"], cfg, h, kind=kind)
     x = x + mix

@@ -22,7 +22,8 @@ tensor into each slot's block (``place``) and joins blocks back
 (``gather``, ``local_view``), and a ``SlotArray`` holds one block per slot —
 replicas along the axes a spec leaves unused are real copies, so a slot
 holds the bytes GSPMD's ``in_shardings`` put on that device.  The sharded
-train step (``models/spmd.py``, ``launch/steps.py``) runs on such arrays.
+train and serving steps (``models/spmd.py``, ``launch/steps.py``) run on
+such arrays, on the card's slots, CPU slots or ``meta`` slots alike.
 
 Activations are not placed.  ``ShardingCtx.constrain`` returns its
 argument, as a sharding constraint never changes values: the port keeps

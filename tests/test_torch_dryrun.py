@@ -1,0 +1,283 @@
+"""The dry run's port (``launch/{dryrun,analytic,hlo_analysis}.py``,
+``make_production_mesh``, ``transformer.cache_specs``, the in-specs of
+``build_prefill`` / ``build_decode``) held to the JAX package, and the dry run itself in miniature.
+
+Pure parts, no model built: ``cache_specs`` equals the JAX ``cache_specs``
+once its scanned leaves' ``"layers"`` axis is dropped, for all ten presets
+(the port's ``ModelConfig`` built from each JAX config's fields); the cache
+specs resolve alike on (16, 16), (2, 16, 16) and (2, 4) meshes
+(namespaces with a ``shape``: ``resolve_spec`` reads nothing else);
+``build_prefill`` / ``build_decode`` / ``build_train`` give the in-specs of
+the JAX ``build_*`` functions, shape for shape and dtype for dtype (token ids are int64
+in the port, int32 in JAX); ``analytic.cell_costs`` and
+``hlo_analysis.model_flops`` equal the JAX ones exactly for every preset,
+applicable shape and mesh; the roofline's terms are quotients by the H100's
+peaks.
+
+The dry run traces on ``meta`` slots: the reference's cell
+(``olmo_1b`` × ``decode_32k`` on 512 slots) succeeds with the per-slot
+argument and output bytes counted by hand; an unported preset is a failed
+cell naming its queue item; the collectives of a smoke config on (1, 2)
+equal a hand count; and the trace's two shortcuts — a deep model extended
+from two depths, data group 0's programs alone — give the record and the
+output bytes of the full trace exactly."""
+import dataclasses
+import types
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.launch import analytic as janalytic
+from repro.launch import hlo_analysis as jhlo
+from repro.launch import steps as JS
+from repro.models import transformer as JT
+from repro import sharding as JSH
+from repro_torch import configs as C
+from repro_torch import sharding as SH
+from repro_torch.launch import analytic, dryrun, hlo_analysis, steps
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models import transformer as T
+
+DENSE = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b")
+MESHES = {"16x16": dict(data=16, model=16), "2x16x16": dict(pod=2, data=16, model=16),
+          "2x4": dict(data=2, model=4)}
+
+
+def _port_cfg(jcfg):
+    """The port's ``ModelConfig`` with every field of a JAX config."""
+    fields = {f.name for f in dataclasses.fields(C.ModelConfig)}
+    assert fields == {f.name for f in dataclasses.fields(jbase.ModelConfig)}
+    kw = {k: getattr(jcfg, k) for k in fields}
+    if jcfg.moe is not None:
+        kw["moe"] = C.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    kw["retrieval"] = C.RetrievalConfig(**dataclasses.asdict(jcfg.retrieval))
+    return C.ModelConfig(**kw)
+
+
+def _unstacked(tree, tcfg, leaf):
+    """A JAX per-layer tree (``{"blocks": [...], "rem": [...]}``) in the
+    port's layer list, ``leaf(x, drop)`` applied to each leaf (``drop`` 1
+    for a scanned leaf's leading axis)."""
+    out = []
+    for _, src in T._layer_sources(tcfg):
+        sub = tree["rem"][src[1]] if src[0] == "rem" else tree["blocks"][src[1]]
+        drop = int(src[0] == "blocks")
+        out.append(jax.tree.map(lambda x: leaf(x, drop), sub,
+                                is_leaf=lambda x: isinstance(x, tuple)))
+    return out
+
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_cache_specs_match_jax(arch):
+    jcfg = jbase.get_config(arch)
+    tcfg = _port_cfg(jcfg)
+    want = _unstacked(JT.cache_specs(jcfg), tcfg, lambda s, drop: tuple(s)[drop:])
+    assert T.cache_specs(tcfg) == want
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_cache_specs_resolve_as_jax(arch):
+    jcfg, tcfg = jbase.get_config(arch), C.get_config(arch)
+    b, t = 8, 32768
+    j_shapes = jax.eval_shape(lambda: JT.init_cache(jcfg, b, t))
+    j_pairs = _unstacked({"blocks": list(zip(j_shapes["blocks"], JT.cache_specs(jcfg)["blocks"])),
+                          "rem": list(zip(j_shapes["rem"], JT.cache_specs(jcfg)["rem"]))},
+                         tcfg, lambda x, drop: x)
+    t_shapes, t_specs = T.cache_shapes(tcfg, b, t), T.cache_specs(tcfg)
+    for i, ((j_sh, j_sp), t_sh, t_sp) in enumerate(zip(j_pairs, t_shapes, t_specs)):
+        drop = int(T._layer_sources(tcfg)[i][1][0] == "blocks")
+        for n in ("k", "v"):
+            shape = tuple(j_sh["kv"][n].shape)[drop:]
+            assert tuple(t_sh["kv"][n].shape) == shape
+            assert t_sh["kv"][n].dtype == _dtype(j_sh["kv"][n]) == torch.bfloat16
+            for name, mshape in MESHES.items():
+                mesh = types.SimpleNamespace(shape=mshape)
+                for fsdp in (False, True):
+                    got = SH.resolve_spec(t_sp["kv"][n], shape, SH.logical_rules(mesh, fsdp=fsdp),
+                                          mesh)
+                    ref = JSH.resolve_spec(tuple(j_sp["kv"][n])[drop:], shape,
+                                           JSH.logical_rules(mesh, fsdp=fsdp), mesh)
+                    assert got == ref, (name, i, n, got, ref)
+
+
+def _dtype(x, token: bool = False):
+    if token:                                 # the port's token ids are int64
+        return {"int32": torch.int64}[str(x.dtype)]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "int32": torch.int32}[str(x.dtype)]
+
+
+def _params_pairs(j_tree, tcfg):
+    """A JAX parameter-shaped tree in ``Transformer.tree()``'s layout."""
+    out = {"embed": j_tree["embed"], "final_norm": j_tree["final_norm"]}
+    out["layers"] = _unstacked(j_tree, tcfg, lambda x, drop: (tuple(x.shape)[drop:], x))
+    return out
+
+
+def _same_specs(t_tree, j_tree, tcfg, where):
+    assert _shape_dtype(t_tree) == _shape_dtype(_params_pairs(j_tree, tcfg), jax_side=True), where
+
+
+def _shape_dtype(tree, jax_side=False):
+    if jax_side:
+        def leaf(x):
+            if isinstance(x, tuple):
+                return (x[0], str(_dtype(x[1])))
+            return (tuple(x.shape), str(_dtype(x)))
+        return jax.tree.map(leaf, tree, is_leaf=lambda x: isinstance(x, tuple))
+    return jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype)), tree,
+                        is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_build_specs_match_jax(arch):
+    """The in-specs of the three ``build_*`` functions, shape and dtype, leaf
+    for leaf."""
+    jcfg, tcfg = jbase.get_config(arch), C.get_config(arch)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"))
+    tmesh = make_host_mesh(4, slots=8, device="meta")
+    shape = C.SHAPES["decode_32k"]
+    _, (jp, jtok, jc, jpos), _ = JS.build_decode(jcfg, jbase.SHAPES["decode_32k"], jmesh)
+    _, (tp, ttok, tc, tpos), _ = steps.build_decode(tcfg, shape, tmesh)
+    _same_specs(tp, jp, tcfg, "decode params")
+    assert (tuple(ttok.shape), ttok.dtype) == (tuple(jtok.shape), _dtype(jtok, token=True))
+    assert (tuple(tpos.shape), tpos.dtype) == (tuple(jpos.shape), _dtype(jpos))
+    j_cache = _unstacked(jc, tcfg, lambda x, drop: (tuple(x.shape)[drop:], str(_dtype(x))))
+    assert _shape_dtype(tc) == j_cache
+    _, (jp, jb), _ = JS.build_prefill(jcfg, jbase.SHAPES["prefill_32k"], jmesh)
+    _, (tp, tb), _ = steps.build_prefill(tcfg, C.SHAPES["prefill_32k"], tmesh)
+    _same_specs(tp, jp, tcfg, "prefill params")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tb.items()} == \
+        {k: (tuple(v.shape), _dtype(v, token=True)) for k, v in jb.items()}
+    _, (jst, jb), _ = JS.build_train(jcfg, jbase.SHAPES["train_4k"], jmesh)
+    _, (tst, tb), _ = steps.build_train(tcfg, C.SHAPES["train_4k"], tmesh)
+    for part in (["params"], ["opt", "mu"], ["opt", "nu"]):
+        t, j = tst, jst
+        for k in part:
+            t, j = t[k], j[k]
+        _same_specs(t, j, tcfg, part)
+    assert (tuple(tst["opt"]["count"].shape), tst["opt"]["count"].dtype) == \
+        (tuple(jst["opt"]["count"].shape), _dtype(jst["opt"]["count"]))
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tb.items()} == \
+        {k: (tuple(v.shape), _dtype(v, token=True)) for k, v in jb.items()}
+
+
+@pytest.mark.parametrize("arch", jbase.ARCH_IDS)
+def test_analytic_costs_match_jax(arch):
+    jcfg = jbase.get_config(arch)
+    tcfg = _port_cfg(jcfg)
+    for name in jbase.applicable_shapes(jcfg):
+        for mshape in MESHES.values():
+            mesh = types.SimpleNamespace(shape=mshape)
+            got = analytic.cell_costs(tcfg, C.SHAPES[name], mesh)
+            want = janalytic.cell_costs(jcfg, jbase.SHAPES[name], mesh)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), (name, mshape)
+        assert hlo_analysis.model_flops(tcfg, C.SHAPES[name]) == \
+            jhlo.model_flops(jcfg, jbase.SHAPES[name])
+
+
+def test_roofline_on_the_h100_peaks():
+    roof = hlo_analysis.Roofline(flops_per_device=989e12, hbm_bytes_per_device=6.7e12,
+                                 collective_bytes_per_device=9e11, chips=8)
+    assert (roof.t_compute, roof.t_memory, roof.t_collective) == (1.0, 2.0, 2.0)
+    assert roof.links_per_chip == 1.0 and roof.bound_time == 2.0
+    assert set(roof.as_dict()) == set(jhlo.Roofline(1, 1, 1, 1).as_dict())
+    assert (hlo_analysis.PEAK_FLOPS, hlo_analysis.HBM_BW, hlo_analysis.LINK_BW) == \
+        (989e12, 3.35e12, 450e9)
+
+
+def test_production_meshes():
+    single, multi = make_production_mesh(device="cpu"), make_production_mesh(
+        multi_pod=True, device="meta")
+    assert dict(single.shape) == {"data": 16, "model": 16} and single.devices.shape == (16, 16)
+    assert dict(multi.shape) == {"pod": 2, "data": 16, "model": 16}
+    assert set(multi.slot_devices) == {"meta"}
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        steps.transformer.init_cache(C.get_smoke_config("olmo_1b"), 1, 4, device="meta")
+
+
+def test_dryrun_reference_cell_on_512_meta_slots():
+    """``run_cell("olmo_1b", "decode_32k", multi_pod=True)``: every olmo_1b
+    weight splits 16 ways over "model" (no norm weights, tied embedding),
+    the cache its KV heads 16 ways and its rows 32 ways."""
+    rec = dryrun.run_cell("olmo_1b", "decode_32k", multi_pod=True, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    cfg, shape = C.get_config("olmo_1b"), C.SHAPES["decode_32k"]
+    assert rec["chips"] == 512 and rec["mesh"] == "2x16x16"
+    rows = shape.global_batch // 32
+    params = cfg.n_params() * 4 // 16
+    cache = cfg.n_layers * 2 * rows * shape.seq_len * (cfg.n_kv_heads // 16) * cfg.hd * 2
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == params + cache + rows * 8 + 4
+    assert rec["memory_analysis"]["output_size_in_bytes"] == \
+        cache + rows * (cfg.vocab_size // 16) * 4
+    w = rec["collective_bytes_weighted"]
+    assert w["total"] > 0 and w["all-reduce"] == (1 + 2 * cfg.n_layers) * rows * cfg.d_model * 2
+    assert rec["trace"]["depths"] == [2, 3] and rec["roofline"]["chips"] == 512
+
+
+def test_dryrun_records_an_unported_preset():
+    rec = dryrun.run_cell("rwkv6_3b", "train_4k", multi_pod=False, verbose=False)
+    assert not rec["ok"] and "queue A item 19" in rec["error"]
+
+
+def _smoke(**over):
+    return dataclasses.replace(C.get_smoke_config("olmo_1b"), **over)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_collectives_hand_count(kind):
+    """olmo_1b's smoke config on 1 × 2: one all-reduce of the rows' B·S·D
+    activations per row-parallel sublayer (``wo``, ``w_down``) and one for
+    the vocab-parallel embedding lookup; one broadcast of the residual
+    stream before each sublayer and the final norm."""
+    cfg = _smoke()
+    b, s = 2, 8
+    shape = C.ShapeConfig(kind, kind, s, b)
+    mesh = make_host_mesh(2, slots=2, device="cpu")
+    rec = dryrun.record_cell("olmo_1b", shape, mesh, cfg=cfg, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    n = 1 + 2 * cfg.n_layers
+    act = b * (s if kind == "prefill" else 1) * cfg.d_model * 4
+    want = {"all-gather": 0, "all-reduce": n, "reduce-scatter": 0, "all-to-all": 0,
+            "collective-permute": 0, "broadcast": n}
+    assert rec["collective_counts"] == want
+    assert rec["collective_bytes"] == rec["collective_bytes_weighted"] == \
+        {**{k: v * act for k, v in want.items()}, "total": 2 * n * act}
+
+
+TRACE_CASES = {
+    "decode_2x2": (_smoke(), "decode", (2, 2)),
+    "prefill_2x2": (_smoke(), "prefill", (2, 2)),
+    "train_scanned_remat_2x2": (_smoke(n_layers=4, scan_layers=True, remat=True), "train", (2, 2)),
+    "train_fsdp_2x2": (dataclasses.replace(C.get_smoke_config("llama3_405b"), fsdp=True),
+                       "train", (2, 2)),
+    "decode_qwen3_2x3": (dataclasses.replace(C.get_smoke_config("qwen3_14b"), n_layers=5),
+                         "decode", (2, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(TRACE_CASES))
+def test_trace_shortcuts_are_exact(case):
+    """The extension from two depths and the one-data-group trace give the
+    full trace's record (every field of the busiest slot) and per-slot
+    output bytes."""
+    cfg, kind, mshape = TRACE_CASES[case]
+    assert dryrun.trace_depths(cfg) is not None
+    shape = C.ShapeConfig(kind, kind, 12, 4)
+    mesh = dryrun.on_meta(make_host_mesh(mshape[1], slots=mshape[0] * mshape[1], device="cpu"))
+    full_rec, full_out = dryrun.trace(dataclasses.replace(cfg, attn_chunk=0), shape, mesh,
+                                      one_group=False)
+    rec, out, _ = dryrun.traced(cfg, shape, mesh)
+    for fn in (hlo_analysis.collective_bytes, hlo_analysis.collective_counts,
+               hlo_analysis.collective_bytes_weighted):
+        assert fn(rec) == fn(full_rec), fn.__name__
+    assert np.array_equal(out, full_out)
+    if kind == "train":
+        assert full_rec.bytes["all-reduce"].max() > full_rec.bytes_once["all-reduce"].max() \
+            or not cfg.scan_layers
+    if cfg.fsdp:
+        assert hlo_analysis.collective_counts(rec)["all-gather"] > 0 and \
+            hlo_analysis.collective_counts(rec)["reduce-scatter"] > 0

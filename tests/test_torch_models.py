@@ -36,9 +36,7 @@ from repro.models import transformer as JT
 from repro_torch import configs as C
 from repro_torch import sharding
 from repro_torch.launch import make_serving_mesh
-from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import steps
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -521,24 +519,17 @@ UNPORTED = {
                                  {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
     "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
     "apply_moe": lambda: L.apply_moe({}, C.get_smoke_config("olmo_1b"), None),
-    "build_prefill": lambda: steps.build_prefill(C.get_smoke_config("olmo_1b"),
-                                                 C.SHAPES["prefill_32k"], None),
-    "build_decode": lambda: steps.build_decode(C.get_smoke_config("olmo_1b"),
-                                               C.SHAPES["decode_32k"], None),
     "states": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, states=[]),
     "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
                                          encoder_out=1),
-    "build_cell": lambda: steps.build_cell(C.get_smoke_config("olmo_1b"),
-                                           C.SHAPES["train_4k"], None),
-    "production_mesh": lambda: make_production_mesh(),
 }
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 18b (the
-    dry run), 19 (recurrent mixers), 20 (MoE), 21 (encoder, VLM)."""
-    with pytest.raises(NotImplementedError, match="queue A item (18|19|20|21)"):
+    """Every refusal names the queue A item that brings the feature: 19
+    (recurrent mixers), 20 (MoE), 21 (encoder, VLM)."""
+    with pytest.raises(NotImplementedError, match="queue A item (19|20|21)"):
         UNPORTED[what]()
 
 

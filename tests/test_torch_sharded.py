@@ -287,8 +287,11 @@ def test_serving_mesh_shapes_and_slots():
         make_serving_mesh(replicas=2, device="cpu")                # 1 device, 2 groups
     host = mesh_lib.make_host_mesh(device="cpu")
     assert host.axis_names == ("data", "model") and host.devices.shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="queue A item 18"):
-        mesh_lib.make_production_mesh()
+    pod = mesh_lib.make_production_mesh(device="cpu")
+    assert pod.axis_names == ("data", "model") and pod.devices.shape == (16, 16)
+    multi = mesh_lib.make_production_mesh(multi_pod=True, device="cpu")
+    assert multi.axis_names == ("pod", "data", "model") and multi.devices.shape == (2, 16, 16)
+    assert set(multi.slot_devices) == {"cpu"} and mesh_lib.mesh_chip_count(multi) == 512
     assert hash(m) == hash(make_serving_mesh(4, device="cpu")) and isinstance(m, Mesh)
     # shard slots of a replicated mesh: replica 0's row
     assert dist.shard_devices(m22, ("data",)) == [torch.device("cpu")] * 2
