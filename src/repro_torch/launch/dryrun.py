@@ -37,14 +37,21 @@ the same program on blocks of the same shapes; the cross-group collectives
 still run over every slot).  A decode cell traces at ``pos`` =
 ``seq_len`` − 1 (which slot writes the new K/V changes no byte).
 
-Presets the port does not carry yet are recorded as failed cells, the
-error naming their ROADMAP queue item, as the reference records a failure.
+Presets the port does not carry yet, and the recurrent presets, whose
+layers the slot program does not run yet, are recorded as failed cells,
+the error naming their ROADMAP queue item, as the reference records a
+failure.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
         --shape train_4k --mesh both
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 24 cells + 36 failed
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 24 cells + 40 failed
+
+(``--all``: the four dense presets' 24 cells; 40 recorded failures, the
+16 cells of ``rwkv6_3b`` and ``recurrentgemma_9b`` (their three base
+shapes and ``long_500k`` on both meshes, queue A item 19b) and the four
+unported presets' base shapes on both meshes.)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """

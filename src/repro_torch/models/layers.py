@@ -19,8 +19,10 @@ its output.  The products are plain ``torch`` matmuls (the reference
 leaves them to XLA); no fused attention operator is used, as it would
 change the summation.
 
-``chunked_xent`` is the trainer's loss.  MoE (ROADMAP queue A item 20)
-and cross-attention (item 21) raise.
+``chunked_xent`` is the trainer's loss.  The recurrent mixers are
+``models/rglru.py`` and ``models/rwkv6.py``; the attention functions
+refuse their kinds.  MoE (ROADMAP queue A item 20) and cross-attention
+(item 21) raise.
 """
 from __future__ import annotations
 
@@ -250,13 +252,14 @@ def _self_mask(cfg: ModelConfig, kind: str, s: int, device) -> torch.Tensor:
 
 
 # The ROADMAP queue A item that brings each mixer kind the port lacks.
-MIXER_ITEMS = {"rglru": "queue A item 19", "rwkv": "queue A item 19",
-               "enc-attn": "queue A item 21"}
+MIXER_ITEMS = {"enc-attn": "queue A item 21"}
 
 
 def _check_kind(kind: str, what: str) -> None:
+    if kind in MIXER_ITEMS:
+        raise unported(f"{what} of kind {kind!r}", MIXER_ITEMS[kind])
     if kind not in ("attn", "local"):
-        raise unported(f"{what} of kind {kind!r}", MIXER_ITEMS.get(kind, "queue A item 19"))
+        raise ValueError(f"{what} of kind {kind!r}: not an attention kind")
 
 
 def attention_forward_collect(params, cfg: ModelConfig, x, *, kind: str = "attn",
@@ -300,16 +303,6 @@ def pad_cache(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
     if s >= cache_len:
         return kv[:, :cache_len]
     return F.pad(kv, (0, 0, 0, 0, 0, cache_len - s))
-
-
-def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, kind: str, dtype, *,
-                  device) -> dict:
-    """Decode cache.  Local attention keeps only a window-sized ring."""
-    _check_kind(kind, "a KV cache")
-    g, hd = cfg.n_kv_heads, cfg.hd
-    t = min(max_seq, cfg.window) if kind == "local" else max_seq
-    return {"k": torch.zeros((batch, t, g, hd), dtype=dtype, device=device),
-            "v": torch.zeros((batch, t, g, hd), dtype=dtype, device=device)}
 
 
 def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
@@ -358,6 +351,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
             for k, (shp, _) in mlp_table(cfg).items()}
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference rounds it: 1 / (1 + e^−x), each
+    step in x's dtype (``torch.sigmoid`` rounds once, an ulp away in
+    bf16)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (its default, the tanh approximation) step by step,
     each step rounded to x's dtype and the constants cast to it first, as
@@ -372,9 +372,9 @@ def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         return _gelu_tanh(x @ params["w_in"]) @ params["w_out"]
     a = x @ params["w_gate"]
     u = x @ params["w_up"]
-    # jax.nn.silu is a·(1 / (1 + e^−a)), each step rounded to the activation
-    # dtype; F.silu rounds once, so in bf16 it differs by an ulp.
-    return (a * torch.reciprocal(1 + torch.exp(-a)) * u) @ params["w_down"]
+    # jax.nn.silu is a·sigmoid(a), each step rounded to the activation dtype;
+    # F.silu rounds once, so in bf16 it differs by an ulp.
+    return (a * sigmoid(a) * u) @ params["w_down"]
 
 
 # --------------------------------------------------------------------------

@@ -58,6 +58,10 @@ for an FSDP gather and for Q gathered over the model group, its backward a
 ``hlo_analysis._line_collective_bytes``.  The residual stream's copy to
 the model slots of its group, which GSPMD would not make, goes under
 ``"broadcast"``.  ``launch/dryrun.py`` reads the record.
+
+The slot program has attention blocks only: a preset with recurrent
+layers (``rglru``, ``rwkv``) is refused before any block runs (ROADMAP
+queue A item 19b).
 """
 from __future__ import annotations
 
@@ -373,6 +377,10 @@ class _Program:
 
     def __init__(self, params, cfg: ModelConfig):
         T._check_supported(cfg)
+        recurrent = sorted({k for k in cfg.block_pattern if k in ("rglru", "rwkv")})
+        if recurrent:
+            raise unported(f"the slot program's {' and '.join(map(repr, recurrent))} layers "
+                           f"({cfg.name})", "queue A item 19b")
         first = tree_leaves(params)[0]
         self.mesh = first.sharding.mesh
         self.groups = groups_of(first.sharding)

@@ -1,27 +1,38 @@
 """Model assembly — port of ``repro/models/transformer.py`` for the dense
 decoders (pattern ``("attn",)`` or ``("local",)`` mixes: ``olmo_1b``,
-``qwen3_14b``, ``yi_9b``, ``llama3_405b``), serving and training.
+``qwen3_14b``, ``yi_9b``, ``llama3_405b``) and the recurrent ones
+(``("rwkv",)``: ``rwkv6_3b``; ``("rglru", "rglru", "local")``:
+``recurrentgemma_9b``), serving and training.
 
 The model is a ``Transformer`` module holding the embedding, the final
 norm and one ``Block`` module per layer, in execution order; its
-parameters keep the JAX package's names and layouts.  The reference scans
+parameters keep the JAX package's names and layouts.  An attention or
+``rglru`` block holds ``norm1``, its mixer (``attn`` / ``rglru``),
+``norm2`` and ``mlp``; an ``rwkv`` block is self-contained (its own norms
+and channel mix, ``models/rwkv6.py``).  The reference scans
 ``n_groups`` repetitions of the block pattern over stacked parameters
 (``params["blocks"]``, one list entry per pattern position, each leaf with
 a leading group axis) and runs the remainder unscanned
 (``params["rem"]``).  A scan is numerically a loop over its layers, so the
 port loops; ``params_from_jax`` unstacks either layout into the flat layer
-list (layer ``g·len(pattern) + pos`` is group g's position pos), and
-``cache_from_jax`` does the same for a decode cache and
-``opt_state_from_jax`` for AdamW's moments.  As in the reference, the
+list (layer ``g·len(pattern) + pos`` is group g's position pos;
+recurrentgemma_9b's 38 layers are 12 groups of its pattern, then 2
+unstacked ``rglru`` layers), and ``cache_from_jax`` does the same for a
+decode cache (KV caches and recurrent states) and ``opt_state_from_jax``
+for AdamW's moments.  As in the reference, the
 scanned groups' layers run under a checkpoint when ``cfg.remat`` is set
 and gradients are on (``remat_policy="dots"`` keeps the 2-D matmul
-outputs); the unscanned tail never does.
+outputs); the unscanned tail never does.  Inside a recurrent mixer each
+``cfg.rnn_chunk`` chunk of the scan is checkpointed when gradients are on.
 
 The entry points keep the reference's names and arguments with the model
 in place of the parameter tree: ``init_params``, ``init_cache`` (with
 ``cache_specs`` and ``cache_shapes`` for a placed cache),
 ``forward_seq``, ``loss_fn``, ``prefill``, ``prefill_hidden``,
-``decode_step_hidden`` and ``decode_step``.  ``_cast_params`` casts every
+``decode_step_hidden`` and ``decode_step``; ``forward_seq(states=)``
+carries recurrent states in (chunked prefill), in ``init_cache``'s
+per-layer layout; as in the reference, an attention layer ignores its
+entry, so a chunk's attention sees that chunk alone.  ``_cast_params`` casts every
 float weight to ``cfg.dtype`` before compute, as the reference does.  For
 inference the cast copy is kept beside the float32 masters and rebuilt
 only when a parameter changes; when the masters require gradients (the
@@ -31,9 +42,8 @@ autograd graph, so gradients flow back to the masters in their own dtype.
 points run under ``torch.no_grad()``.  A decode step writes the cache in
 place and returns it.
 
-Recurrent mixers (``rglru``, ``rwkv``: ROADMAP queue A item 19), MoE
-layers (item 20), the encoder and cross-attention and the VLM projector
-(item 21) raise.
+MoE layers (ROADMAP queue A item 20), the encoder and cross-attention
+and the VLM projector (item 21) raise.
 """
 from __future__ import annotations
 
@@ -49,10 +59,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device, tree_map, unported
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
+from repro_torch.utils import resolve_device, tree_leaves, tree_map, unported
 
 Params = Dict[str, Any]
-_SUBLAYERS = ("norm1", "attn", "norm2", "mlp")
+_SUBLAYERS = ("norm1", "attn", "norm2", "mlp")     # an attention block's
 
 
 # --------------------------------------------------------------------------
@@ -80,8 +92,10 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
-        if kind not in ("attn", "local"):
-            raise unported(f"{kind!r} layers", L.MIXER_ITEMS.get(kind, "queue A item 19"))
+        if kind in L.MIXER_ITEMS:
+            raise unported(f"{kind!r} layers", L.MIXER_ITEMS[kind])
+        if kind not in ("attn", "local", "rglru", "rwkv"):
+            raise ValueError(f"unknown layer kind {kind!r} in {cfg.name}'s block_pattern")
     if cfg.moe is not None:
         raise unported("MoE layers", "queue A item 20")
     if cfg.n_encoder_layers:
@@ -100,15 +114,27 @@ def _param_dict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer: ``norm1``, ``attn``, ``norm2``, ``mlp``, each a
-    ``ParameterDict`` under the reference's names (the non-parametric
-    norms are empty)."""
+    """One decoder layer in the reference's layout: ``norm1``, the mixer
+    (``attn`` or ``rglru``), ``norm2``, ``mlp``, each a ``ParameterDict``
+    under the reference's names (the non-parametric norms are empty); an
+    ``rwkv`` layer's flat dict of parameters is the one ``ParameterDict``
+    ``rwkv``."""
 
-    def __init__(self, kind: str, params: Dict[str, Dict[str, torch.Tensor]]):
+    def __init__(self, kind: str, params: Params):
         super().__init__()
         self.kind = kind
-        for name in _SUBLAYERS:
-            self.add_module(name, _param_dict(params[name]))
+        self.sublayers = ("rwkv",) if kind == "rwkv" else tuple(params)
+        if kind == "rwkv":
+            self.rwkv = _param_dict(params)
+        else:
+            for name in self.sublayers:
+                self.add_module(name, _param_dict(params[name]))
+
+    def tree(self) -> Params:
+        """The layer's parameters in the reference's per-layer layout."""
+        if self.kind == "rwkv":
+            return dict(self.rwkv)
+        return {name: dict(getattr(self, name)) for name in self.sublayers}
 
 
 class Transformer(nn.Module):
@@ -132,8 +158,7 @@ class Transformer(nn.Module):
         """The parameters as a nested dict of tensors (``embed``,
         ``final_norm``, ``layers``: a list of per-layer dicts)."""
         return {"embed": dict(self.embed), "final_norm": dict(self.final_norm),
-                "layers": [{name: dict(getattr(blk, name)) for name in _SUBLAYERS}
-                           for blk in self.layers]}
+                "layers": [blk.tree() for blk in self.layers]}
 
 
 def _training(model: Transformer) -> bool:
@@ -168,8 +193,13 @@ def _cast_params(model: Transformer, cfg: ModelConfig) -> Params:
 # --------------------------------------------------------------------------
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> Params:
+    """One layer's parameters; an ``rwkv`` block is self-contained."""
+    if kind == "rwkv":
+        return rwkv_lib.init_rwkv(gen, cfg, dtype, device=device)
+    mixer = (("rglru", rglru_lib.init_rglru) if kind == "rglru" else
+             ("attn", L.init_attention))
     return {"norm1": L.init_norm(cfg, dtype, device=device),
-            "attn": L.init_attention(gen, cfg, dtype, device=device),
+            mixer[0]: mixer[1](gen, cfg, dtype, device=device),
             "norm2": L.init_norm(cfg, dtype, device=device),
             "mlp": L.init_mlp(gen, cfg, dtype, device=device)}
 
@@ -198,10 +228,17 @@ def _tables(cfg: ModelConfig) -> Params:
     """The model's (shape, logical axes) pairs in ``Transformer.tree()``'s
     layout, from the sublayers' tables."""
     _check_supported(cfg)
-    layer = {"norm1": L.norm_table(cfg), "attn": L.attention_table(cfg),
-             "norm2": L.norm_table(cfg), "mlp": L.mlp_table(cfg)}
     return {"embed": L.embedding_table(cfg), "final_norm": L.norm_table(cfg),
-            "layers": [layer for _ in layer_plan(cfg).kinds]}
+            "layers": [_layer_table(cfg, kind) for kind in layer_plan(cfg).kinds]}
+
+
+def _layer_table(cfg: ModelConfig, kind: str) -> Params:
+    if kind == "rwkv":
+        return rwkv_lib.rwkv_table(cfg)
+    mixer = ("rglru", rglru_lib.rglru_table(cfg)) if kind == "rglru" else \
+        ("attn", L.attention_table(cfg))
+    return {"norm1": L.norm_table(cfg), mixer[0]: mixer[1], "norm2": L.norm_table(cfg),
+            "mlp": L.mlp_table(cfg)}
 
 
 def _map_pairs(tree, fn):
@@ -283,12 +320,13 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
     whose leaves are numpy arrays (or tensors).  Both layouts are taken:
     the scan-stacked ``params["blocks"]`` (a list over pattern positions,
     each leaf with a leading ``n_groups`` axis: the full ``olmo_1b``'s) and
-    the unstacked ``params["rem"]`` list (``smoke_config()``'s)."""
+    the unstacked ``params["rem"]`` list (``smoke_config()``'s), or both
+    (``recurrentgemma_9b``'s scanned groups and its two-layer tail)."""
     _check_supported(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     plan = layer_plan(cfg)
     blocks = params_np.get("blocks", [])
-    groups = {int(np.shape(b["attn"]["wq"])[0]) for b in blocks}
+    groups = {int(np.shape(leaf)[0]) for b in blocks for leaf in tree_leaves(b)}
     if len(blocks) != (len(plan.pattern) if plan.n_groups else 0) or \
             groups - {plan.n_groups} or len(params_np["rem"]) != len(plan.rem_kinds):
         raise ValueError(f"the tree's blocks / rem lists do not match {cfg.name}'s layer plan "
@@ -304,12 +342,15 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device="cuda") -> List[Params]:
-    """Zeroed decode state: one ``{"kv": {"k", "v"}}`` per layer, in
-    execution order, in the activation dtype."""
+    """Zeroed decode state, one dict per layer in execution order: an
+    attention layer's ``{"kv": {"k", "v"}}`` in the activation dtype (a
+    window-sized ring for ``local``), a recurrent layer's ``{"rnn": ...}``
+    (``rwkv``: ``wkv`` float32, ``shift_tm`` / ``shift_cm``; ``rglru``: ``h``
+    float32, ``conv``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    dtype = cfg.activation_dtype()
-    return [{"kv": L.init_kv_cache(cfg, batch, cache_len, kind, dtype, device=dev)}
+    return [_map_pairs(_state_table(cfg, kind, batch, cache_len),
+                       lambda shape, axes, dt: torch.zeros(shape, dtype=dt, device=dev))
             for kind in layer_plan(cfg).kinds]
 
 
@@ -399,11 +440,24 @@ def cache_layout(kv: torch.Tensor, cfg: ModelConfig, kind: str, cache_len: int):
     return L.pad_cache(kv, t)
 
 
-def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, cache_len: int,
+def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, state=None, cache_len: int,
                      collect: bool):
-    h = L.apply_norm(p["norm1"], cfg, x)
+    """One layer over the sequence: (x, the layer's new state when
+    ``collect``).  ``state`` (a recurrent layer's ``{"rnn": ...}``) is the
+    state before the sequence; attention layers ignore it."""
     new_state: Params = {}
-    if collect:
+    rnn0 = (state or {}).get("rnn")
+    if kind == "rwkv":
+        x, rnn = rwkv_lib.rwkv_forward(p, cfg, x, rnn0)
+        if collect:
+            new_state["rnn"] = rnn
+        return x, new_state
+    h = L.apply_norm(p["norm1"], cfg, x)
+    if kind == "rglru":
+        mix, rnn = rglru_lib.rglru_forward(p["rglru"], cfg, h, rnn0)
+        if collect:
+            new_state["rnn"] = rnn
+    elif collect:
         mix, (kk, vv) = L.attention_forward_collect(p["attn"], cfg, h, kind=kind)
         new_state["kv"] = {"k": cache_layout(kk, cfg, kind, cache_len),
                            "v": cache_layout(vv, cfg, kind, cache_len)}
@@ -438,15 +492,19 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     """Token ids -> final hidden states; differentiable.
 
     Returns (hidden (B,S,D), aux_loss, new_states): ``aux_loss`` is 0 (no
-    MoE here); ``collect=True`` gathers the KV caches, padded to
-    ``cache_len``, for decode (prefill).  In training (``_training``) with
-    ``cfg.remat``, each layer of the scanned groups is checkpointed.
-    ``frames``, ``patches`` and ``states`` (encoder, VLM and recurrent
-    inputs) raise."""
+    MoE here); ``collect=True`` gathers each layer's decode state (the KV
+    caches padded to ``cache_len``, the recurrent states) for decode
+    (prefill).  ``states`` (one entry per layer, ``init_cache``'s layout)
+    carries the recurrent layers' states in, for a prefill in chunks;
+    attention layers ignore their entry, as the reference's do.  In training
+    (``_training``) with ``cfg.remat``, each layer of the scanned groups is
+    checkpointed.  ``frames`` and ``patches`` (encoder and VLM inputs)
+    raise."""
     if frames is not None or patches is not None:
         raise unported("forward_seq(frames= / patches=)", "queue A item 21")
-    if states is not None:
-        raise unported("forward_seq(states=) (recurrent state)", "queue A item 19")
+    if states is not None and len(states) != cfg.n_layers:
+        raise ValueError(f"states has {len(states)} entries; {cfg.name} has {cfg.n_layers} "
+                         f"layers")
     p = _cast_params(model, cfg)
     x = L.embed(p["embed"], cfg, _tokens(tokens, model.device))
     plan = layer_plan(cfg)
@@ -454,19 +512,21 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     remat = cfg.remat and not collect and _training(model)
     new_states: List[Params] = []
     for i, (lp, blk) in enumerate(zip(p["layers"], model.layers)):
+        st = states[i] if states is not None else None
         if remat and i < n_scanned:
-            x = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind))(x)
+            x = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind, st))(x)
             ns: Params = {}
         else:
-            x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, cache_len=cache_len, collect=collect)
+            x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, state=st, cache_len=cache_len,
+                                     collect=collect)
         new_states.append(ns)
     x = L.apply_norm(p["final_norm"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, (new_states if collect else None)
 
 
-def _layer_out(lp: Params, cfg: ModelConfig, kind: str, x):
-    return _apply_layer_seq(lp, cfg, kind, x, cache_len=0, collect=False)[0]
+def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, x):
+    return _apply_layer_seq(lp, cfg, kind, x, state=state, cache_len=0, collect=False)[0]
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
@@ -501,12 +561,18 @@ def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[
                        pos, shd=None):
     """Decode one token through the stack, returning the final-norm hidden
     state (B, D) — the retrieval query vector — and the cache, updated in
-    place."""
+    place (a KV slot written, a recurrent layer's state replaced)."""
     p = _cast_params(model, cfg)
     x1 = L.embed(p["embed"], cfg, _tokens(token, model.device)[:, None])
     for lp, blk, st in zip(p["layers"], model.layers, cache):
+        if blk.kind == "rwkv":
+            x1, st["rnn"] = rwkv_lib.rwkv_decode(lp, cfg, x1, st["rnn"])
+            continue
         h = L.apply_norm(lp["norm1"], cfg, x1)
-        mix, st["kv"] = L.attention_decode(lp["attn"], cfg, h, st["kv"], pos, kind=blk.kind)
+        if blk.kind == "rglru":
+            mix, st["rnn"] = rglru_lib.rglru_decode(lp["rglru"], cfg, h, st["rnn"])
+        else:
+            mix, st["kv"] = L.attention_decode(lp["attn"], cfg, h, st["kv"], pos, kind=blk.kind)
         x1 = x1 + mix
         h2 = L.apply_norm(lp["norm2"], cfg, x1)
         x1 = x1 + L.apply_mlp(lp["mlp"], cfg, h2)

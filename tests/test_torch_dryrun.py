@@ -220,7 +220,7 @@ def test_dryrun_reference_cell_on_512_meta_slots():
 
 def test_dryrun_records_an_unported_preset():
     rec = dryrun.run_cell("rwkv6_3b", "train_4k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 19" in rec["error"]
+    assert not rec["ok"] and "queue A item 19b" in rec["error"]
 
 
 def _smoke(**over):

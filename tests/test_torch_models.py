@@ -38,6 +38,7 @@ from repro_torch import sharding
 from repro_torch.launch import make_serving_mesh
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as L
+from repro_torch.models import spmd
 from repro_torch.models import transformer as T
 
 RTOL_H, ATOL_H = 1e-5, 1e-5        # hidden states, single layers
@@ -481,12 +482,14 @@ def test_compute_copy_follows_the_masters():
 # serve, and what is left to queue A items 18-21
 # --------------------------------------------------------------------------
 
-def test_serve_main_runs_on_cpu(capsys):
-    toks = tserve.main(["--smoke", "--retrieval", "--device", "cpu", "--batch", "2",
-                        "--prompt-len", "8", "--gen", "4"])
+@pytest.mark.parametrize("arch", ["olmo_1b", "rwkv6_3b", "recurrentgemma_9b"])
+def test_serve_main_runs_on_cpu(capsys, arch):
+    toks = tserve.main(["--arch", arch, "--smoke", "--retrieval", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    cfg = C.get_smoke_config(arch)
     assert tuple(toks.shape) == (2, 4)
-    assert ((toks >= 0) & (toks < C.get_smoke_config("olmo_1b").vocab_size)).all()
-    assert "datastore: 252 keys × 96 dims" in capsys.readouterr().out
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    assert f"datastore: 252 keys × {cfg.d_model} dims" in capsys.readouterr().out
 
 
 def test_sharding_ctx_keeps_values():
@@ -501,15 +504,15 @@ def test_sharding_ctx_keeps_values():
 
 
 UNPORTED = {
-    "preset": lambda: C.get_config("rwkv6_3b"),
-    "smoke preset": lambda: C.get_smoke_config("rwkv6_3b"),
+    "preset": lambda: C.get_config("granite_moe_1b_a400m"),
+    "smoke preset": lambda: C.get_smoke_config("granite_moe_1b_a400m"),
     "moe": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), moe=C.MoEConfig(4, 2, 32)), device="cpu"),
-    "rglru": lambda: T.init_params(0, dataclasses.replace(
-        C.get_smoke_config("olmo_1b"), block_pattern=("rglru", "rglru", "local")),
-        device="cpu"),
-    "rwkv": lambda: T.init_cache(dataclasses.replace(
-        C.get_smoke_config("olmo_1b"), block_pattern=("rwkv",)), 1, 4, device="cpu"),
+    "rglru": lambda: spmd.loss_fn(None, C.get_smoke_config("recurrentgemma_9b"),
+                                  {"tokens": np.zeros((2, 4), np.int32),
+                                   "labels": np.zeros((2, 4), np.int32)}),
+    "rwkv": lambda: spmd.decode_step(None, C.get_smoke_config("rwkv6_3b"),
+                                     np.zeros((2,), np.int32), None, 3),
     "encoder": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), n_encoder_layers=2), device="cpu"),
     "vlm": lambda: T.init_params(0, dataclasses.replace(
@@ -519,7 +522,8 @@ UNPORTED = {
                                  {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
     "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
     "apply_moe": lambda: L.apply_moe({}, C.get_smoke_config("olmo_1b"), None),
-    "states": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, states=[]),
+    "states": lambda: spmd.prefill(None, C.get_smoke_config("rwkv6_3b"),
+                                   np.zeros((2, 4), np.int32), 8),
     "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
                                          encoder_out=1),
 }
@@ -527,9 +531,10 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 19
-    (recurrent mixers), 20 (MoE), 21 (encoder, VLM)."""
-    with pytest.raises(NotImplementedError, match="queue A item (19|20|21)"):
+    """Every refusal names the queue A item that brings the feature: 19b
+    (the recurrent mixers in the slot program: its train, prefill and decode
+    steps, with the recurrent states), 20 (MoE), 21 (encoder, VLM)."""
+    with pytest.raises(NotImplementedError, match="queue A item (19b|20|21)"):
         UNPORTED[what]()
 
 
