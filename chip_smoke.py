@@ -253,6 +253,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          chunk of the scan): finite, step 1's loss within ``TRAIN_LOSS_TOL``
          of the float32 loss of the same masters and batch.  (a)
          holds each lookup's first call at D = 2,560 and D = 4,096.
+  (w)    the recurrent presets in the slot program (``models/spmd.py``'s
+         ``rwkv``, ``rglru`` and ``local`` layers; no kernel of ``csrc/``
+         runs on it), at their published widths with the depth cut to 8,
+         bf16 weights from seed 3.  (w1) ``rwkv6_3b`` on 2 × 4 slots of the
+         card (10 heads a slot): ``build_prefill``'s step on 2 × 512 tokens,
+         then 16 ``build_decode`` steps; (w1s) the same weights on 1 × 16
+         slots (160 channels, 2.5 heads a slot: every slot scans all 40
+         heads), a 2 × 128 prefill and 4 steps; (w2) ``recurrentgemma_9b``
+         on 2 × 4 (8 layers: two (rglru, rglru, local) groups and the
+         2-layer tail), a 2 × 2,560 prefill that wraps the position-sharded
+         ring, then 16 steps.  Each prefill's and step's logits (gathered)
+         held to the one-device ``transformer.prefill`` / ``decode_step`` by
+         (r)'s bf16 criterion against a float32 run of the same weights;
+         every layer's state (gathered) within ``W_STATE_RATIO`` times the
+         one-device bf16 state's own gap to float32.  (w3) one sharded train
+         step on 2 × 4 slots, batch 2 × 512, of ``rwkv6_3b`` at depth 2 (in
+         float32: its bf16 gradient is dominated by rounding) and
+         ``recurrentgemma_9b`` at depth 3 (bf16), loss and grad_norm within
+         (s1)'s tolerances of the one-device step.  (w4) ``dryrun``'s
+         records of (w1)'s and (w2)'s decode cells on 2 × 4 ``meta`` slots:
+         per-slot argument and output bytes equal to the card's.  Prefill
+         s, decode ms a step and tokens/s beside the one-device times, peak
+         memory, one profiled decode step of (w1) and (w2).
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -262,7 +285,8 @@ its brute call over the 5M corpus.
 
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
-(s2), (t1), (t2), (u1), (u2), (v1), (v2) and (v3) —
+(s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
+steps of (w1), (w1s) and (w2), and each step of (w3) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -413,6 +437,45 @@ REC_TRAIN_LAYERS = 4               # (v3): rwkv6_3b's width, depth cut 32 → 4
 REC_TRAIN_BATCH = 2
 REC_TRAIN_SEQ = 1024
 REC_TRAIN_STEPS = 2
+W_LAYERS = 8                       # (w1), (w2): rwkv6_3b's 32 and recurrentgemma_9b's 38 layers
+                                   # cut to 8 (recurrentgemma: 2 scanned groups + the 2-layer tail)
+W_STRADDLE_MODEL = 16              # (w1s): make_host_mesh(16, slots=16), 160 channels a slot
+W_STRADDLE_PROMPT = 128            # (w1s): 2 × 128 tokens, 4 decode steps
+W_STRADDLE_STEPS = 4
+# (w3): one step each, (depth, activation dtype, weight and moment dtype).
+# rwkv6_3b's step runs in float32: in bf16 its gradient is dominated by
+# rounding, so two bf16 steps agree on their loss, not on their gradient
+# (on the CPU at width 256, 2 layers, 2 × 512 tokens, the bf16 gradient
+# norm 6.350 one-device and 6.342 on 2 × 4 slots against 5.131 in float32,
+# the embedding's and wk's twice their float32 norms; on an H100 at full
+# width, depth 2, bf16 weights: 35.91 one-device and 21.99 on 2 × 4 slots,
+# the losses 3.2e-4 apart, where the float32 step's norm is 217.2).
+# recurrentgemma_9b's bf16 gradient holds (4.5619 one-device, 4.5618
+# sharded against 4.5594 in float32 at width 512), and its float32 masters
+# and moments would not fit twice on the card.
+W_TRAIN = {"rwkv6_3b": (2, "float32", "float32"),
+           "recurrentgemma_9b": (3, "bfloat16", "bfloat16")}
+W_TRAIN_BATCH = 2                  # (w3): batch 2 × 512 (train_4k's 256 × 4,096 cut)
+W_TRAIN_SEQ = 512
+# (w) the recurrent layers in the slot program against the one-device
+# functions, both in bf16 from the same bf16 weights: two bf16 runs of one
+# function, the slot program rounding in other places (each row-parallel
+# partial rounded to bf16, then summed in float32; GEMMs over a slot's
+# columns), so each strays from a float32 run of the same weights about as
+# far as the other.  Fixed bounds as (u)'s do not carry across widths here:
+# CPU rehearsals (8 layers, bf16, 2 × 64 prompts, 4 decode steps; rwkv6_3b
+# at widths 128, 512 and 1,024) measured the sharded logits' largest gap to
+# the one-device logits at 0.13, 0.57 and 0.15 (SERVE_LOGIT_ATOL is 0.5),
+# and a layer state's largest relative RMS gap at 4.6 %, 14.9 % and 4.3 %,
+# as the one-device bf16 state's own gap to float32 moved (5.4 %, 17.4 %,
+# 5.0 %).  So (w) holds the logits by (u)'s criterion and by (r)'s bf16
+# criterion too (``logit_check``: at most twice the one-device bf16 logits'
+# gap to the float32 run's, argmax equal away from ties), and each layer's
+# state to W_STATE_RATIO times the one-device bf16 state's gap to its
+# float32 run (the rehearsals' largest ratio 0.97), as (v) holds a chunked
+# prefill.  A misplaced block, head or
+# channel slice moves its values by their own scale (relative gap ~1.4).
+W_STATE_RATIO = 2.0
 
 
 def log(msg: str) -> None:
@@ -1626,6 +1689,20 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     log(f"[t] phase {time.perf_counter() - t_t:.2f}s")
 
 
+def hold_logits(what, got, want):
+    """(u)'s criterion for a sharded step's logits (..., vocab) against the
+    one-device function's: within SERVE_LOGIT_ATOL, argmax equal wherever
+    the top two are further apart than twice the gap.  Returns (gap, rows
+    whose argmax agrees, rows clear of a tie)."""
+    gap = (got.float() - want.float()).abs().max().item()
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * gap
+    agree = (got.float().argmax(-1) == want.float().argmax(-1))
+    assert gap <= SERVE_LOGIT_ATOL, f"{what}: logits {gap} from the one-device function's"
+    assert bool(agree[clear].all()), f"{what}: an argmax differs away from a tie"
+    return gap, int(agree.sum()), int(clear.sum())
+
+
 def sharded_serve_phase(dev, reset_counts, read_counts):
     """(u) olmo_1b's sharded serving steps at full width on a 2 × 4 mesh of
     logical slots on cuda:0, bf16 weights from seed SERVE_SEED: (u1)
@@ -1658,22 +1735,9 @@ def sharded_serve_phase(dev, reset_counts, read_counts):
     gen.manual_seed(SERVE_SEED)
     model = lm.init_params(gen, cfg, device=dev)
 
-    def slot_bytes(*trees):
-        arrs = tree_leaves(list(trees))
-        return [sum(a.slot_nbytes(s) for a in arrs) for s in range(n)]
-
     def rel_rms(got, want):
         d = (got.float() - want.float()).pow(2).mean().sqrt()
         return (d / want.float().pow(2).mean().sqrt()).item()
-
-    def hold_logits(what, got, want):
-        gap = (got.float() - want.float()).abs().max().item()
-        top2 = want.float().topk(2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 2 * gap
-        agree = (got.float().argmax(-1) == want.float().argmax(-1))
-        assert gap <= SERVE_LOGIT_ATOL, f"{what}: logits {gap} from the one-device function's"
-        assert bool(agree[clear].all()), f"{what}: an argmax differs away from a tie"
-        return gap, int(agree.sum()), int(clear.sum())
 
     # -- (u1) the sharded prefill ----------------------------------------------------
     p_shape = ShapeConfig("prefill_32k", "prefill", SERVE_PROMPT, SERVE_PREFILL_BATCH)
@@ -1682,7 +1746,7 @@ def sharded_serve_phase(dev, reset_counts, read_counts):
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_PREFILL_BATCH, SERVE_PROMPT),
                            generator=gen, device=dev)
     batch = steps.place({"tokens": tokens}, b_sh)
-    card_p = slot_bytes(params, batch)
+    card_p = per_slot_bytes(n, params, batch)
     log(f"[u1] olmo_1b's full width (16 layers, d_model 2048, vocab 50304, bf16 weights and "
         f"activations, attn_chunk 1024) on {mesh.sizes[0]} × {mesh.sizes[1]} slots; prompt "
         f"{SERVE_PREFILL_BATCH} × {SERVE_PROMPT} (prefill_32k, batch cut 32 → "
@@ -1733,7 +1797,7 @@ def sharded_serve_phase(dev, reset_counts, read_counts):
         f"{SERVE_CACHE} positions, {cache_gb:.2f} GB, placed as {c_sh[0]['kv']['k'].spec}, beside "
         f"the one-device copy: 2 × {cache_gb:.2f} GB of caches + "
         f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB of "
-        f"weights on one device + {sum(slot_bytes(params)) / 1e9:.2f} GB placed (one copy a "
+        f"weights on one device + {sum(per_slot_bytes(n, params)) / 1e9:.2f} GB placed (one copy a "
         f"data group) < 80 GB; {SERVE_STEPS} steps from pos {pos0}")
     toks = torch.randint(0, cfg.vocab_size, (SERVE_STEPS, SERVE_DECODE_BATCH), generator=gen,
                          device=dev)
@@ -1755,7 +1819,7 @@ def sharded_serve_phase(dev, reset_counts, read_counts):
         tok = tok_sh.place(toks[i])
         pos_t = pos_sh.place(torch.tensor(pos, dtype=torch.int32))
         if i == 0:
-            card_d = slot_bytes(params, tok, placed, pos_t)
+            card_d = per_slot_bytes(n, params, tok, placed, pos_t)
         if i == SERVE_STEPS - 1:
             (logits, placed), *prof = profiled(lambda: step(params, tok, placed, pos_t))
         else:
@@ -2043,6 +2107,259 @@ def recurrent_phase(dev, kernels, reset_counts, read_counts, topk_check):
                                    read_counts, topk_check, param_dtype="bfloat16"))
     recurrent_train(dev, reset_counts, read_counts)
     log(f"[v] phase {time.perf_counter() - t_v:.2f}s")
+
+
+def per_slot_bytes(n, *trees):
+    """Each of ``n`` slots' bytes of the ``SlotArray`` leaves of ``trees``."""
+    from repro_torch.utils import tree_leaves
+    arrs = tree_leaves(list(trees))
+    return [sum(a.slot_nbytes(s) for a in arrs) for s in range(n)]
+
+
+def state_gaps(got, ref):
+    """Per layer, the largest relative RMS gap of a decode-state leaf (a
+    placed one gathered from its blocks) to ``ref``'s."""
+    from repro_torch.sharding import SlotArray
+    whole = lambda a: a.gather() if isinstance(a, SlotArray) else a
+    return [max(rel_rms(whole(p[g][k]), r[g][k]) for g in p for k in p[g])
+            for p, r in zip(got, ref)]
+
+
+def hold_states(what, got, ref, ref32):
+    """Each layer's decode state (placed) against the one-device bf16
+    state ``ref``: within W_STATE_RATIO times ``ref``'s own gap to the
+    float32 run's ``ref32``.  Returns the line that says so."""
+    gaps, noise = state_gaps(got, ref), state_gaps(ref, ref32)
+    ratio = max(g / n for g, n in zip(gaps, noise))
+    assert ratio <= W_STATE_RATIO, f"{what}: a layer's state strays beyond bf16 rounding"
+    return (f"the state's relative RMS gap by layer {', '.join(f'{g:.2e}' for g in gaps)}; the "
+            f"one-device bf16 state's to float32 {', '.join(f'{n:.2e}' for n in noise)}; largest "
+            f"ratio {ratio:.3f} (≤ {W_STATE_RATIO})")
+
+
+def recurrent_model(dev, arch):
+    """``arch`` at its published width with W_LAYERS layers, bf16 weights
+    from seed REC_SEED."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as lm
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=W_LAYERS, param_dtype="bfloat16")
+    return lm.init_params(REC_SEED, cfg, device=dev)
+
+
+def sharded_recurrent_serve(dev, tag, model, model_axis, slots, prompt, n_steps, reset_counts,
+                            read_counts, profile=True):
+    """(w1) / (w1s) / (w2): ``model`` (``recurrent_model``'s) on a (slots /
+    model_axis) × model_axis mesh of logical slots on the card:
+    ``build_prefill``'s step on REC_BATCH × ``prompt`` tokens, then
+    ``n_steps`` of ``build_decode``'s step, each held to the one-device
+    ``transformer.prefill`` / ``decode_step``; the last step under
+    ``torch.profiler`` where ``profile``.  Returns (decode cell, per-slot
+    argument and output bytes of a decode step on the card)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    t_w = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.cfg
+    arch, full = cfg.name, get_config(cfg.name)
+    plan = lm.layer_plan(cfg)
+    mesh = make_host_mesh(model_axis, slots=slots, device=dev)
+    assert set(mesh.slot_devices) == {str(dev) if dev.type == "cpu" else "cuda:0"}
+    rng = np.random.default_rng(REC_SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (REC_BATCH, prompt)), device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (n_steps, REC_BATCH)), device=dev)
+
+    p_shape = ShapeConfig(f"prefill_{tag}", "prefill", prompt, REC_BATCH)
+    d_shape = ShapeConfig(f"decode_{tag}", "decode", prompt, REC_BATCH)
+    prefill, _, (p_sh, b_sh) = steps.build_prefill(cfg, p_shape, mesh)
+    step, _, (_, tok_sh, c_sh, pos_sh) = steps.build_decode(cfg, d_shape, mesh)
+    params = steps.place(model.tree(), p_sh)
+    batch = steps.place({"tokens": tokens}, b_sh)
+    specs = sorted({str(a.sharding.spec) for a in tree_leaves(params["layers"][0])})
+    log(f"[{tag}] {arch}'s width (d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}) with n_layers cut {full.n_layers} → {cfg.n_layers} ({plan.n_groups} "
+        f"groups of {plan.pattern} + {plan.rem_kinds}), bf16 weights and activations from seed "
+        f"{REC_SEED}, on {mesh.sizes[0]} × {mesh.sizes[1]} slots; layer 0's specs {specs}; "
+        f"prompt {REC_BATCH} × {prompt}, {n_steps} decode steps")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    l32, ref32 = lm.prefill(model, cfg32, tokens, prompt)
+    model._compute = None                          # the float32 copy of the bf16 weights
+    (ref_logits, ref_cache), ref_pre = synced(lambda: lm.prefill(model, cfg, tokens, prompt))
+    reset_counts()
+    (logits, cache), pre_s = synced(lambda: prefill(params, batch))
+    read_counts(f"({tag}) sharded prefill (no custom kernel on this path)")
+    gap, agree, clear = hold_logits(f"({tag}) prefill", logits.gather(), ref_logits)
+    log(f"[{tag}] prefill: sharded {pre_s:.3f} s ({REC_BATCH * prompt / pre_s:.1f} tokens/s), "
+        f"one-device {ref_pre:.3f} s; last logits max |Δ| {gap:.4f} (≤ {SERVE_LOGIT_ATOL}), "
+        f"argmax equal in {agree} of {REC_BATCH} rows ({clear} clear of a tie); "
+        f"{hold_states(f'({tag}) prefill', cache, ref_cache, ref32)}")
+    logit_check(f"({tag}) prefill's last logits", logits.gather().float(), ref_logits.float(),
+                l32.float())
+    assert [a.sharding.spec for a in tree_leaves(cache)] == \
+        [sh.spec for sh in tree_leaves(c_sh)], f"({tag}) the prefill's state is not decode's"
+    del logits, batch
+
+    n = len(mesh.slot_devices)
+    reset_counts()
+    secs, ref_secs, got_l, want_l, prof = [], [], [], [], None
+    for i in range(n_steps):
+        pos = prompt + i
+        tok = tok_sh.place(toks[i])
+        pos_t = pos_sh.place(torch.tensor(pos, dtype=torch.int32))
+        if i == 0:
+            card_in = per_slot_bytes(n, params, tok, cache, pos_t)
+        if i == n_steps - 1 and profile:
+            (logits, cache), *prof = profiled(lambda: step(params, tok, cache, pos_t))
+        else:
+            (logits, cache), sec = synced(lambda: step(params, tok, cache, pos_t))
+            secs.append(sec)
+        (want, ref_cache), rsec = synced(lambda: lm.decode_step(model, cfg, toks[i], ref_cache,
+                                                                pos))
+        ref_secs.append(rsec)
+        got_l.append(logits.gather().float())
+        want_l.append(want.float())
+    read_counts(f"({tag}) sharded decode (no custom kernel on this path)")
+    card_out = [logits.slot_nbytes(s) + sum(a.slot_nbytes(s) for a in tree_leaves(cache))
+                for s in range(n)]
+    peak = torch.cuda.max_memory_allocated()
+    l32 = []
+    for i in range(n_steps):
+        l32.append(lm.decode_step(model, cfg32, toks[i], ref32, prompt + i)[0].float())
+    model._compute = None
+    gap, agree, clear = hold_logits(f"({tag}) decode", torch.stack(got_l, 1),
+                                    torch.stack(want_l, 1))
+    med = float(np.median(secs[1:] if len(secs) > 2 else secs))
+    log(f"[{tag}] decode: sharded step median {med * 1e3:.3f} ms [{min(secs) * 1e3:.3f}–"
+        f"{max(secs) * 1e3:.3f}], {REC_BATCH / med:.1f} tokens/s; one-device step median "
+        f"{float(np.median(ref_secs)) * 1e3:.3f} ms; logits max |Δ| {gap:.4f} (≤ "
+        f"{SERVE_LOGIT_ATOL}), argmax equal in {agree} of {REC_BATCH * n_steps} ({clear} clear of "
+        f"a tie); after step {n_steps}, "
+        f"{hold_states(f'({tag}) decode', cache, ref_cache, ref32)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    logit_check(f"({tag}) {n_steps} decode steps' logits", torch.stack(got_l, 1),
+                torch.stack(want_l, 1), torch.stack(l32, 1))
+    if profile:
+        log(f"[{tag}] step {n_steps} under torch.profiler: {profile_line(*prof)}")
+    del cache, ref_cache, ref32, params, logits, want
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase {time.perf_counter() - t_w:.2f}s")
+    return d_shape, card_in, card_out
+
+
+def sharded_recurrent_train(dev, reset_counts, read_counts):
+    """(w3) one sharded train step of each recurrent preset at its published
+    width, depth and dtypes from W_TRAIN, weights from seed REC_SEED, batch
+    W_TRAIN_BATCH × W_TRAIN_SEQ on SPMD_MODEL × 2 slots; the loss and
+    grad_norm held to the one-device step's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    for arch, (layers, act, weights) in W_TRAIN.items():
+        t_w3 = time.perf_counter()
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers, dtype=act, param_dtype=weights,
+                                  opt_state_dtype=weights)
+        opt_cfg = OptConfig(total_steps=2, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+        pipe = TokenPipeline(cfg, SHAPES["train_4k"], batch_override=W_TRAIN_BATCH,
+                             seq_override=W_TRAIN_SEQ)
+        batch = pipe.next_batch(dev)
+        ref = lm.init_params(REC_SEED, cfg, device=dev)
+        fingerprint = ref.embed["tok"][:1024].clone()
+        torch.cuda.reset_peak_memory_stats()
+        (_, ref_m), ref_s = synced(lambda: steps.make_train_step(cfg, opt_cfg)(
+            {"params": ref, "opt": init_opt_state(ref.tree(), opt_cfg)}, batch))
+        ref_peak = torch.cuda.max_memory_allocated()
+        ref_loss, ref_gn = ref_m["loss"].item(), ref_m["grad_norm"].item()
+        del ref, ref_m
+        torch.cuda.empty_cache()
+        model = lm.init_params(REC_SEED, cfg, device=dev)
+        assert torch.equal(model.embed["tok"][:1024], fingerprint), "(w3) another draw"
+        step, _, (st_sh, _) = steps.build_train(cfg, SHAPES["train_4k"], mesh, opt_cfg)
+        state = steps.init_placed_state(model.tree(), opt_cfg, st_sh)
+        del model, fingerprint
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (state, m), sec = synced(lambda: step(state, batch))
+        read_counts(f"(w3) {arch} sharded train step (no custom kernel on this path)")
+        peak = torch.cuda.max_memory_allocated()
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        d_loss, d_gn = abs(loss - ref_loss), abs(gn - ref_gn) / ref_gn
+        log(f"[w3] {arch}'s width, n_layers cut {full.n_layers} → {layers}, {act} "
+            f"activations, {weights} weights and moments, batch {W_TRAIN_BATCH} × {pipe.seq} on {mesh.sizes[0]} × {mesh.sizes[1]} "
+            f"slots: step 1 loss {loss:.6f}, grad_norm {gn:.6f} in {sec:.3f} s "
+            f"({W_TRAIN_BATCH * pipe.seq / sec:.1f} tokens/s), peak {peak / 2**30:.2f} GiB; the "
+            f"one-device step: loss {ref_loss:.6f}, grad_norm {ref_gn:.6f} in {ref_s:.3f} s, peak "
+            f"{ref_peak / 2**30:.2f} GiB; |Δloss| {d_loss:.3e} (≤ {TRAIN_LOSS_TOL}), grad_norm "
+            f"gap {d_gn:.3e} (≤ {TRAIN_GNORM_RTOL}); {time.perf_counter() - t_w3:.2f} s")
+        assert d_loss <= TRAIN_LOSS_TOL, f"(w3) {arch}: the loss strays from the one-device step's"
+        assert d_gn <= TRAIN_GNORM_RTOL, \
+            f"(w3) {arch}: the grad_norm strays from the one-device step's"
+        del state, batch, step, m
+        torch.cuda.empty_cache()
+
+
+def recurrent_sharded_phase(dev, reset_counts, read_counts):
+    """(w) the recurrent presets in the slot program on the card: (w1)
+    rwkv6_3b on 2 × 4 slots (heads whole a slot), (w1s) on 1 × 16 (the
+    heads straddle slots), (w2) recurrentgemma_9b on 2 × 4 (the local ring
+    sharded by position, wrapped), (w3) one sharded train step of each,
+    (w4) the dry run's records of (w1)'s and (w2)'s decode cells on 2 × 4
+    ``meta`` slots beside the card's blocks."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_w = time.perf_counter()
+    model = recurrent_model(dev, "rwkv6_3b")
+    cells = [(model.cfg,) + sharded_recurrent_serve(dev, "w1", model, SPMD_MODEL, SPMD_SLOTS,
+                                                    RWKV_PROMPT, REC_STEPS, reset_counts,
+                                                    read_counts)]
+    sharded_recurrent_serve(dev, "w1s", model, W_STRADDLE_MODEL, W_STRADDLE_MODEL,
+                            W_STRADDLE_PROMPT, W_STRADDLE_STEPS, reset_counts, read_counts,
+                            profile=False)
+    model = recurrent_model(dev, "recurrentgemma_9b")
+    cells.append((model.cfg,) + sharded_recurrent_serve(dev, "w2", model, SPMD_MODEL, SPMD_SLOTS,
+                                                        RG_PROMPT, REC_STEPS, reset_counts,
+                                                        read_counts))
+    del model
+    sharded_recurrent_train(dev, reset_counts, read_counts)
+    meta_mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device="meta")
+    for tag, (cfg, shape, card_in, card_out) in zip(("w1", "w2"), cells):
+        rec = dryrun.record_cell(cfg.name, shape, meta_mesh, cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        ma = rec["memory_analysis"]
+        log(f"[w4] ({tag})'s decode cell: dry run traced in {rec['t_lower_s']:.2f} s (depths "
+            f"{rec['trace']['depths']}); per slot: arguments {ma['argument_size_in_bytes']} B (on "
+            f"the card {card_in[0]}), outputs {ma['output_size_in_bytes']} B (on the card "
+            f"{card_out[0]}); collectives per slot {rec['collective_bytes_weighted']} "
+            f"({rec['collective_counts']} once)")
+        assert card_in == [ma["argument_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(w4) ({tag})'s per-slot argument bytes differ from the card's"
+        assert card_out == [ma["output_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(w4) ({tag})'s per-slot output bytes differ from the card's"
+    log(f"[w] phase {time.perf_counter() - t_w:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -3627,6 +3944,9 @@ def main(argv=None) -> int:
 
     # -- path 18: (v) the recurrent presets at their published widths -----------
     recurrent_phase(dev, kernels, reset_counts, read_counts, topk_check)
+
+    # -- path 19: (w) the recurrent presets in the slot program -------------------
+    recurrent_sharded_phase(dev, reset_counts, read_counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -182,7 +182,7 @@ PORTED_ARCHS = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b", "rwkv6_3b",
                 "recurrentgemma_9b")
 _UNPORTED_ARCHS = {
     "granite_moe_1b_a400m": "queue A item 20", "qwen3_moe_235b_a22b": "queue A item 20",
-    "whisper_large_v3": "queue A item 21", "llava_next_mistral_7b": "queue A item 21",
+    "whisper_large_v3": "queue A item 21", "llava_next_mistral_7b": "queue A item 21b",
 }
 
 

@@ -35,23 +35,28 @@ tail stays), so the extension is exact: equal to the full trace
 alone, the other groups' outputs taken to be its (every data group runs
 the same program on blocks of the same shapes; the cross-group collectives
 still run over every slot).  A decode cell traces at ``pos`` =
-``seq_len`` − 1 (which slot writes the new K/V changes no byte).
+``seq_len`` − 1 (which slot writes the new K/V changes no byte).  (4) The
+recurrent scans (``rglru.linear_scan``, ``rwkv6.wkv``) hold no collective;
+on ``meta`` tensors they return outputs and states of the reference's
+shapes and dtypes without the loop over the tokens (``prefill_32k`` is
+32,768 tokens a slot).  The stand-in is keyed on the tensors' device being
+``meta``, never on a missing card: a ``cpu`` or ``cuda`` tensor always runs
+the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
+slots, real loops, equal to its record on ``meta``).
 
-Presets the port does not carry yet, and the recurrent presets, whose
-layers the slot program does not run yet, are recorded as failed cells,
-the error naming their ROADMAP queue item, as the reference records a
-failure.
+Presets the port does not carry yet are recorded as failed cells, the
+error naming their ROADMAP queue item, as the reference records a failure.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
         --shape train_4k --mesh both
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 24 cells + 40 failed
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 40 cells + 24 failed
 
-(``--all``: the four dense presets' 24 cells; 40 recorded failures, the
-16 cells of ``rwkv6_3b`` and ``recurrentgemma_9b`` (their three base
-shapes and ``long_500k`` on both meshes, queue A item 19b) and the four
-unported presets' base shapes on both meshes.)
+(``--all``: the four dense presets' 24 cells and the 16 of ``rwkv6_3b`` and
+``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
+meshes); 24 recorded failures, the four unported presets' base shapes on
+both meshes, queue A items 20 and 21.)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """

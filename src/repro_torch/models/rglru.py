@@ -92,9 +92,20 @@ def _scan(a: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor):
     return torch.stack(hs, dim=1), h
 
 
+def _scan_shapes(a: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor):
+    """``_scan``'s outputs in shape and dtype alone, on ``meta`` tensors (the
+    dry run's trace): elementwise in every input, so a backward reaches
+    each of them, with no loop over the tokens."""
+    h = a * drive + h0[:, None, :]
+    return h, h[:, -1]
+
+
 def linear_scan(a: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor, chunk: int):
     """``_scan`` in chunks of ``chunk`` tokens, each under a (non-reentrant)
-    checkpoint when gradients are on: backward keeps one chunk's states."""
+    checkpoint when gradients are on: backward keeps one chunk's states.
+    On ``meta`` tensors, ``_scan_shapes``."""
+    if a.device.type == "meta":
+        return _scan_shapes(a, drive, h0)
     if not (torch.is_grad_enabled() and (a.requires_grad or drive.requires_grad
                                          or h0.requires_grad)):
         return _scan(a, drive, h0)

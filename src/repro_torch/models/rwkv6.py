@@ -104,10 +104,20 @@ def _wkv_scan(r, k, v, w, u, state0):
     return torch.stack(ys, dim=1), state
 
 
+def _wkv_shapes(r, k, v, w, u, state0):
+    """``_wkv_scan``'s outputs in shape and dtype alone, on ``meta`` tensors
+    (the dry run's trace): elementwise in every input, so a backward reaches
+    each of them, with no loop over the tokens."""
+    y = r.float() * k.float() * v.float() * w.float() + u.float()
+    return y, state0 + y[:, -1, :, :, None]
+
+
 def wkv(r, k, v, w, u, state0, chunk: int):
     """``_wkv_scan`` in chunks of ``chunk`` tokens, each under a
     (non-reentrant) checkpoint when gradients are on: backward keeps one
-    chunk's states."""
+    chunk's states.  On ``meta`` tensors, ``_wkv_shapes``."""
+    if r.device.type == "meta":
+        return _wkv_shapes(r, k, v, w, u, state0)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, state0))):
         return _wkv_scan(r, k, v, w, u, state0)
     state, ys = state0, []
@@ -117,6 +127,42 @@ def wkv(r, k, v, w, u, state0, chunk: int):
                               use_reentrant=False)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def shifted(xn: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The token shift: each position's previous normed input, ``shift``
+    (B, D) before the first."""
+    return torch.cat([shift[:, None, :], xn[:, :-1, :]], dim=1)
+
+
+def time_mix_in(params, xn: torch.Tensor, x_prev: torch.Tensor):
+    """The time mix's r, k, v, g (SiLU'd) and the float32 decay w of the
+    output channels ``params``' projections hold (all of them, or a slot's
+    columns of ``wr``/``wk``/``wv``/``wg``/``wd_b``/``w0``); the mixes ``mu_*``
+    and ``wd_a`` whole."""
+    r = _mix(xn, x_prev, params["mu_r"]) @ params["wr"]
+    k = _mix(xn, x_prev, params["mu_k"]) @ params["wk"]
+    v = _mix(xn, x_prev, params["mu_v"]) @ params["wv"]
+    g = _mix(xn, x_prev, params["mu_g"]) @ params["wg"]
+    g = g * L.sigmoid(g)                                      # jax.nn.silu
+    dd = torch.tanh(_mix(xn, x_prev, params["mu_w"]) @ params["wd_a"]) @ params["wd_b"]
+    w = torch.exp(-torch.exp(params["w0"].float() + dd.float()))
+    return r, k, v, g, w
+
+
+def heads_out(y: torch.Tensor, g: torch.Tensor, scale: torch.Tensor, hd: int, dtype):
+    """The wkv output y (B,S,H',hd) of whole heads, cast to ``dtype``, group
+    normed per head with ``scale`` (its H'·hd channels) and gated by g."""
+    b, s, h = y.shape[:3]
+    return _group_norm(y.reshape(b, s, h * hd).to(dtype), scale, h) * g
+
+
+def channel_mix_in(params, x2n: torch.Tensor, x2_prev: torch.Tensor):
+    """The channel mix's squared-ReLU key (the d_ff columns ``cm_k`` holds)
+    and its sigmoid receptance (the output channels ``cm_r`` holds)."""
+    kk = torch.square(torch.relu(_mix(x2n, x2_prev, params["cm_mu_k"]) @ params["cm_k"]))
+    rr = L.sigmoid(_mix(x2n, x2_prev, params["cm_mu_r"]) @ params["cm_r"])
+    return kk, rr
 
 
 def rwkv_forward(params, cfg: ModelConfig, x: torch.Tensor, state=None):
@@ -130,28 +176,16 @@ def rwkv_forward(params, cfg: ModelConfig, x: torch.Tensor, state=None):
 
     # ---- time mix (over the internally pre-normed input) ------------------
     xn = _rms(x, params["ln1"])
-    x_prev = torch.cat([state["shift_tm"][:, None, :], xn[:, :-1, :]], dim=1)
-    r = _mix(xn, x_prev, params["mu_r"]) @ params["wr"]
-    k = _mix(xn, x_prev, params["mu_k"]) @ params["wk"]
-    v = _mix(xn, x_prev, params["mu_v"]) @ params["wv"]
-    g = _mix(xn, x_prev, params["mu_g"]) @ params["wg"]
-    g = g * L.sigmoid(g)                                      # jax.nn.silu
-    dd = torch.tanh(_mix(xn, x_prev, params["mu_w"]) @ params["wd_a"]) @ params["wd_b"]
-    w = torch.exp(-torch.exp(params["w0"].float() + dd.float()))
-
+    r, k, v, g, w = time_mix_in(params, xn, shifted(xn, state["shift_tm"]))
     heads = lambda t: t.reshape(b, s, h, hd)
     y, final = wkv(heads(r), heads(k), heads(v), heads(w), params["u"], state["wkv"],
                    min(cfg.rnn_chunk, s))
-    y = _group_norm(y.reshape(b, s, d).to(x.dtype), params["ln_scale"], h) * g
-    x2 = x + y @ params["wo"]
+    x2 = x + heads_out(y, g, params["ln_scale"], hd, x.dtype) @ params["wo"]
 
     # ---- channel mix ----------------------------------------------------------
     x2n = _rms(x2, params["ln2"])
-    x2_prev = torch.cat([state["shift_cm"][:, None, :], x2n[:, :-1, :]], dim=1)
-    kk = torch.square(torch.relu(_mix(x2n, x2_prev, params["cm_mu_k"]) @ params["cm_k"]))
-    cm = kk @ params["cm_v"]
-    rr = L.sigmoid(_mix(x2n, x2_prev, params["cm_mu_r"]) @ params["cm_r"])
-    out = x2 + rr * cm
+    kk, rr = channel_mix_in(params, x2n, shifted(x2n, state["shift_cm"]))
+    out = x2 + rr * (kk @ params["cm_v"])
     return out, {"wkv": final, "shift_tm": xn[:, -1, :].clone(),
                  "shift_cm": x2n[:, -1, :].clone()}
 

@@ -59,9 +59,25 @@ for an FSDP gather and for Q gathered over the model group, its backward a
 the model slots of its group, which GSPMD would not make, goes under
 ``"broadcast"``.  ``launch/dryrun.py`` reads the record.
 
-The slot program has attention blocks only: a preset with recurrent
-layers (``rglru``, ``rwkv``) is refused before any block runs (ROADMAP
-queue A item 19b).
+The recurrent layers split their channels over "model" as their specs
+say.  An ``rglru`` mixer is channel-parallel over ``rnn_d``: ``w_in`` and
+``w_gate`` column-parallel, the conv, gates and scan on the slot's channels,
+``w_out`` row-parallel; its state blocks are the slot's channels, so no
+collective touches them.  An ``rwkv`` layer takes its ``(d,)`` mixes and norm
+scales whole (``_Placed.local(whole=True)``, an all-gather whose backward
+is the reduce-scatter) and r/k/v/g/w column-parallel; where ``u`` shards by
+heads each slot scans and group-norms its own heads, and where the heads
+straddle the slots (``u`` whole: 40 heads on 16) r/k/v/g/w are gathered
+over the model group and every model slot runs the whole-head scan and
+holds the whole ``wkv`` state, as the spec replicates it.  ``wo`` and
+``cm_r`` shard their output (residual) channels: each slot's slice of the
+time-mix output and of the receptance is gathered (``all_gather``) into
+the replicated residual; ``cm_v`` is row-parallel.  A ``local`` layer's
+ring is placed like any cache; prefill writes its rolled tail by block.
+
+A global batch whose rows do not split over the data groups (``act_batch``
+unresolved, as ``long_500k``'s one row on 16 data groups) is replicated:
+every data group runs all of it, and the loss counts data group 0's once.
 """
 from __future__ import annotations
 
@@ -76,6 +92,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models import transformer as T
 from repro_torch.sharding import ShardingCtx, SlotArray, _names, data_axis_names
 from repro_torch.utils import tree_leaves, tree_map, unported
@@ -273,6 +291,40 @@ class _Gathered(torch.autograd.Function):
         return g, None
 
 
+class _AllGather(torch.autograd.Function):
+    """The concatenation of ``parts`` (one a model slot, in model order)
+    along ``dim`` onto each of ``devices``; backward sums the copies'
+    gradients in float32, rounds once and hands each part its slice.
+    Recorded as an all-gather of a part over ``slots``; its backward as a
+    reduce-scatter of the gathered gradient."""
+
+    @staticmethod
+    def forward(ctx, dim, slots, devices, *parts):
+        with torch.profiler.record_function(COLLECTIVE):
+            ctx.dim, ctx.slots, ctx.repeat = dim, slots, _REPEAT
+            ctx.metas = [(p.device, p.dtype, p.shape[dim]) for p in parts]
+            note("all-gather", _nbytes(parts[0]), slots)
+            return tuple(torch.cat([p.to(d) for p in parts], dim=dim) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with torch.profiler.record_function(COLLECTIVE):
+            note("reduce-scatter", _nbytes(grads[0]), ctx.slots, ctx.repeat)
+            acc = None
+            for g in grads:
+                g = g.to(device=ctx.metas[0][0], dtype=torch.float32)
+                acc = g if acc is None else acc + g
+            pieces = acc.split([n for _, _, n in ctx.metas], dim=ctx.dim)
+            return (None, None, None) + tuple(p.to(device=d, dtype=dt)
+                                              for p, (d, dt, _) in zip(pieces, ctx.metas))
+
+
+def all_gather(parts: List[torch.Tensor], dim: int, devices, slots=()) -> tuple:
+    """``parts`` (those of ``slots``) joined along ``dim`` onto each of
+    ``devices``."""
+    return _AllGather.apply(dim, tuple(slots), tuple(devices), *parts)
+
+
 def broadcast(x: torch.Tensor, devices, slots=()) -> tuple:
     """x onto each of ``devices`` (those of ``slots``, recorded as such)."""
     return _Broadcast.apply(x, tuple(slots), *devices)
@@ -346,23 +398,27 @@ def _check_model_dim(arr: SlotArray, name: str, want: int) -> bool:
 
 class _Placed:
     """A sublayer's placed leaves and their compute copies; ``local(k, s)``
-    is leaf k as slot s's program sees it (gathered over the data axes,
-    recorded as an all-gather of slot s's block)."""
+    is leaf k as slot s's program sees it: gathered over the data axes, and
+    with ``whole`` over "model" too (a leaf every model slot needs whole),
+    recorded as an all-gather of slot s's block.  The gather joins the
+    blocks of slot s's group in autograd, so each block's gradient is the
+    sum of every model slot's for it; the backward is recorded as the
+    reduce-scatter of the gathered gradient."""
 
     def __init__(self, arrs: Dict[str, SlotArray], blocks: Dict[str, list]):
         self.arrs, self.blocks = arrs, blocks
 
-    def local(self, k: str, s: int) -> torch.Tensor:
+    def local(self, k: str, s: int, whole: bool = False) -> torch.Tensor:
         sh = self.arrs[k].sharding
-        data = data_axis_names(sh.mesh)
-        if not any(a in data for e in sh.spec for a in _names(e)):
-            return sh.local_view(self.blocks[k], s, keep=("model",))
+        keep = () if whole else ("model",)
+        if not any(a not in keep for e in sh.spec for a in _names(e)):
+            return sh.local_view(self.blocks[k], s, keep=keep)
         with torch.profiler.record_function(COLLECTIVE):
             note("all-gather", _nbytes(self.blocks[k][s]), (s,))
-            return _Gathered.apply(sh.local_view(self.blocks[k], s, keep=("model",)), s)
+            return _Gathered.apply(sh.local_view(self.blocks[k], s, keep=keep), s)
 
-    def slot(self, s: int) -> dict:
-        return {k: self.local(k, s) for k in self.arrs}
+    def slot(self, s: int, whole=()) -> dict:
+        return {k: self.local(k, s, k in whole) for k in self.arrs}
 
 
 # --------------------------------------------------------------------------
@@ -377,10 +433,6 @@ class _Program:
 
     def __init__(self, params, cfg: ModelConfig):
         T._check_supported(cfg)
-        recurrent = sorted({k for k in cfg.block_pattern if k in ("rglru", "rwkv")})
-        if recurrent:
-            raise unported(f"the slot program's {' and '.join(map(repr, recurrent))} layers "
-                           f"({cfg.name})", "queue A item 19b")
         first = tree_leaves(params)[0]
         self.mesh = first.sharding.mesh
         self.groups = groups_of(first.sharding)
@@ -394,14 +446,18 @@ class _Program:
         self.emb_c = _Placed(params["embed"], compute["embed"])
         self.emb_m = _Placed(params["embed"], {k: a.blocks for k, a in params["embed"].items()})
         self.fnorm = _Placed(params["final_norm"], compute["final_norm"])
-        self.layers = [{k: _Placed(lp[k], lc[k]) for k in T._SUBLAYERS}
-                       for lp, lc in zip(params["layers"], compute["layers"])]
+        self.layers = [{"rwkv": _Placed(lp, lc)} if kind == "rwkv" else
+                       {k: _Placed(lp[k], lc[k]) for k in lp}
+                       for kind, lp, lc in zip(self.plan.kinds, params["layers"],
+                                               compute["layers"])]
 
-    def rows(self, n: int) -> int:
-        """Rows a data group takes of a global batch of ``n``."""
-        if n % self.groups.n_data:
-            raise ValueError(f"{n} rows do not split over {self.groups.n_data} data groups")
-        return n // self.groups.n_data
+    def rows(self, cfg: ModelConfig, n: int) -> List[slice]:
+        """Each data group's rows of a global batch of ``n``: its share where
+        ``act_batch`` resolves for ``n``, else all of them (replicated)."""
+        if self.ctx(cfg).spec(("act_batch",), (n,))[0] is None:
+            return [slice(0, n)] * self.groups.n_data
+        r = n // self.groups.n_data
+        return [slice(d * r, (d + 1) * r) for d in range(self.groups.n_data)]
 
     def ctx(self, cfg: ModelConfig) -> ShardingCtx:
         return ShardingCtx.for_mesh(self.mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
@@ -453,19 +509,56 @@ def _attention(p: dict, cfg: ModelConfig, h, kind: str, m: int, n_model: int,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
-def _layout(lp: Dict[str, _Placed], cfg: ModelConfig):
-    """(Q sharded, K/V sharded, d_ff sharded) over "model" for one layer."""
-    attn, mlp = lp["attn"], lp["mlp"]
-    q_sh = _check_model_dim(attn.arrs["wq"], "wq", 1)
-    kv_sh = _check_model_dim(attn.arrs["wk"], "wk", 1)
-    if _check_model_dim(attn.arrs["wo"], "wo", 0) != q_sh or (kv_sh and not q_sh):
-        raise ValueError("wq and wo shard their heads together, and K/V only with them")
+def _mlp_layout(mlp: _Placed, cfg: ModelConfig) -> bool:
+    """Whether the MLP shards d_ff over "model"."""
     down = "w_out" if cfg.gelu_mlp else "w_down"
     f_sh = _check_model_dim(mlp.arrs[down], down, 0)
     for k in mlp.arrs:
         if k != down and _check_model_dim(mlp.arrs[k], k, 1) != f_sh:
             raise ValueError("the MLP's weights must shard d_ff together")
-    return q_sh, kv_sh, f_sh
+    return f_sh
+
+
+def _together(arrs: Dict[str, SlotArray], dims: Dict[str, int], what: str) -> bool:
+    """Whether the leaves ``dims`` names shard over "model", each on its dim
+    there, all or none of them."""
+    got = {_check_model_dim(arrs[k], k, dim) for k, dim in dims.items()}
+    if len(got) > 1:
+        raise ValueError(f"{what} must shard over 'model' together")
+    return got.pop()
+
+
+_RWKV_CHANNELS = {**{k: 1 for k in ("wr", "wk", "wv", "wg", "wo", "cm_r", "wd_b")},
+                  **{k: 0 for k in rwkv_lib._MU + ("w0", "ln_scale", "ln1", "ln2", "cm_mu_k",
+                                                   "cm_mu_r")}}
+_RWKV_WHOLE = rwkv_lib._MU + ("ln1", "ln2", "cm_mu_k", "cm_mu_r")   # every slot's, whole
+
+
+def _layout(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str) -> tuple:
+    """One layer's split over "model", d_ff's last: (Q sharded, K/V
+    sharded, d_ff sharded) for attention; (rnn_d sharded, d_ff sharded) for
+    ``rglru``; (channels sharded, heads sharded, d_ff sharded) for
+    ``rwkv``.  A leaf shards on the dim the program expects, or not at
+    all."""
+    if kind == "rwkv":
+        arrs = lp["rwkv"].arrs
+        tp = _together(arrs, _RWKV_CHANNELS, "the rwkv layer's channel leaves")
+        heads = _check_model_dim(arrs["u"], "u", 0)
+        _check_model_dim(arrs["wd_a"], "wd_a", -1)
+        if heads and not tp:
+            raise ValueError("rwkv's u shards its heads where its channels do not")
+        return tp, heads, _together(arrs, {"cm_k": 1, "cm_v": 0}, "rwkv's cm_k and cm_v")
+    if kind == "rglru":
+        dims = {"w_in": 1, "w_gate": 1, "conv": 1, "w_out": 0,
+                **{k: 0 for k in ("lam", "w_i", "b_i", "w_a", "b_a")}}
+        return (_together(lp["rglru"].arrs, dims, "the RG-LRU's rnn_d leaves"),
+                _mlp_layout(lp["mlp"], cfg))
+    attn = lp["attn"]
+    q_sh = _check_model_dim(attn.arrs["wq"], "wq", 1)
+    kv_sh = _check_model_dim(attn.arrs["wk"], "wk", 1)
+    if _check_model_dim(attn.arrs["wo"], "wo", 0) != q_sh or (kv_sh and not q_sh):
+        raise ValueError("wq and wo shard their heads together, and K/V only with them")
+    return q_sh, kv_sh, _mlp_layout(lp["mlp"], cfg)
 
 
 def _attn_block(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x,
@@ -492,11 +585,112 @@ def _mlp_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int,
     return x + (reduce_sum(outs, devs[0], slots=slots) if f_sh else outs[0])
 
 
+def _join(parts: list, sharded: bool, device, slots):
+    """A row's channel slices, one a model slot, joined on ``device``; slot
+    0's whole tensor where the channels do not shard."""
+    return all_gather(parts, -1, (device,), slots)[0] if sharded else parts[0]
+
+
+def _state_whole(arr: SlotArray, slots, devs) -> list:
+    """Each model slot's copy of a recurrent state leaf whole over "model"
+    (its channel blocks gathered over the group where dim 1 shards)."""
+    blocks = [arr.blocks[s] for s in slots]
+    if _check_model_dim(arr, "a recurrent state", 1):
+        return list(all_gather(blocks, 1, devs, slots))
+    return blocks
+
+
+def _rglru_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int, x, layout,
+                 state: Optional[dict] = None):
+    """x + the RG-LRU mixer for data group d, channel-parallel over rnn_d
+    (``w_out`` row-parallel, summed in float32 before the residual add),
+    from ``state`` (the layer's placed ``{"h", "conv"}``; zeros where None).
+    Returns (x, each slot's new ``{"h", "conv"}``: its own channels)."""
+    slots, devs = groups.slots[d], groups.devices[d]
+    outs, states = [], []
+    for s, xs in zip(slots, broadcast(x, devs, slots)):
+        hn = L.apply_norm(lp["norm1"].slot(s), cfg, xs)
+        p = lp["rglru"].slot(s)
+        st = None if state is None else {k: a.blocks[s] for k, a in state.items()}
+        out, new = rglru_lib.rglru_forward(
+            p, dataclasses.replace(cfg, rnn_width=p["w_in"].shape[1]), hn, st)
+        outs.append(out)
+        states.append(new)
+    return x + (reduce_sum(outs, devs[0], slots=slots) if layout[0] else outs[0]), states
+
+
+def _rwkv_block(pl: _Placed, cfg: ModelConfig, groups: Groups, d: int, x, layout,
+                state: Optional[dict] = None):
+    """An RWKV-6 layer for data group d: x -> x + time mix + channel mix
+    (``rwkv6.rwkv_forward``'s output) from ``state`` (the layer's placed
+    ``{"wkv", "shift_tm", "shift_cm"}``; zeros where None).  Returns (x, each
+    slot's new state: ``wkv`` of its heads — all of them where they straddle
+    the slots —, ``shift_tm`` / ``shift_cm`` whole)."""
+    tp, heads_sh, f_sh = layout
+    slots, devs = groups.slots[d], groups.devices[d]
+    hd, dt = cfg.rnn_head_dim, x.dtype
+    b, t = x.shape[:2]
+    whole = _RWKV_WHOLE + (() if heads_sh else ("ln_scale",))
+    ps = [pl.slot(s, whole) for s in slots]
+    zero = torch.zeros((b, cfg.d_model), dtype=dt, device=x.device)
+    shift_tm, shift_cm = ((_state_whole(state[k], slots, devs) for k in ("shift_tm", "shift_cm"))
+                          if state is not None else ([zero.to(dv) for dv in devs],) * 2)
+    heads = lambda y: y.reshape(b, t, y.shape[-1] // hd, hd)
+
+    def scan(m, r, k, v, w):
+        p = ps[m]
+        st0 = (torch.zeros((b, r.shape[-1] // hd, hd, hd), dtype=torch.float32, device=r.device)
+               if state is None else state["wkv"].blocks[slots[m]])
+        return rwkv_lib.wkv(heads(r), heads(k), heads(v), heads(w), p["u"], st0,
+                            min(cfg.rnn_chunk, t))
+
+    # ---- time mix: r/k/v/g/w of the slot's channels ------------------------
+    xns, ins = [], []
+    for m, xs in enumerate(broadcast(x, devs, slots)):
+        xn = rwkv_lib._rms(xs, ps[m]["ln1"])
+        xns.append(xn)
+        ins.append(rwkv_lib.time_mix_in(ps[m], xn, rwkv_lib.shifted(xn, shift_tm[m])))
+    wkvs, ygs = [], []
+    if heads_sh or not tp:          # whole heads on each slot: its own
+        for m, (r, k, v, g, w) in enumerate(ins):
+            y, st = scan(m, r, k, v, w)
+            wkvs.append(st)
+            ygs.append(rwkv_lib.heads_out(y, g, ps[m]["ln_scale"], hd, dt))
+        if tp:
+            ygs = all_gather(ygs, -1, devs, slots)
+    else:                           # heads straddle the slots: every slot scans all
+        r_, k_, v_, g_, w_ = (all_gather([i[j] for i in ins], -1, devs, slots) for j in range(5))
+        for m in range(len(slots)):
+            y, st = scan(m, r_[m], k_[m], v_[m], w_[m])
+            wkvs.append(st)
+            ygs.append(rwkv_lib.heads_out(y, g_[m], ps[m]["ln_scale"], hd, dt))
+    x2 = x + _join([yg @ p["wo"] for yg, p in zip(ygs, ps)], tp, devs[0], slots)
+
+    # ---- channel mix ---------------------------------------------------------
+    x2ns, cms, rrs = [], [], []
+    for m, xs in enumerate(broadcast(x2, devs, slots)):
+        x2n = rwkv_lib._rms(xs, ps[m]["ln2"])
+        x2ns.append(x2n)
+        kk, rr = rwkv_lib.channel_mix_in(ps[m], x2n, rwkv_lib.shifted(x2n, shift_cm[m]))
+        cms.append(kk @ ps[m]["cm_v"])
+        rrs.append(rr)
+    cm = reduce_sum(cms, devs[0], slots=slots) if f_sh else cms[0]
+    out = x2 + _join(rrs, tp, devs[0], slots) * cm
+    return out, [{"wkv": w, "shift_tm": xn[:, -1], "shift_cm": x2n[:, -1]}
+                 for w, xn, x2n in zip(wkvs, xns, x2ns)]
+
+
 def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x):
-    """One decoder layer for data group d: x -> x + attn, then + mlp."""
-    layout = _layout(lp, cfg)
-    x, _ = _attn_block(lp, cfg, kind, groups, d, x, layout)
-    return _mlp_block(lp, cfg, groups, d, x, layout[2])
+    """One decoder layer for data group d (x -> x + mixer, then + mlp; an
+    ``rwkv`` layer holds both)."""
+    layout = _layout(lp, cfg, kind)
+    if kind == "rwkv":
+        return _rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)[0]
+    if kind == "rglru":
+        x, _ = _rglru_block(lp, cfg, groups, d, x, layout)
+    else:
+        x, _ = _attn_block(lp, cfg, kind, groups, d, x, layout)
+    return _mlp_block(lp, cfg, groups, d, x, layout[-1])
 
 
 def _final_hidden(prog: _Program, cfg: ModelConfig, d: int, x) -> list:
@@ -544,8 +738,9 @@ def _nll_fn(emb: _Placed, cfg: ModelConfig, groups: Groups, d: int):
 def loss_fn(params, cfg: ModelConfig, batch):
     """``transformer.loss_fn`` over placed parameters: (loss, {"xent",
     "moe_aux"}) on slot 0's device.  ``batch`` holds global tensors
-    (``tokens``, ``labels``, optional ``loss_mask``) whose rows split evenly
-    over the data groups.  Each scanned layer of a data group runs under a
+    (``tokens``, ``labels``, optional ``loss_mask``) whose rows split over
+    the data groups where ``act_batch`` resolves (else each group runs them
+    all and group 0's count).  Each scanned layer of a data group runs under a
     checkpoint when ``cfg.remat`` is set and gradients are on, as the
     one-device forward does in training.  An unsharded vocabulary's logits are
     computed on the group's slot 0 alone (no other copy would reach the
@@ -559,14 +754,14 @@ def loss_fn(params, cfg: ModelConfig, batch):
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device) if mask is None
             else torch.as_tensor(mask, device=labels.device).float())
-    r = prog.rows(tokens.shape[0])
+    cuts = prog.rows(cfg, tokens.shape[0])
     n_scanned = plan.n_groups * len(plan.pattern)
     use_remat = cfg.remat and torch.is_grad_enabled()
 
     tots, cnts = [], []
     for d in _data_groups(groups):
         dev0 = groups.devices[d][0]
-        cut = slice(d * r, (d + 1) * r)
+        cut = cuts[d]
         x = _embed(prog.emb_c, cfg, tokens[cut], groups, d)
         for i, kind in enumerate(plan.kinds):
             fn = _scoped(i, plan, functools.partial(_layer, prog.layers[i], cfg, kind, groups, d))
@@ -578,6 +773,8 @@ def loss_fn(params, cfg: ModelConfig, batch):
         cnts.append(cnt)
     dev = groups.devices[0][0]
     note("all-reduce", 2 * _nbytes(tots[0]), range(len(prog.mesh.slot_devices)))
+    if cuts[0] == cuts[-1]:         # every data group ran every row: count them once
+        tots, cnts = tots[:1], cnts[:1]
     xent = sum(t.to(dev) for t in tots) / torch.clamp(sum(c.to(dev) for c in cnts), min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
@@ -601,14 +798,22 @@ def _logits(prog: _Program, cfg: ModelConfig, b: int, hidden: list):
     return SlotArray(sh, (b, cfg.vocab_size), blocks)
 
 
-def _cache_block(kv, sharding, s: int, shape, cfg: ModelConfig, kind: str, cache_len: int,
-                 heads_local: bool):
-    """Slot s's block of a layer's cached K or V from the K/V (r, S, G', hd)
-    its program computed (its own KV heads where ``heads_local``)."""
+def _block_of(value: torch.Tensor, sharding, s: int, shape) -> torch.Tensor:
+    """Slot s's block of a decode-state leaf of global ``shape`` from
+    ``value``, what slot s's program computed: its data group's rows, and
+    along every other dim either the whole (cut here to the slot's block)
+    or the slot's block already."""
     sl = sharding.slices(s, shape)
-    full = T.cache_layout(kv, cfg, kind, cache_len)
-    return full[:, sl[1], slice(None) if heads_local else sl[2]].clone(
-        memory_format=torch.contiguous_format)
+    idx = [slice(None)]
+    for i in range(1, len(shape)):
+        if value.shape[i] == shape[i]:
+            idx.append(sl[i])
+        elif value.shape[i] == sl[i].stop - sl[i].start:
+            idx.append(slice(None))
+        else:
+            raise ValueError(f"a state of dim {i} {value.shape[i]} is neither the whole "
+                             f"{shape[i]} nor slot {s}'s block of {sharding.spec}")
+    return value[tuple(idx)].clone(memory_format=torch.contiguous_format)
 
 
 def _cache_dim(sharding, kv_sharded: bool):
@@ -622,47 +827,78 @@ def _cache_dim(sharding, kv_sharded: bool):
     return dim
 
 
+def _check_state(st: dict, layout: tuple, kind: str) -> None:
+    """A layer's decode-state shardings (``{"kv": ...}`` or ``{"rnn": ...}``)
+    against the layer's split over "model": a recurrent state shards its
+    channels (heads for ``wkv``) where the layer computes them apart."""
+    if kind == "rwkv":
+        want = {"wkv": (1, layout[1]), "shift_tm": (1, layout[0]), "shift_cm": (1, layout[0])}
+    elif kind == "rglru":
+        want = {"h": (1, layout[0]), "conv": (2, layout[0])}
+    else:
+        for a in st["kv"].values():
+            _cache_dim(a, layout[1])
+        return
+    for k, (dim, sharded) in want.items():
+        if model_dim(st["rnn"][k]) != (dim if sharded else None):
+            raise ValueError(f"the {kind} state {k}'s spec {st['rnn'][k].spec} does not split "
+                             f"as the layer's weights do")
+
+
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
     """``transformer.prefill`` over placed parameters: the prompt ``tokens``
     (B, S) — a tensor, or placed by ``act_batch`` — run through the slot
     program.  Returns (logits (B, vocab) placed as ``("act_batch",
-    "act_vocab")`` — ``.gather()`` joins them —, the cache: one ``{"kv": {"k",
-    "v"}}`` of ``SlotArray`` per layer, placed by ``transformer.cache_specs``
-    on the parameters' mesh, each slot's block written by that slot)."""
+    "act_vocab")`` — ``.gather()`` joins them —, the cache: per layer its
+    ``{"kv": {"k", "v"}}`` or ``{"rnn": ...}`` of ``SlotArray``, placed by
+    ``transformer.cache_specs`` on the parameters' mesh, each slot's block
+    written by that slot)."""
     prog = _Program(params, cfg)
     groups, plan = prog.groups, prog.plan
     tokens = T._tokens(_global(tokens), groups.devices[0][0])
     b = tokens.shape[0]
-    r = prog.rows(b)
+    cuts = prog.rows(cfg, b)
     shapes = T.cache_shapes(cfg, b, cache_len)
     shard = prog.ctx(cfg).param_shardings(shapes, T.cache_specs(cfg))
     n_slots = len(prog.mesh.slot_devices)
-    blocks = [{"k": [None] * n_slots, "v": [None] * n_slots} for _ in plan.kinds]
+    blocks = [{g: {n: [None] * n_slots for n in leaves} for g, leaves in st.items()}
+              for st in shapes]
     hidden = [None] * n_slots
 
     for d in _data_groups(groups):
         slots = groups.slots[d]
 
+        def write(i, group, per_slot):
+            for n, arr in shard[i][group].items():
+                for s, v in zip(slots, per_slot):
+                    blocks[i][group][n][s] = _block_of(v[n], arr, s, shapes[i][group][n].shape)
+
         def layer(i, kind, x):
             lp = prog.layers[i]
-            layout = _layout(lp, cfg)
-            x, kvs = _attn_block(lp, cfg, kind, groups, d, x, layout)
-            for name, j in (("k", 0), ("v", 1)):
-                arr = shard[i]["kv"][name]
-                local = _cache_dim(arr, layout[1]) == 2
-                for s, kv in zip(slots, kvs):
-                    blocks[i][name][s] = _cache_block(kv[j], arr, s, shapes[i]["kv"][name].shape,
-                                                      cfg, kind, cache_len, local)
-            return _mlp_block(lp, cfg, groups, d, x, layout[2])
+            layout = _layout(lp, cfg, kind)
+            _check_state(shard[i], layout, kind)
+            if kind == "rwkv":
+                x, states = _rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)
+                write(i, "rnn", states)
+                return x
+            if kind == "rglru":
+                x, states = _rglru_block(lp, cfg, groups, d, x, layout)
+                write(i, "rnn", states)
+            else:
+                x, kvs = _attn_block(lp, cfg, kind, groups, d, x, layout)
+                write(i, "kv", [{n: T.cache_layout(kv[j], cfg, kind, cache_len)
+                                 for j, n in enumerate(("k", "v"))} for kv in kvs])
+            return _mlp_block(lp, cfg, groups, d, x, layout[-1])
 
-        x = _embed(prog.emb_c, cfg, tokens[d * r:(d + 1) * r], groups, d)
+        x = _embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d)
         for i, kind in enumerate(plan.kinds):
             x = _scoped(i, plan, functools.partial(layer, i, kind))(x)
         for s, h in zip(slots, _final_hidden(prog, cfg, d, x)):
             hidden[s] = h[:, -1]
-    cache = [{"kv": {n: SlotArray(shard[i]["kv"][n], tuple(shapes[i]["kv"][n].shape),
-                                  _fill_groups(groups, blocks[i][n])) for n in ("k", "v")}}
+    cache = [{g: {n: SlotArray(shard[i][g][n], tuple(shapes[i][g][n].shape),
+                               _fill_groups(groups, bl)) for n, bl in leaves.items()}
+              for g, leaves in blocks[i].items()}
              for i in range(len(plan.kinds))]
     return _logits(prog, cfg, b, _fill_groups(groups, hidden)), cache
 
@@ -712,15 +948,37 @@ def _seq_attend(cfg: ModelConfig, qs, ck: SlotArray, cv: SlotArray, slots, devs,
     return torch.movedim(out, 3, 1).reshape(b, 1, cfg.n_heads, cfg.hd).to(qs[0].dtype)
 
 
+def _write_state(st: dict, states: list, slots) -> None:
+    """Each slot's new recurrent state written into its blocks of the
+    placed ``st``, in place."""
+    for n, arr in st.items():
+        for s, v in zip(slots, states):
+            arr.blocks[s].copy_(_block_of(v[n], arr.sharding, s, arr.shape))
+
+
 def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int,
-                  kv: dict, pos: int, x1):
-    """One decoder layer of a decode step for data group d: the new token's
-    K/V written into the placed cache ``kv`` in place (on the slot that
-    holds position ``pos``), x1 (r, 1, D) -> x1 + attn, then + mlp."""
-    q_sh, kv_sh, f_sh = _layout(lp, cfg)
-    ck, cv = kv["k"], kv["v"]
-    cdim = _cache_dim(ck.sharding, kv_sh)
-    slots, devs = groups.slots[d], groups.devices[d]
+                  st: dict, pos: int, x1):
+    """One decoder layer of a decode step for data group d over the
+    layer's placed decode state ``st``, updated in place: a recurrent
+    layer's state blocks rewritten; an attention layer's new K/V written on
+    the slot that holds position ``pos``.  x1 (r, 1, D) -> x1 + mixer, then
+    + mlp (an ``rwkv`` layer holds both)."""
+    layout = _layout(lp, cfg, kind)
+    _check_state({g: {n: a.sharding for n, a in leaves.items()} for g, leaves in st.items()},
+                 layout, kind)
+    slots = groups.slots[d]
+    if kind == "rwkv":
+        x1, states = _rwkv_block(lp["rwkv"], cfg, groups, d, x1, layout, st["rnn"])
+        _write_state(st["rnn"], states, slots)
+        return x1
+    if kind == "rglru":
+        x1, states = _rglru_block(lp, cfg, groups, d, x1, layout, st["rnn"])
+        _write_state(st["rnn"], states, slots)
+        return _mlp_block(lp, cfg, groups, d, x1, layout[-1])
+    q_sh, kv_sh, f_sh = layout
+    ck, cv = st["kv"]["k"], st["kv"]["v"]
+    cdim = model_dim(ck.sharding)
+    devs = groups.devices[d]
     n_model, r = groups.n_model, x1.shape[0]
     hl = cfg.n_heads // n_model if q_sh else cfg.n_heads
     gl = cfg.n_kv_heads // n_model if kv_sh else cfg.n_kv_heads
@@ -770,20 +1028,21 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     cache (``prefill``'s, or one placed by ``transformer.cache_specs``):
     ``token`` (B,) — a tensor, or placed by ``act_batch`` —, ``pos`` the
     absolute position (an int, a 0-d tensor, or a replicated ``SlotArray``).
-    Writes the token's K/V into the cache's blocks in place and returns
+    Writes the token's K/V (a recurrent layer's new state) into the
+    cache's blocks in place and returns
     (logits (B, vocab) placed as ``("act_batch", "act_vocab")``, cache)."""
     prog = _Program(params, cfg)
     groups, plan = prog.groups, prog.plan
     pos = int(_global(pos))
     tokens = T._tokens(_global(token), groups.devices[0][0])
     b = tokens.shape[0]
-    r = prog.rows(b)
+    cuts = prog.rows(cfg, b)
     hidden = [None] * len(prog.mesh.slot_devices)
     for d in _data_groups(groups):
-        x1 = _embed(prog.emb_c, cfg, tokens[d * r:(d + 1) * r, None], groups, d)
+        x1 = _embed(prog.emb_c, cfg, tokens[cuts[d], None], groups, d)
         for i, kind in enumerate(plan.kinds):
             fn = functools.partial(_decode_layer, prog.layers[i], cfg, kind, groups, d,
-                                   cache[i]["kv"], pos)
+                                   cache[i], pos)
             x1 = _scoped(i, plan, fn)(x1)
         for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x1)):
             hidden[s] = h[:, 0]

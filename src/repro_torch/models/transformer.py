@@ -43,7 +43,7 @@ points run under ``torch.no_grad()``.  A decode step writes the cache in
 place and returns it.
 
 MoE layers (ROADMAP queue A item 20), the encoder and cross-attention
-and the VLM projector (item 21) raise.
+(item 21) and the VLM projector (item 21b) raise.
 """
 from __future__ import annotations
 
@@ -101,7 +101,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.n_encoder_layers:
         raise unported("the encoder and cross-attention", "queue A item 21")
     if cfg.n_patches:
-        raise unported("the VLM projector (n_patches > 0)", "queue A item 21")
+        raise unported("the VLM projector (n_patches > 0)", "queue A item 21b")
 
 
 # --------------------------------------------------------------------------

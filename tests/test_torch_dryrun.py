@@ -39,7 +39,9 @@ from repro_torch import configs as C
 from repro_torch import sharding as SH
 from repro_torch.launch import analytic, dryrun, hlo_analysis, steps
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models import spmd
 from repro_torch.models import transformer as T
+from repro_torch.utils import tree_map
 
 DENSE = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b")
 MESHES = {"16x16": dict(data=16, model=16), "2x16x16": dict(pod=2, data=16, model=16),
@@ -132,7 +134,7 @@ def _shape_dtype(tree, jax_side=False):
                         is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ("rwkv6_3b", "recurrentgemma_9b"))
 def test_build_specs_match_jax(arch):
     """The in-specs of the three ``build_*`` functions, shape and dtype, leaf
     for leaf."""
@@ -219,8 +221,45 @@ def test_dryrun_reference_cell_on_512_meta_slots():
 
 
 def test_dryrun_records_an_unported_preset():
-    rec = dryrun.run_cell("rwkv6_3b", "train_4k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 19b" in rec["error"]
+    rec = dryrun.run_cell("granite_moe_1b_a400m", "train_4k", multi_pod=False, verbose=False)
+    assert not rec["ok"] and "queue A item 20" in rec["error"]
+
+
+def _long_500k_arg_bytes(cfg):
+    """A hand count of ``long_500k``'s per-slot argument bytes on the (16,
+    16) pod: float32 weights, every one split 16 ways over "model" but those
+    whose dims do not divide it or take no "model" rule; the decode state of
+    the one row, whole over the 16 data groups; the token (int64) and pos."""
+    d, m, n = cfg.d_model, 16, cfg.n_layers
+    total = sum(t.numel() for t in jax.tree.leaves(
+        T.param_shapes(cfg), is_leaf=lambda x: isinstance(x, torch.Tensor)))
+    if cfg.name == "rwkv6_3b":
+        # whole: the final norm's scale, per layer the bonus u (40 heads on
+        # 16) and the decay LoRA's wd_a (d, 64); state: wkv whole (40 heads),
+        # the two token shifts split by channel.
+        h = d // cfg.rnn_head_dim
+        whole = d + n * (h * cfg.rnn_head_dim + d * 64)
+        state = n * (h * cfg.rnn_head_dim ** 2 * 4 + 2 * (d // m) * 2)
+    else:
+        # whole: the final norm's and every layer's two norm scales, and the
+        # local layers' one KV head (wk, wv); state: the RG-LRU's h (float32)
+        # and conv carry split by channel, the local ring by position.
+        n_local = T.layer_plan(cfg).kinds.count("local")
+        whole = d + 2 * n * d + n_local * 2 * d * cfg.hd
+        state = (n - n_local) * ((cfg.rnn_d // m) * 4 + 3 * (cfg.rnn_d // m) * 2) + \
+            n_local * 2 * (cfg.window // m) * cfg.hd * 2
+    return 4 * ((total - whole) // m + whole) + state + 8 + 4
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "recurrentgemma_9b"])
+def test_dryrun_long_500k_on_the_pod(arch):
+    """``long_500k``'s one row on the (16, 16) pod: the batch does not split
+    over the 16 data groups, so every group holds it whole."""
+    rec = dryrun.run_cell(arch, "long_500k", multi_pod=False, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        _long_500k_arg_bytes(C.get_config(arch))
+    assert rec["t_lower_s"] > 0 and rec["collective_bytes_weighted"]["total"] > 0
 
 
 def _smoke(**over):
@@ -248,6 +287,83 @@ def test_collectives_hand_count(kind):
         {**{k: v * act for k, v in want.items()}, "total": 2 * n * act}
 
 
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_recurrent_collectives_hand_count(kind):
+    """One ``rwkv`` layer and one ``rglru`` layer on 1 × 2 (float32 smoke
+    configs; ``act`` = rows · tokens · d_model · 4 bytes; the vocab-parallel
+    embedding's all-reduce and the final norm's broadcast around them).
+
+    ``rwkv`` (2 of the 4 heads a slot): nine ``(d,)`` leaves gathered whole
+    (``mu_*``, ``ln1``, ``ln2``, ``cm_mu_*``; a slot's block each), the
+    normed heads, the time-mix output and the receptance gathered by
+    channel (act / 2 each), decode's two token shifts too; ``cm_v``'s
+    row-parallel all-reduce; two broadcasts of the residual.  ``rglru``:
+    ``w_out``'s and the MLP's all-reduces and two broadcasts, nothing on its
+    state."""
+    b, s = 2, 8
+    shape = C.ShapeConfig(kind, kind, s, b)
+    mesh = make_host_mesh(2, slots=2, device="cpu")
+    for arch in ("rwkv6_3b", "recurrentgemma_9b"):
+        cfg = dataclasses.replace(C.get_smoke_config(arch), n_layers=1)
+        rec = dryrun.record_cell(arch, shape, mesh, cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        act = b * (s if kind == "prefill" else 1) * cfg.d_model * 4
+        if arch == "rwkv6_3b":
+            shifts = 2 if kind == "decode" else 0
+            want = {"all-gather": 12 + shifts, "all-reduce": 2, "broadcast": 3}
+            nbytes = {"all-gather": 9 * cfg.d_model // 2 * 4 + (3 + shifts) * act // 2,
+                      "all-reduce": 2 * act, "broadcast": 3 * act}
+        else:
+            want = {"all-gather": 0, "all-reduce": 3, "broadcast": 3}
+            nbytes = {"all-gather": 0, "all-reduce": 3 * act, "broadcast": 3 * act}
+        zero = {"reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+        assert rec["collective_counts"] == {**want, **zero}, arch
+        assert rec["collective_bytes"] == rec["collective_bytes_weighted"] == \
+            {**nbytes, **zero, "total": sum(nbytes.values())}, arch
+
+
+def _trace_on_cpu(cfg, shape, mesh):
+    """``dryrun.trace`` (every data group) on CPU slots: the cell's inputs
+    as seeded tensors in place of its ``meta`` specs."""
+    fn, in_specs, in_shardings = steps.build_cell(cfg, shape, mesh)
+    gen = torch.Generator().manual_seed(0)
+
+    def concrete(x):
+        if x.dtype == torch.int64:
+            return torch.randint(0, cfg.vocab_size, tuple(x.shape), generator=gen)
+        return torch.randn(tuple(x.shape), generator=gen).to(x.dtype) / 8
+
+    args = [steps.place(tree_map(concrete, x), sh) for x, sh in zip(in_specs, in_shardings)]
+    if shape.kind == "decode":
+        args[3] = shape.seq_len - 1
+    n = len(mesh.slot_devices)
+    with spmd.record_collectives(n) as rec:
+        out = fn(*args)
+    return rec, dryrun._out_bytes(out, n)
+
+
+@pytest.mark.parametrize("arch,kind,mshape", [("rwkv6_3b", "train", (2, 2)),
+                                             ("rwkv6_3b", "decode", (1, 4)),
+                                             ("recurrentgemma_9b", "prefill", (2, 4))])
+def test_recurrent_meta_trace_equals_the_loops(arch, kind, mshape):
+    """A recurrent smoke cell traced on CPU slots (the scans' real loops)
+    and on ``meta`` slots (their stand-ins) records the same collectives on
+    every slot and the same per-slot output bytes; the 1 × 4 decode takes
+    the straddling route (6 heads of 16 at d_model 96: 1.5 heads a
+    slot)."""
+    over = dict(d_model=96, n_heads=6, n_kv_heads=6) if mshape == (1, 4) else {}
+    cfg = dataclasses.replace(C.get_smoke_config(arch), **over)
+    shape = C.ShapeConfig(kind, kind, 20, 4)
+    mesh = make_host_mesh(mshape[1], slots=mshape[0] * mshape[1], device="cpu")
+    cpu_rec, cpu_out = _trace_on_cpu(cfg, shape, mesh)
+    meta_rec, meta_out = dryrun.trace(cfg, shape, dryrun.on_meta(mesh), one_group=False)
+    for field in ("bytes", "counts", "bytes_once", "counts_once"):
+        a, b = getattr(cpu_rec, field), getattr(meta_rec, field)
+        assert all(np.array_equal(a[k], b[k]) for k in a), field
+    assert np.array_equal(cpu_out, meta_out)
+    assert sum(int(c.max()) for c in cpu_rec.counts.values()) > 0
+
+
 TRACE_CASES = {
     "decode_2x2": (_smoke(), "decode", (2, 2)),
     "prefill_2x2": (_smoke(), "prefill", (2, 2)),
@@ -256,6 +372,11 @@ TRACE_CASES = {
                        "train", (2, 2)),
     "decode_qwen3_2x3": (dataclasses.replace(C.get_smoke_config("qwen3_14b"), n_layers=5),
                          "decode", (2, 3)),
+    "train_rwkv_2x2": (dataclasses.replace(C.get_smoke_config("rwkv6_3b"), n_layers=5),
+                       "train", (2, 2)),
+    "decode_recurrentgemma_2x4": (
+        dataclasses.replace(C.get_smoke_config("recurrentgemma_9b"), n_layers=14), "decode",
+        (2, 4)),
 }
 
 

@@ -38,7 +38,6 @@ from repro_torch import sharding
 from repro_torch.launch import make_serving_mesh
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as L
-from repro_torch.models import spmd
 from repro_torch.models import transformer as T
 
 RTOL_H, ATOL_H = 1e-5, 1e-5        # hidden states, single layers
@@ -508,11 +507,6 @@ UNPORTED = {
     "smoke preset": lambda: C.get_smoke_config("granite_moe_1b_a400m"),
     "moe": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), moe=C.MoEConfig(4, 2, 32)), device="cpu"),
-    "rglru": lambda: spmd.loss_fn(None, C.get_smoke_config("recurrentgemma_9b"),
-                                  {"tokens": np.zeros((2, 4), np.int32),
-                                   "labels": np.zeros((2, 4), np.int32)}),
-    "rwkv": lambda: spmd.decode_step(None, C.get_smoke_config("rwkv6_3b"),
-                                     np.zeros((2,), np.int32), None, 3),
     "encoder": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), n_encoder_layers=2), device="cpu"),
     "vlm": lambda: T.init_params(0, dataclasses.replace(
@@ -522,8 +516,6 @@ UNPORTED = {
                                  {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
     "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
     "apply_moe": lambda: L.apply_moe({}, C.get_smoke_config("olmo_1b"), None),
-    "states": lambda: spmd.prefill(None, C.get_smoke_config("rwkv6_3b"),
-                                   np.zeros((2, 4), np.int32), 8),
     "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
                                          encoder_out=1),
 }
@@ -531,10 +523,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 19b
-    (the recurrent mixers in the slot program: its train, prefill and decode
-    steps, with the recurrent states), 20 (MoE), 21 (encoder, VLM)."""
-    with pytest.raises(NotImplementedError, match="queue A item (19b|20|21)"):
+    """Every refusal names the queue A item that brings the feature: 20
+    (MoE), 21 (encoder), 21b (VLM)."""
+    with pytest.raises(NotImplementedError, match="queue A item (20|21|21b)"):
         UNPORTED[what]()
 
 
