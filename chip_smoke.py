@@ -276,6 +276,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          per-slot argument and output bytes equal to the card's.  Prefill
          s, decode ms a step and tokens/s beside the one-device times, peak
          memory, one profiled decode step of (w1) and (w2).
+  (x)    the MoE presets on one card (``models/layers.apply_moe``: the
+         sort-based, capacity-bounded top-k dispatch, plain tensor code; no
+         kernel of ``csrc/`` but the lookup's), seed-3 weights.  (x1)
+         ``granite_moe_1b_a400m`` at its published config (24 layers,
+         d_model 1,024, 16/8 heads, 32 experts top-8 × d_expert 512,
+         capacity factor 1.25, vocab 49,155 tied; f32 masters, bf16
+         activations, ~1.33 B parameters) with the kNN-LM head as in (v):
+         16,384 keys from 32 × 513 tokens, ``generate`` 16 tokens for 2
+         prompts of 512 with the in-step lookup (17 ``knn_tile_topk``
+         launches counted).  (x2) ``qwen3_moe_235b_a22b`` at its published
+         widths (d_model 4,096, 64/4 heads × 128, qk-norm, 128 experts
+         top-8 × 1,536, vocab 151,936 untied, bf16 weights) with the depth
+         cut 94 → 2 (~6.2 B parameters), 2 × 512 prompts, 8 decode steps, no
+         retrieval.  Each: prefill s, decode ms a step (LM and lookup), peak
+         memory, the prefill's dropped share of the top-8 assignments and
+         aux per layer at capacity 1.25, and, at capacity 16 on the same
+         weights (where neither path drops), the prefill and decode steps'
+         logits held to ``forward_seq`` over the same tokens: the relative
+         RMS gap to a float32 forward within ``X_RMS_RATIO`` times the bf16
+         forward's, the argmax equal away from ties, the share of (token,
+         layer) top-8 sets that differ printed; one profiled decode step.
+         (x3) two ``make_train_step`` steps at granite's width, depth 24 →
+         4, batch 2 × 1,024: finite, ``moe_aux`` above 0, step 1's loss
+         within ``TRAIN_LOSS_TOL`` of the float32 loss.  (a) holds the
+         lookup's first call at D = 1,024.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -286,13 +311,13 @@ its brute call over the 5M corpus.
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
 (s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
-steps of (w1), (w1s) and (w2), and each step of (w3) —
+steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2) and (x3) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
 of (b)–(d); (o)'s are on its own ``(serving micro-batch)`` rows, (q1)'s on the
 ``(sharded, per shard)`` rows, the ring's on ``(ring hop chunk)``, (r1)'s
-and (r2)'s, (v1)'s and (v2)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
+and (r2)'s, (v1)'s, (v2)'s and (x1)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
 limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -476,6 +501,30 @@ W_TRAIN_SEQ = 512
 # prefill.  A misplaced block, head or
 # channel slice moves its values by their own scale (relative gap ~1.4).
 W_STATE_RATIO = 2.0
+X_PROMPT = 512                     # (x1), (x2): prompts of 2 × 512 tokens
+X_QWEN_LAYERS = 2                  # (x2): qwen3_moe_235b_a22b's 94 layers cut to 2 (6.2 B
+                                   # parameters; all 94 in bf16 are ~470 GB, past one card)
+X_QWEN_STEPS = 8
+X_CHECK_CAPACITY = 16.0            # decode against forward: a forward over the whole
+                                   # sequence drops at 1.25 what a one-token decode keeps
+X_TRAIN_LAYERS = 4                 # (x3): granite's width, depth cut 24 → 4
+X_TRAIN_BATCH = 2
+X_TRAIN_SEQ = 1024
+X_TRAIN_STEPS = 2
+# (x) decode against forward at capacity 16, both bf16, each against a
+# float32 forward of the same weights.  A bf16 rounding that flips a token's
+# 8th and 9th expert moves its output by a whole expert's share, and which
+# tokens flip differs between two bf16 runs (the decode's products and
+# attention have other shapes than the forward's), so the largest logit gap
+# is set by a few flipped tokens, not by rounding alone.  CPU rehearsals of
+# (x1) and (x2) at d_model 128, 256, 512 (granite 6 layers) and 1,024 (4),
+# 2 × 96 prompts: 1.1–14.3 % of the (token, layer) top-8 sets differed
+# between decode and forward; the largest logit gap reached 2.10 × the bf16
+# forward's (granite at 128: (r)'s max-based bound of 2 does not carry),
+# while the relative RMS gap stayed at 0.77–1.41 × the bf16 forward's.  So
+# (x) holds the decode's relative RMS gap to the float32 logits to
+# X_RMS_RATIO times the bf16 forward's own, and prints the max-based ratio.
+X_RMS_RATIO = 2.0
 
 
 def log(msg: str) -> None:
@@ -2362,6 +2411,295 @@ def recurrent_sharded_phase(dev, reset_counts, read_counts):
     log(f"[w] phase {time.perf_counter() - t_w:.2f}s")
 
 
+class RoutingProbe:
+    """Within ``with``, record for every ``layers._moe_dispatch`` call (one
+    an MoE layer, in execution order) its token block's top-k expert sets,
+    each sorted ((T, K) on the card), the share of its assignments the
+    capacity dropped and its aux.  The router is run again for the record;
+    the call itself goes through unchanged."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.sets, self.dropped, self.aux = [], [], []
+
+    def __enter__(self):
+        import torch
+        lay = self.layers
+        fn = self.orig = lay._moe_dispatch
+
+        def probe(params, cfg, xt, cap):
+            out, aux = fn(params, cfg, xt, cap)
+            eidx = lay._top_k(lay._router_probs(params, xt), cfg.moe.top_k)[1]
+            counts = torch.bincount(eidx.reshape(-1), minlength=cfg.moe.n_experts)
+            self.dropped.append((counts - cap).clamp(min=0).sum().item() / eidx.numel())
+            self.aux.append(aux.item())
+            self.sets.append(eidx.sort(dim=1).values)
+            return out, aux
+
+        lay._moe_dispatch = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._moe_dispatch = self.orig
+
+
+def moe_decode_check(dev, tag, model, cfg, seq, prompt_len):
+    """Decode against forward at capacity X_CHECK_CAPACITY on ``model``'s
+    weights: the prefill of ``seq[:, :prompt_len]`` and a decode step for
+    each later token of ``seq`` but the last, their logits against
+    ``forward_seq`` over the same tokens (both bf16) and a float32 forward;
+    the share of (token, layer) top-k sets that differ between the decode and
+    the forward.  Returns (the cache, its next position) for a profiled
+    step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as lm
+
+    cfg16 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=X_CHECK_CAPACITY))
+    seq = torch.as_tensor(seq, device=dev)
+    total = seq.shape[1]
+    n_layers = cfg.n_layers
+    with torch.no_grad(), RoutingProbe() as r_dec:
+        logits, cache = lm.prefill(model, cfg16, seq[:, :prompt_len], total + 2)
+        dec = [logits.float()]
+        for t in range(prompt_len, total - 1):
+            logits, cache = lm.decode_step(model, cfg16, seq[:, t], cache, t)
+            dec.append(logits.float())
+    dec = torch.stack(dec, 1)
+    unemb = lambda c, h: lm_layers.unembed(model.embed, c, h).float()
+    with torch.no_grad(), RoutingProbe() as r_fwd:
+        hid, _, _ = lm.forward_seq(model, cfg16, seq[:, :total - 1])
+        fwd = unemb(cfg16, hid[:, prompt_len - 1:])
+    del hid
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    with torch.no_grad():
+        hid32, _, _ = lm.forward_seq(model, cfg32, seq[:, :total - 1])
+        f32 = unemb(cfg32, hid32[:, prompt_len - 1:])
+    del hid32
+    model._compute = None                      # the float32 compute copy
+    assert max(r_dec.dropped + r_fwd.dropped) == 0.0, \
+        f"({tag}) capacity {X_CHECK_CAPACITY} dropped an assignment"
+    b = seq.shape[0]
+    differ = []
+    for j, t in enumerate(range(prompt_len, total - 1)):
+        for layer in range(n_layers):
+            got = r_dec.sets[n_layers * (j + 1) + layer]
+            want = r_fwd.sets[layer].reshape(b, total - 1, -1)[:, t]
+            differ.append((got != want).any(-1).float().mean().item())
+    share = sum(differ) / len(differ)
+    gap, noise = rel_rms(dec, f32), rel_rms(fwd, f32)
+    log(f"[{tag}] decode matches forward at capacity {X_CHECK_CAPACITY:g} over {dec.shape[1]} "
+        f"positions × {b} rows: top-{cfg.moe.top_k} sets differing between the decode and the "
+        f"forward {share:.4f} of (token, layer) pairs; relative RMS gap to the float32 "
+        f"forward's logits {gap:.4e} (the bf16 forward's {noise:.4e}; ≤ {X_RMS_RATIO:g} ×), "
+        f"against the bf16 forward {rel_rms(dec, fwd):.4e}")
+    noise_max, stray = (fwd - f32).abs().max().item(), (dec - f32).abs().max().item()
+    log(f"  ({tag}) max |logit − float32 forward's| {stray:.4f} (the bf16 forward's "
+        f"{noise_max:.4f}, ratio {stray / noise_max:.3f}; printed, not held)")
+    assert gap <= X_RMS_RATIO * noise, \
+        f"({tag}) the decode strays from the forward beyond bf16 rounding"
+    top2 = f32.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 4.0 * noise_max
+    assert (dec.argmax(-1) == f32.argmax(-1))[sure].all(), \
+        f"({tag}) an argmax differs from the forward's away from a tie"
+    return cache, total - 1
+
+
+def moe_serve(dev, tag, cfg, n_steps, reset_counts, read_counts, topk_check=None):
+    """(x1) / (x2): an MoE preset on the card, served by ``generate`` (with
+    the kNN-LM head's in-step lookup when ``topk_check`` is given: returns the
+    lookup's ``knn_tile_topk`` kernel row); the routing of the prefill; decode
+    against forward; one profiled decode step."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.knn_topk import ops as topk_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import knn_lm
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    t_x = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = timed(lambda: lm.init_params(REC_SEED, cfg, device=dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert n_par == sum(t.numel() for t in tree_leaves(lm.param_shapes(cfg))), \
+        f"({tag}) the model's parameter count is not its tables'"
+    moe = cfg.moe
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads × {cfg.hd}, {moe.n_experts} experts top-{moe.top_k} × d_expert "
+        f"{moe.d_expert}, capacity factor {moe.capacity_factor}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype} activations, {cfg.param_dtype} weights; {n_par} parameters "
+        f"({n_bytes / 2**30:.2f} GiB; n_params() {cfg.n_params()} without the norm scales) "
+        f"from seed {REC_SEED} in {init_ms / 1e3:.3f}s")
+    rng = np.random.default_rng(REC_SEED)
+    corpus = rng.integers(0, cfg.vocab_size, (REC_KEY_SEQS, REC_KEY_LEN))
+    prompts = rng.integers(0, cfg.vocab_size, (REC_BATCH, X_PROMPT))
+    ds = None
+    if topk_check is not None:
+        (ds, ds_s) = synced(lambda: knn_lm.build_datastore(model, cfg, [corpus]))
+        n_keys = REC_KEY_SEQS * (REC_KEY_LEN - 1)
+        assert tuple(ds.keys.shape) == (n_keys, cfg.d_model)
+        log(f"[{tag}] build_datastore over {REC_KEY_SEQS} × {REC_KEY_LEN} tokens: {n_keys} keys "
+            f"× {cfg.d_model} dims in {ds_s:.3f}s")
+
+    spies = [Spy(lm, "prefill_hidden", keep=False), Spy(lm, "prefill", keep=False),
+             Spy(lm, "decode_step_hidden", keep=False), Spy(knn_lm, "lookup", keep=False)]
+    reset_counts()
+    with contextlib.ExitStack() as stack, FirstCall(topk_ops, "knn_topk") as call:
+        for sp in spies:
+            stack.enter_context(sp)
+        out, wall = synced(lambda: serve.generate(model, cfg, prompts, n_steps, ds=ds))
+    launches = read_counts(f"({tag}) {cfg.name}: generate"
+                           + (" with the in-step lookup" if ds is not None else ""))
+    assert tuple(out.shape) == (REC_BATCH, n_steps)
+    if ds is not None:
+        assert launches.get("knn_tile_topk", 0) == n_steps + 1, \
+            f"({tag}) expected one knn_tile_topk launch a lookup"
+    pre_s = sum(sp.times[0] for sp in spies[:2] if sp.times)
+    lm_t = np.array(spies[2].times) * 1e3
+    ret_t = np.array(spies[3].times or [0.0]) * 1e3
+    tok_s = REC_BATCH * n_steps / (wall - pre_s)
+    log(f"[{tag}] generate: prefill of {REC_BATCH} × {X_PROMPT} {pre_s:.3f}s "
+        f"({REC_BATCH * X_PROMPT / pre_s:.1f} tokens/s); per decode step: LM "
+        f"{lm_t.mean():.3f} ms [{lm_t.min():.3f}–{lm_t.max():.3f}], lookup {ret_t.mean():.3f} ms "
+        f"[{ret_t.min():.3f}–{ret_t.max():.3f}]; {REC_BATCH} × {n_steps} tokens in {wall:.3f}s, "
+        f"{tok_s:.1f} tokens/s after the prefill; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # The prefill's routing at the published capacity, layer by layer.
+    with torch.no_grad(), RoutingProbe() as rp:
+        lm.forward_seq(model, cfg, prompts)
+    assert len(rp.aux) == cfg.n_layers and np.isfinite(rp.aux).all()
+    log(f"[{tag}] the prefill's routing at capacity {moe.capacity_factor}: dropped share of the "
+        f"top-{moe.top_k} assignments per layer min {min(rp.dropped):.4f}, max "
+        f"{max(rp.dropped):.4f}, mean {sum(rp.dropped) / len(rp.dropped):.4f}; aux per layer "
+        f"{[round(a, 4) for a in rp.aux]}")
+    del rp
+
+    seq = np.concatenate([prompts, out.cpu().numpy()], axis=1)
+    cache, pos = moe_decode_check(dev, tag, model, cfg, seq, X_PROMPT)
+
+    # One decode step under torch.profiler (printed, not gated).
+    tok = torch.as_tensor(seq[:, -1], device=dev)
+    lm.decode_step_hidden(model, cfg, tok, cache, pos)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        (_, step_s) = synced(lambda: lm.decode_step_hidden(model, cfg, tok, cache, pos + 1))
+    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    log(f"[{tag}] one LM decode step under torch.profiler: {len(dev_ev)} device events, the "
+        f"card busy {busy:.3f} ms of {step_s * 1e3:.3f} ms (busy share "
+        f"{busy / (step_s * 1e3):.3f}; {lm_t.mean():.3f} ms unprofiled)" if dev_ev else
+        f"[{tag}] one LM decode step under torch.profiler: no device events recorded")
+    del cache, model
+    torch.cuda.empty_cache()
+    row = None
+    if ds is not None:
+        (q, c, qid, cid), kw = call.args
+        row = topk_check(f"knn_tile_topk (kNN-LM lookup, {cfg.name}, D={cfg.d_model})", q, c,
+                         qid, cid, "l2", launches["knn_tile_topk"], fp32_bound=True, k=kw["k"])
+        del ds, call, q, c
+    log(f"[{tag}] phase {time.perf_counter() - t_x:.2f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the float32 check included)")
+    return row
+
+
+def moe_train(dev, reset_counts, read_counts):
+    """(x3) two AdamW steps at granite_moe_1b_a400m's width, depth cut to
+    X_TRAIN_LAYERS (every layer under a per-layer checkpoint that returns
+    the aux beside x); step 1's loss held to the float32 loss, ``moe_aux``
+    finite and above 0; the gradient norm printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    t_x3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("granite_moe_1b_a400m")
+    cfg = dataclasses.replace(full, n_layers=X_TRAIN_LAYERS)
+    model = lm.init_params(REC_SEED, cfg, device=dev)
+    n_par = sum(p.numel() for p in model.parameters())
+    opt_cfg = OptConfig(total_steps=X_TRAIN_STEPS, warmup_steps=1,
+                        moment_dtype=cfg.opt_state_dtype)
+    state = {"params": model, "opt": init_opt_state(model.tree(), opt_cfg)}
+    pipe = TokenPipeline(cfg, SHAPES["train_4k"], batch_override=X_TRAIN_BATCH,
+                         seq_override=X_TRAIN_SEQ)
+    step = steps.make_train_step(cfg, opt_cfg)
+    batch0 = pipe.next_batch(dev)
+    log(f"[x3] granite_moe_1b_a400m's width (d_model {cfg.d_model}, {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k} × {cfg.moe.d_expert}, vocab {cfg.vocab_size}) with n_layers cut "
+        f"{full.n_layers} → {cfg.n_layers}: {n_par} parameters from seed {REC_SEED}; batch "
+        f"{X_TRAIN_BATCH} × seq {pipe.seq}, {cfg.dtype} activations, remat {cfg.remat_policy}")
+    with torch.no_grad():
+        (l32, m32), f32_s = synced(lambda: lm.loss_fn(
+            model, dataclasses.replace(cfg, dtype="float32"), batch0))
+    reset_counts()
+    losses, gnorms, auxes, secs = [], [], [], []
+    for i in range(X_TRAIN_STEPS):
+        batch = batch0 if i == 0 else pipe.next_batch(dev)
+        (state, m), sec = synced(lambda: step(state, batch))
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+        auxes.append(m["moe_aux"].item())
+        secs.append(sec)
+    read_counts("(x3) granite_moe_1b_a400m train steps (no custom kernel on this path)")
+    peak = torch.cuda.max_memory_allocated()
+    d_loss = abs(losses[0] - l32.item())
+    tokens = X_TRAIN_BATCH * pipe.seq
+    log(f"[x3] steps: losses {[round(x, 6) for x in losses]}, moe_aux "
+        f"{[round(x, 6) for x in auxes]} (float32: {m32['moe_aux'].item():.6f}), grad_norm "
+        f"{[round(x, 6) for x in gnorms]} (printed, not held), "
+        f"{', '.join(f'{s:.3f}' for s in secs)} s ({tokens / secs[-1]:.1f} tokens/s at the "
+        f"last); step 1's loss against the float32 loss of the same masters and batch "
+        f"({f32_s:.3f} s): {l32.item():.6f}, |Δloss| {d_loss:.3e} (≤ {TRAIN_LOSS_TOL}); peak "
+        f"{peak / 2**30:.2f} GiB")
+    assert np.isfinite(losses).all() and np.isfinite(gnorms).all() and min(gnorms) > 0, \
+        "(x3) a non-finite loss or a zero gradient"
+    assert np.isfinite(auxes).all() and min(auxes) > 0, "(x3) moe_aux is not finite and positive"
+    assert d_loss <= TRAIN_LOSS_TOL, "(x3) step 1's loss strays from the float32 loss"
+    del state, model, batch0, batch, step
+    torch.cuda.empty_cache()
+    log(f"[x3] phase {time.perf_counter() - t_x3:.2f}s")
+
+
+def moe_phase(dev, kernels, reset_counts, read_counts, topk_check):
+    """(x) the MoE presets on one card: (x1) granite_moe_1b_a400m at its
+    published config with the kNN-LM head, (x2) qwen3_moe_235b_a22b at its
+    published widths, depth cut to X_QWEN_LAYERS, (x3) granite's train step;
+    appends (a)'s D = 1,024 ``knn_tile_topk`` row to ``kernels``."""
+    import dataclasses
+
+    from repro_torch.configs import RetrievalConfig, get_config
+
+    t_x = time.perf_counter()
+    granite = dataclasses.replace(get_config("granite_moe_1b_a400m"), retrieval=RetrievalConfig(
+        enabled=True, k=8, lam=0.9, temperature=1.0))
+    kernels.append(moe_serve(dev, "x1", granite, REC_STEPS, reset_counts, read_counts,
+                             topk_check))
+    qwen = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), n_layers=X_QWEN_LAYERS)
+    moe_serve(dev, "x2", qwen, X_QWEN_STEPS, reset_counts, read_counts)
+    moe_train(dev, reset_counts, read_counts)
+    log(f"[x] phase {time.perf_counter() - t_x:.2f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=5_000_000,
@@ -3947,6 +4285,9 @@ def main(argv=None) -> int:
 
     # -- path 19: (w) the recurrent presets in the slot program -------------------
     recurrent_sharded_phase(dev, reset_counts, read_counts)
+
+    # -- path 20: (x) the MoE presets on one card ---------------------------------
+    moe_phase(dev, kernels, reset_counts, read_counts, topk_check)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

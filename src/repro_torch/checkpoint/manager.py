@@ -73,15 +73,19 @@ class _Leaf:
 
 
 def _leaf(x) -> _Leaf:
+    """A snapshot of one leaf: a copy, also of a tensor already on the CPU
+    (``.cpu()`` would return the tensor itself, and an async write would
+    then race the next step's in-place update)."""
     if isinstance(x, SlotArray):
         x = x.gather()
     if isinstance(x, torch.Tensor):
-        t = x.detach().cpu().contiguous()
+        t = x.detach().to("cpu", copy=True).contiguous()
         name = _TORCH_ONLY_NAME.get(t.dtype)
         if name is not None:
             return _Leaf(t.view(torch.uint8).numpy(), name, t.shape)
-        x = t.numpy()
-    v = np.asarray(x)
+        v = t.numpy()
+    else:
+        v = np.array(x)
     return _Leaf(v, str(v.dtype), v.shape)
 
 

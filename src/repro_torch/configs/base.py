@@ -4,10 +4,11 @@ port of ``repro/configs/base.py``.
 The dataclasses carry the reference's fields and numbers unchanged; only
 ``activation_dtype()`` differs, returning a ``torch.dtype``.  ``--arch
 <id>`` resolves inside ``repro_torch.configs``: the dense presets
-(``olmo_1b``, ``qwen3_14b``, ``yi_9b``, ``llama3_405b``) and the
-recurrent ones (``rwkv6_3b``, ``recurrentgemma_9b``), which need only the
-layers the port has.  The MoE, encoder-decoder and VLM presets raise
-until the ROADMAP queue A items that bring their layers.
+(``olmo_1b``, ``qwen3_14b``, ``yi_9b``, ``llama3_405b``), the recurrent
+ones (``rwkv6_3b``, ``recurrentgemma_9b``) and the MoE ones
+(``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``), which need only the
+layers the port has.  The encoder-decoder and VLM presets raise until the
+ROADMAP queue A items that bring their layers.
 """
 from __future__ import annotations
 
@@ -179,9 +180,8 @@ ARCH_IDS = [
 
 # The presets this port carries so far, and the ROADMAP item of each other.
 PORTED_ARCHS = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b", "rwkv6_3b",
-                "recurrentgemma_9b")
+                "recurrentgemma_9b", "granite_moe_1b_a400m", "qwen3_moe_235b_a22b")
 _UNPORTED_ARCHS = {
-    "granite_moe_1b_a400m": "queue A item 20", "qwen3_moe_235b_a22b": "queue A item 20",
     "whisper_large_v3": "queue A item 21", "llava_next_mistral_7b": "queue A item 21b",
 }
 

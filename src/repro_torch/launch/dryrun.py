@@ -44,8 +44,9 @@ shapes and dtypes without the loop over the tokens (``prefill_32k`` is
 the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
 slots, real loops, equal to its record on ``meta``).
 
-Presets the port does not carry yet are recorded as failed cells, the
-error naming their ROADMAP queue item, as the reference records a failure.
+Presets the port does not carry yet, and the MoE presets (the slot program
+has no MoE layer yet), are recorded as failed cells, the error naming their
+ROADMAP queue item, as the reference records a failure.
 
 Usage::
 
@@ -55,8 +56,9 @@ Usage::
 
 (``--all``: the four dense presets' 24 cells and the 16 of ``rwkv6_3b`` and
 ``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
-meshes); 24 recorded failures, the four unported presets' base shapes on
-both meshes, queue A items 20 and 21.)
+meshes); 24 recorded failures, the base shapes on both meshes of the two
+MoE presets, which load but whose steps the slot program refuses (queue A
+item 20b), and of the two unported presets (queue A items 21 and 21b).)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """

@@ -28,7 +28,10 @@ on a slot mesh (``models/spmd.prefill`` / ``decode_step``: logits placed as
 ``transformer.cache_specs``).  Every step runs alike on concrete placed
 tensors (the card's
 slots, CPU slots) and on ``meta`` slots, which is how ``launch/dryrun.py``
-traces a cell.  Token ids are int64 here, where the reference's are int32
+traces a cell.  The three builders refuse an MoE config before any
+placement (``spmd.check_supported``: the slot program has no MoE layer yet,
+ROADMAP queue A item 20b); ``make_train_step`` trains one on one device.
+Token ids are int64 here, where the reference's are int32
 (``TokenPipeline`` gives int64).
 """
 from __future__ import annotations
@@ -246,6 +249,7 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_cfg: Optional[Op
     shardings)): the specs ``meta`` tensors, the shardings trees of
     ``NamedSharding`` over ``mesh`` by the logical rules (``cfg.fsdp``,
     ``cfg.seq_shard``).  Place a state with ``place(tree, shardings)``."""
+    spmd.check_supported(cfg)
     opt_cfg = opt_cfg or OptConfig(moment_dtype=cfg.opt_state_dtype)
     shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
     st_shapes, st_specs = state_specs(cfg, opt_cfg)
@@ -265,6 +269,7 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh):
     shardings)): ``prefill_fn(params, batch)`` runs the prompt
     ``batch["tokens"]`` (``shape.global_batch`` × ``shape.seq_len``) into a
     cache of ``shape.seq_len`` positions and returns (last logits, cache)."""
+    spmd.check_supported(cfg)
     shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
     p_shapes, p_specs = params_specs(cfg)
     p_shard = shd.param_shardings(p_shapes, p_specs)
@@ -290,6 +295,7 @@ def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh):
     ``serve_step(params, token, cache, pos)`` -> (logits, cache), the cache
     written in place; the token is placed by ``act_batch``, ``pos``
     replicated."""
+    spmd.check_supported(cfg)
     shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
     p_shapes, p_specs = params_specs(cfg)
     p_shard = shd.param_shardings(p_shapes, p_specs)

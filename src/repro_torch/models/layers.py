@@ -1,5 +1,6 @@
 """Shared NN layers of the model code — port of ``repro/models/layers.py``
-(the dense subset: the kNN-LM's serving path and the dense trainer).
+(the decoder's layers: the kNN-LM's serving path, the trainer, the MoE
+layer).
 
 Parameters are mappings of tensors (a plain dict, or an
 ``nn.ParameterDict`` of ``models.transformer.Block``), with the JAX
@@ -19,10 +20,16 @@ its output.  The products are plain ``torch`` matmuls (the reference
 leaves them to XLA); no fused attention operator is used, as it would
 change the summation.
 
+The MoE layer (``init_moe``, ``apply_moe``) is the reference's
+sort-based, capacity-bounded top-k dispatch on one device: a stable
+descending sort for the top-k (the reference's tie-break, which
+``torch.topk`` does not keep), the experts' products as batched matmuls,
+and a combine that adds each token's contributions in a fixed order (no
+atomics); the per-data-shard dispatch raises (ROADMAP queue A item 20b).
+
 ``chunked_xent`` is the trainer's loss.  The recurrent mixers are
 ``models/rglru.py`` and ``models/rwkv6.py``; the attention functions
-refuse their kinds.  MoE (ROADMAP queue A item 20) and cross-attention
-(item 21) raise.
+refuse their kinds.  Cross-attention (queue A item 21) raises.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import axis_size, data_axis_names
 from repro_torch.utils import unported
 
 MASKED = -1e30                     # the reference's mask value (not −inf)
@@ -381,12 +389,105 @@ def apply_mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Mixture of Experts
 # --------------------------------------------------------------------------
 
-def init_moe(gen, cfg: ModelConfig, dtype, *, device):
-    raise unported("MoE layers", "queue A item 20")
+def moe_table(cfg: ModelConfig) -> dict:
+    """name -> (shape, logical axes) of the MoE layer's weights, in draw
+    order: the router, then the experts' SwiGLU weights."""
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
+    return {"router": ((d, e), ("embed", "experts")),
+            "w_gate": ((e, d, f), ("experts", "embed", "expert_mlp")),
+            "w_up": ((e, d, f), ("experts", "embed", "expert_mlp")),
+            "w_down": ((e, f, d), ("experts", "expert_mlp", "embed"))}
 
 
-def apply_moe(params, cfg: ModelConfig, x, shd=None):
-    raise unported("MoE layers", "queue A item 20")
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, *, device) -> dict:
+    d, f = cfg.d_model, cfg.moe.d_expert
+    fan_in = {"w_gate": d, "w_up": d, "w_down": f}
+    return {k: dense_init(gen, shp, dtype, fan_in=fan_in.get(k), device=device)
+            for k, (shp, _) in moe_table(cfg).items()}
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest values in
+    descending order, a tie going to the lower index (a stable descending
+    sort; ``torch.topk`` breaks ties in no fixed order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _router_probs(params, xt: torch.Tensor) -> torch.Tensor:
+    """The router: logits in the activation dtype, then a float32 softmax."""
+    return torch.softmax((xt @ params["router"]).float(), dim=-1)
+
+
+def _moe_dispatch(params, cfg: ModelConfig, xt: torch.Tensor, cap: int):
+    """Sort-based capacity-bounded top-k dispatch of a token block xt (T, d),
+    step for step as the reference: the router's logits in the activation
+    dtype, then a float32 softmax and top-k; the assignments sorted by
+    expert (stably), each expert's first ``cap`` of them written to its rows
+    of an (e·cap, d) buffer and the rest dropped; the experts' SwiGLU as
+    batched products.  The combine adds a token's kept contributions one
+    after another in x's dtype, by expert ascending, as the reference's
+    scatter-add meets them, so the sum is the same each run (no atomics).
+    Returns (out (T, d), aux ()), the Switch-style load-balance loss."""
+    t, d = xt.shape
+    e, k_top = cfg.moe.n_experts, cfg.moe.top_k
+    dev = xt.device
+
+    probs = _router_probs(params, xt)
+    gates, eidx = _top_k(probs, k_top)                             # (T, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    density = F.one_hot(eidx[:, 0], e).float().mean(0)
+    aux = (density * probs.mean(0)).sum() * e
+
+    flat_e = eidx.reshape(-1)                                      # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    st = torch.div(order, k_top, rounding_mode="floor")            # the token of each
+    sg = gates.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(e, device=dev))
+    pos_in_e = torch.arange(t * k_top, device=dev) - starts[se]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, se * cap + pos_in_e, e * cap)
+
+    # Row e·cap takes every dropped assignment and is cut off.
+    buf = xt.new_zeros((e * cap + 1, d)).index_put((slot,), xt[st])
+    h = buf[:e * cap].reshape(e, cap, d)
+    a = torch.bmm(h, params["w_gate"])
+    u = torch.bmm(h, params["w_up"])
+    of = torch.bmm(a * sigmoid(a) * u, params["w_down"]).reshape(e * cap, d)
+
+    contrib = torch.where(keep[:, None], of[slot.clamp(max=e * cap - 1)], 0.0) * \
+        sg[:, None].to(xt.dtype)
+    # Each token's K sorted positions, ascending: its contributions by expert.
+    at = torch.empty_like(order)
+    at[order] = torch.arange(t * k_top, device=dev)
+    parts = contrib[at.reshape(t, k_top).sort(dim=1).values]      # (T, K, d)
+    out = parts[:, 0]
+    for i in range(1, k_top):
+        out = out + parts[:, i]
+    return out, aux
+
+
+def _moe_cap(cfg: ModelConfig, t: int) -> int:
+    cap = int(math.ceil(t * cfg.moe.top_k / cfg.moe.n_experts * cfg.moe.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, shd=None):
+    """MoE layer over x (B, S, D): one capacity buffer over all B·S tokens
+    (the reference's global dispatch).  Returns (out, aux).  Where the
+    reference splits the tokens into one buffer per data shard
+    (``cfg.moe_sharded_dispatch`` on a mesh of several data slots whose
+    count divides the tokens), the port raises."""
+    b, s, d = x.shape
+    t = b * s
+    if cfg.moe_sharded_dispatch and shd is not None and shd.mesh is not None:
+        n_data = axis_size(shd.mesh, data_axis_names(shd.mesh))
+        if n_data > 1 and t % n_data == 0:
+            raise unported("per-data-shard MoE dispatch", "queue A item 20b")
+    out, aux = _moe_dispatch(params, cfg, x.reshape(t, d), _moe_cap(cfg, t))
+    return out.reshape(b, s, d), aux
 
 
 # --------------------------------------------------------------------------

@@ -78,6 +78,10 @@ ring is placed like any cache; prefill writes its rolled tail by block.
 A global batch whose rows do not split over the data groups (``act_batch``
 unresolved, as ``long_500k``'s one row on 16 data groups) is replicated:
 every data group runs all of it, and the loss counts data group 0's once.
+
+MoE layers do not run here yet (ROADMAP queue A item 20b): ``check_supported``
+refuses them in ``loss_fn``, ``prefill``, ``decode_step`` and the builders of
+``launch/steps.py``.
 """
 from __future__ import annotations
 
@@ -425,6 +429,14 @@ class _Placed:
 # the slot program
 # --------------------------------------------------------------------------
 
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the one-device model lacks, and for MoE layers, which
+    the slot program does not run yet."""
+    T._check_supported(cfg)
+    if cfg.moe is not None:
+        raise unported("MoE in the slot program", "queue A item 20b")
+
+
 class _Program:
     """Placed parameters as the slot programs read them: the mesh's data
     groups, each sublayer's leaves with their compute copies (float leaves
@@ -432,7 +444,7 @@ class _Program:
     unembedding uses uncast, as the reference's does."""
 
     def __init__(self, params, cfg: ModelConfig):
-        T._check_supported(cfg)
+        check_supported(cfg)
         first = tree_leaves(params)[0]
         self.mesh = first.sharding.mesh
         self.groups = groups_of(first.sharding)

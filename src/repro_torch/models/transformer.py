@@ -1,14 +1,16 @@
 """Model assembly — port of ``repro/models/transformer.py`` for the dense
 decoders (pattern ``("attn",)`` or ``("local",)`` mixes: ``olmo_1b``,
-``qwen3_14b``, ``yi_9b``, ``llama3_405b``) and the recurrent ones
-(``("rwkv",)``: ``rwkv6_3b``; ``("rglru", "rglru", "local")``:
-``recurrentgemma_9b``), serving and training.
+``qwen3_14b``, ``yi_9b``, ``llama3_405b``), the MoE ones (``("attn",)``
+with ``cfg.moe``: ``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``) and
+the recurrent ones (``("rwkv",)``: ``rwkv6_3b``; ``("rglru", "rglru",
+"local")``: ``recurrentgemma_9b``), serving and training.
 
 The model is a ``Transformer`` module holding the embedding, the final
 norm and one ``Block`` module per layer, in execution order; its
 parameters keep the JAX package's names and layouts.  An attention or
 ``rglru`` block holds ``norm1``, its mixer (``attn`` / ``rglru``),
-``norm2`` and ``mlp``; an ``rwkv`` block is self-contained (its own norms
+``norm2`` and ``mlp`` (``moe`` where ``cfg.moe`` is set); an ``rwkv`` block
+is self-contained (its own norms
 and channel mix, ``models/rwkv6.py``).  The reference scans
 ``n_groups`` repetitions of the block pattern over stacked parameters
 (``params["blocks"]``, one list entry per pattern position, each leaf with
@@ -40,10 +42,12 @@ trainer sets them so) and gradients are on, the cast is made anew in the
 autograd graph, so gradients flow back to the masters in their own dtype.
 ``forward_seq`` and ``loss_fn`` are differentiable; the inference entry
 points run under ``torch.no_grad()``.  A decode step writes the cache in
-place and returns it.
+place and returns it.  An MoE layer's load-balance aux is summed over the
+layers into ``forward_seq``'s aux (float32), which ``loss_fn`` adds as
+``0.01 · moe_aux``; a decode step drops it.
 
-MoE layers (ROADMAP queue A item 20), the encoder and cross-attention
-(item 21) and the VLM projector (item 21b) raise.
+The encoder and cross-attention (ROADMAP queue A item 21) and the VLM
+projector (item 21b) raise.
 """
 from __future__ import annotations
 
@@ -96,8 +100,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise unported(f"{kind!r} layers", L.MIXER_ITEMS[kind])
         if kind not in ("attn", "local", "rglru", "rwkv"):
             raise ValueError(f"unknown layer kind {kind!r} in {cfg.name}'s block_pattern")
-    if cfg.moe is not None:
-        raise unported("MoE layers", "queue A item 20")
     if cfg.n_encoder_layers:
         raise unported("the encoder and cross-attention", "queue A item 21")
     if cfg.n_patches:
@@ -115,7 +117,7 @@ def _param_dict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One decoder layer in the reference's layout: ``norm1``, the mixer
-    (``attn`` or ``rglru``), ``norm2``, ``mlp``, each a ``ParameterDict``
+    (``attn`` or ``rglru``), ``norm2``, ``mlp`` or ``moe``, each a ``ParameterDict``
     under the reference's names (the non-parametric norms are empty); an
     ``rwkv`` layer's flat dict of parameters is the one ``ParameterDict``
     ``rwkv``."""
@@ -198,10 +200,11 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
         return rwkv_lib.init_rwkv(gen, cfg, dtype, device=device)
     mixer = (("rglru", rglru_lib.init_rglru) if kind == "rglru" else
              ("attn", L.init_attention))
+    ffn = ("moe", L.init_moe) if cfg.moe is not None else ("mlp", L.init_mlp)
     return {"norm1": L.init_norm(cfg, dtype, device=device),
             mixer[0]: mixer[1](gen, cfg, dtype, device=device),
             "norm2": L.init_norm(cfg, dtype, device=device),
-            "mlp": L.init_mlp(gen, cfg, dtype, device=device)}
+            ffn[0]: ffn[1](gen, cfg, dtype, device=device)}
 
 
 def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
@@ -237,8 +240,9 @@ def _layer_table(cfg: ModelConfig, kind: str) -> Params:
         return rwkv_lib.rwkv_table(cfg)
     mixer = ("rglru", rglru_lib.rglru_table(cfg)) if kind == "rglru" else \
         ("attn", L.attention_table(cfg))
+    ffn = ("moe", L.moe_table(cfg)) if cfg.moe is not None else ("mlp", L.mlp_table(cfg))
     return {"norm1": L.norm_table(cfg), mixer[0]: mixer[1], "norm2": L.norm_table(cfg),
-            "mlp": L.mlp_table(cfg)}
+            ffn[0]: ffn[1]}
 
 
 def _map_pairs(tree, fn):
@@ -441,17 +445,19 @@ def cache_layout(kv: torch.Tensor, cfg: ModelConfig, kind: str, cache_len: int):
 
 
 def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, state=None, cache_len: int,
-                     collect: bool):
-    """One layer over the sequence: (x, the layer's new state when
-    ``collect``).  ``state`` (a recurrent layer's ``{"rnn": ...}``) is the
-    state before the sequence; attention layers ignore it."""
+                     collect: bool, shd=None):
+    """One layer over the sequence: (x, the MoE aux — a float32 zero for
+    other layers —, the layer's new state when ``collect``).  ``state`` (a
+    recurrent layer's ``{"rnn": ...}``) is the state before the sequence;
+    attention layers ignore it."""
     new_state: Params = {}
     rnn0 = (state or {}).get("rnn")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         x, rnn = rwkv_lib.rwkv_forward(p, cfg, x, rnn0)
         if collect:
             new_state["rnn"] = rnn
-        return x, new_state
+        return x, aux, new_state
     h = L.apply_norm(p["norm1"], cfg, x)
     if kind == "rglru":
         mix, rnn = rglru_lib.rglru_forward(p["rglru"], cfg, h, rnn0)
@@ -465,7 +471,11 @@ def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, state=None, c
         mix = L.attention_forward(p["attn"], cfg, h, kind=kind)
     x = x + mix
     h2 = L.apply_norm(p["norm2"], cfg, x)
-    return x + L.apply_mlp(p["mlp"], cfg, h2), new_state
+    if "moe" in p:
+        out, aux = L.apply_moe(p["moe"], cfg, h2, shd)
+    else:
+        out = L.apply_mlp(p["mlp"], cfg, h2)
+    return x + out, aux, new_state
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -479,7 +489,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg: ModelConfig, fn):
-    """``fn(x)`` under a per-layer checkpoint, with ``cfg.remat_policy``."""
+    """``fn(x)`` under a per-layer checkpoint, with ``cfg.remat_policy``;
+    ``fn`` may return a tuple (a layer's x and its aux)."""
     kwargs = {}
     if cfg.remat_policy == "dots":
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
@@ -491,15 +502,17 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
                 patches=None, states=None, collect: bool = False, cache_len: int = 0):
     """Token ids -> final hidden states; differentiable.
 
-    Returns (hidden (B,S,D), aux_loss, new_states): ``aux_loss`` is 0 (no
-    MoE here); ``collect=True`` gathers each layer's decode state (the KV
+    Returns (hidden (B,S,D), aux_loss, new_states): ``aux_loss`` the MoE
+    layers' load-balance aux summed in float32 (0 without MoE);
+    ``collect=True`` gathers each layer's decode state (the KV
     caches padded to ``cache_len``, the recurrent states) for decode
     (prefill).  ``states`` (one entry per layer, ``init_cache``'s layout)
     carries the recurrent layers' states in, for a prefill in chunks;
     attention layers ignore their entry, as the reference's do.  In training
     (``_training``) with ``cfg.remat``, each layer of the scanned groups is
-    checkpointed.  ``frames`` and ``patches`` (encoder and VLM inputs)
-    raise."""
+    checkpointed, its aux returned beside x so that it stays differentiable.
+    ``shd`` reaches the MoE layers (the per-data-shard dispatch raises).
+    ``frames`` and ``patches`` (encoder and VLM inputs) raise."""
     if frames is not None or patches is not None:
         raise unported("forward_seq(frames= / patches=)", "queue A item 21")
     if states is not None and len(states) != cfg.n_layers:
@@ -510,27 +523,30 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     plan = layer_plan(cfg)
     n_scanned = plan.n_groups * len(plan.pattern)
     remat = cfg.remat and not collect and _training(model)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: List[Params] = []
     for i, (lp, blk) in enumerate(zip(p["layers"], model.layers)):
         st = states[i] if states is not None else None
         if remat and i < n_scanned:
-            x = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind, st))(x)
+            x, aux_i = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind, st, shd))(x)
             ns: Params = {}
         else:
-            x, ns = _apply_layer_seq(lp, cfg, blk.kind, x, state=st, cache_len=cache_len,
-                                     collect=collect)
+            x, aux_i, ns = _apply_layer_seq(lp, cfg, blk.kind, x, state=st, cache_len=cache_len,
+                                            collect=collect, shd=shd)
+        aux = aux + aux_i
         new_states.append(ns)
     x = L.apply_norm(p["final_norm"], cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, (new_states if collect else None)
 
 
-def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, x):
-    return _apply_layer_seq(lp, cfg, kind, x, state=state, cache_len=0, collect=False)[0]
+def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, shd, x):
+    """A layer's (x, aux), the function a training forward checkpoints."""
+    return _apply_layer_seq(lp, cfg, kind, x, state=state, cache_len=0, collect=False,
+                            shd=shd)[:2]
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
-    """Next-token cross entropy (+ 0.01 · the MoE aux loss, 0 here).
+    """Next-token cross entropy (+ 0.01 · the MoE aux loss, 0 without MoE).
     ``batch``: ``tokens``, ``labels``, optional ``loss_mask`` (``frames`` /
     ``patches`` raise in ``forward_seq``).  The unembedding runs against
     the master embedding, uncast, as the reference's does: bf16 hidden
@@ -561,7 +577,8 @@ def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[
                        pos, shd=None):
     """Decode one token through the stack, returning the final-norm hidden
     state (B, D) — the retrieval query vector — and the cache, updated in
-    place (a KV slot written, a recurrent layer's state replaced)."""
+    place (a KV slot written, a recurrent layer's state replaced).  An MoE
+    layer's aux is dropped, as the reference's is."""
     p = _cast_params(model, cfg)
     x1 = L.embed(p["embed"], cfg, _tokens(token, model.device)[:, None])
     for lp, blk, st in zip(p["layers"], model.layers, cache):
@@ -575,7 +592,8 @@ def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[
             mix, st["kv"] = L.attention_decode(lp["attn"], cfg, h, st["kv"], pos, kind=blk.kind)
         x1 = x1 + mix
         h2 = L.apply_norm(lp["norm2"], cfg, x1)
-        x1 = x1 + L.apply_mlp(lp["mlp"], cfg, h2)
+        x1 = x1 + (L.apply_moe(lp["moe"], cfg, h2)[0] if "moe" in lp else
+                   L.apply_mlp(lp["mlp"], cfg, h2))
     x1 = L.apply_norm(p["final_norm"], cfg, x1)
     return x1[:, 0], cache
 

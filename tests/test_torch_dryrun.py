@@ -222,7 +222,7 @@ def test_dryrun_reference_cell_on_512_meta_slots():
 
 def test_dryrun_records_an_unported_preset():
     rec = dryrun.run_cell("granite_moe_1b_a400m", "train_4k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 20" in rec["error"]
+    assert not rec["ok"] and "queue A item 20b" in rec["error"]
 
 
 def _long_500k_arg_bytes(cfg):

@@ -35,9 +35,10 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import configs as C
 from repro_torch import sharding
-from repro_torch.launch import make_serving_mesh
+from repro_torch.launch import make_host_mesh, make_serving_mesh
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as L
+from repro_torch.models import spmd
 from repro_torch.models import transformer as T
 
 RTOL_H, ATOL_H = 1e-5, 1e-5        # hidden states, single layers
@@ -481,7 +482,8 @@ def test_compute_copy_follows_the_masters():
 # serve, and what is left to queue A items 18-21
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "rwkv6_3b", "recurrentgemma_9b"])
+@pytest.mark.parametrize("arch", ["olmo_1b", "rwkv6_3b", "recurrentgemma_9b",
+                                  "granite_moe_1b_a400m"])
 def test_serve_main_runs_on_cpu(capsys, arch):
     toks = tserve.main(["--arch", arch, "--smoke", "--retrieval", "--device", "cpu",
                         "--batch", "2", "--prompt-len", "8", "--gen", "4"])
@@ -503,10 +505,12 @@ def test_sharding_ctx_keeps_values():
 
 
 UNPORTED = {
-    "preset": lambda: C.get_config("granite_moe_1b_a400m"),
-    "smoke preset": lambda: C.get_smoke_config("granite_moe_1b_a400m"),
-    "moe": lambda: T.init_params(0, dataclasses.replace(
-        C.get_smoke_config("olmo_1b"), moe=C.MoEConfig(4, 2, 32)), device="cpu"),
+    "spmd loss_fn": lambda: spmd.loss_fn(None, C.get_smoke_config("granite_moe_1b_a400m"),
+                                         {"tokens": np.zeros((1, 4), np.int32)}),
+    "spmd prefill": lambda: spmd.prefill(None, C.get_smoke_config("granite_moe_1b_a400m"),
+                                         np.zeros((1, 4), np.int32), 8),
+    "spmd decode_step": lambda: spmd.decode_step(
+        None, C.get_smoke_config("qwen3_moe_235b_a22b"), np.zeros(1, np.int32), None, 0),
     "encoder": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), n_encoder_layers=2), device="cpu"),
     "vlm": lambda: T.init_params(0, dataclasses.replace(
@@ -515,7 +519,11 @@ UNPORTED = {
                                  C.get_smoke_config("olmo_1b"),
                                  {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
     "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
-    "apply_moe": lambda: L.apply_moe({}, C.get_smoke_config("olmo_1b"), None),
+    "sharded apply_moe": lambda: L.apply_moe(
+        {}, dataclasses.replace(C.get_smoke_config("granite_moe_1b_a400m"),
+                                moe_sharded_dispatch=True),
+        torch.zeros(2, 2, 96), sharding.ShardingCtx.for_mesh(make_host_mesh(1, slots=2,
+                                                                            device="cpu"))),
     "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
                                          encoder_out=1),
 }
@@ -523,9 +531,10 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 20
-    (MoE), 21 (encoder), 21b (VLM)."""
-    with pytest.raises(NotImplementedError, match="queue A item (20|21|21b)"):
+    """Every refusal names the queue A item that brings the feature: 20b
+    (MoE in the slot program and the per-data-shard dispatch), 21
+    (encoder), 21b (VLM)."""
+    with pytest.raises(NotImplementedError, match="queue A item (20b|21|21b)"):
         UNPORTED[what]()
 
 

@@ -10,6 +10,7 @@ float64 distances of the two ids tie within 1e-5 (the same parity the
 other port tests hold)."""
 import json
 import os
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -255,6 +256,29 @@ def test_checkpoint_async_gc_and_corruption(tmp_path):
     np.savez(path, **data)
     with pytest.raises(ValueError, match="crc"):
         mgr.restore(_tree())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_async_save_snapshots_cpu_tensors(tmp_path, dtype):
+    """An async save holds the values the tree had when ``save`` returned:
+    the trainer updates its CPU masters in place while the write runs (the
+    write is held here until the tensor has changed)."""
+    gate = threading.Event()
+
+    class Held(CheckpointManager):
+        def _phase(self, name, step):
+            if name == "pre-arrays":
+                assert gate.wait(10)
+
+    mgr = Held(str(tmp_path), async_save=True)
+    w = torch.arange(4096, dtype=torch.float32).to(dtype)
+    want = w.clone()
+    mgr.save(1, {"w": w})
+    w.add_(1)
+    gate.set()
+    mgr.wait()
+    got = mgr.restore({"w": torch.zeros_like(w)}, device="cpu")[0]["w"]
+    assert torch.equal(got, want)
 
 
 def test_checkpoint_partial_step_and_nothing_durable(tmp_path):

@@ -272,8 +272,8 @@ def test_blocks_bf16_match_jax(kind):
     tp = jax.tree.map(lambda a: torch.tensor(_f32(a)).bfloat16(), jp)
     tst = jax.tree.map(lambda a: torch.tensor(_f32(a)).to(
         torch.float32 if a.dtype == jnp.float32 else torch.bfloat16), st)
-    got, gst = T._apply_layer_seq(tp, tcfg, kind, torch.tensor(x).bfloat16(), state=tst,
-                                  cache_len=32, collect=True)
+    got, _, gst = T._apply_layer_seq(tp, tcfg, kind, torch.tensor(x).bfloat16(), state=tst,
+                                     cache_len=32, collect=True)
     assert got.dtype == torch.bfloat16
     for g, w in [(got, want)] + list(zip(tree_leaves(gst), jax.tree.leaves(jst))):
         if g.dtype == torch.float32:          # the recurrent state: float32 sums
