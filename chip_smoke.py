@@ -301,6 +301,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          4, batch 2 × 1,024: finite, ``moe_aux`` above 0, step 1's loss
          within ``TRAIN_LOSS_TOL`` of the float32 loss.  (a) holds the
          lookup's first call at D = 1,024.
+  (y)    the MoE presets in the slot program (``models/spmd.py``'s MoE
+         sublayer: expert parallelism, the global dispatch across the data
+         groups, the per-data-shard dispatch; no kernel of ``csrc/``) on
+         ``make_host_mesh(4, slots=8)``'s 2 × 4 slots on ``cuda:0``, seed 3.
+         (y1) ``granite_moe_1b_a400m`` at its widths, depth 24 → 8, float32
+         activations and weights, capacity 1.25: ``build_prefill`` on 2 ×
+         512 tokens and 4 ``build_decode`` steps against the one-device
+         ``transformer.prefill`` / ``decode_step``; every layer's count of
+         dropped assignments equal to one device's up to the first top-8
+         set that differs (none is expected; one must sit at a tie within
+         ``Y_TIE``), the logits within ``Y_F32_ATOL``; the prefill again with
+         ``moe_sharded_dispatch`` against the one-device prefill given the
+         mesh's ``ShardingCtx``.  (y2) ``qwen3_moe_235b_a22b`` at its widths,
+         depth 94 → 2, bf16 with FSDP, capacity 16: prefill and 4 steps by
+         (x)'s relative RMS criterion.  Each: prefill s, decode step ms,
+         launches, busy share and ``spmd.collective`` device time of a
+         profiled step beside the one-device step's, peak memory.  (y3) one
+         sharded train step of granite at depth 4, 2 × 1,024 tokens, with
+         each dispatch, against the one-device step by (t1)'s bounds,
+         ``moe_aux`` finite and above 0.  (y4) the dry run of (y1)'s and
+         (y2)'s decode cells on 2 × 4 ``meta`` slots: per-slot argument and
+         output bytes equal to the card's.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -311,7 +333,8 @@ its brute call over the 5M corpus.
 Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
 (s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
-steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2) and (x3) —
+steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2), (x3), the
+prefill and decode of (y1) and (y2) and each step of (y3) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -525,6 +548,28 @@ X_TRAIN_STEPS = 2
 # (x) holds the decode's relative RMS gap to the float32 logits to
 # X_RMS_RATIO times the bf16 forward's own, and prints the max-based ratio.
 X_RMS_RATIO = 2.0
+Y_LAYERS = 8                       # (y1): granite_moe_1b_a400m's 24 layers cut to 8, float32
+Y_PROMPT = 512                     # (y1), (y2): prompts of 2 × 512 tokens (1 row a data group)
+Y_STEPS = 4                        # decode steps after each prefill
+Y_QWEN_LAYERS = 2                  # (y2): qwen3_moe_235b_a22b's 94 layers cut to 2, as (x2)
+Y_QWEN_CAPACITY = 16.0             # (y2): nothing dropped, (x)'s criterion applies
+Y_TRAIN_LAYERS = 4                 # (y3): granite's width, depth cut 24 → 4, as (x3)
+Y_TRAIN_BATCH = 2                  # (y3): 2 × 1,024 tokens (1 row a data group)
+Y_TRAIN_SEQ = 1024
+# (y1) in float32 the slot program differs from the one-device functions by
+# the order of sums alone (GEMMs over a slot's router columns or experts,
+# the row-parallel sums in float32), so where no token's top-8 set flips the
+# kept assignments are the same and the logits agree to float32 rounding
+# grown over 8 layers.  CPU rehearsals (8 layers, capacity 1.25, float32,
+# 4 decode steps; d_model 256 on 2 × 96 tokens, granite's full width on
+# 2 × 512): the logits within 3.1e-6 and 4.5e-6 of the one-device run's,
+# the dropped counts equal in every layer; Y_F32_ATOL is ~40× that.  A
+# flip happens only where a token's 8th and 9th probabilities tie within the
+# rounding (Y_TIE): the layers up to the first flip are held, the rest
+# printed.  A kept set taken from the wrong group's offsets moves whole
+# experts' shares (the logits by their own scale).
+Y_F32_ATOL = 2e-4
+Y_TIE = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1486,7 +1531,7 @@ def profiled(fn):
     """One call of ``fn`` under ``torch.profiler``: (fn(), seconds on the host
     clock, the card's busy ms, the device ms under the outermost
     ``spmd.collective`` ranges, the number of ranges, the six largest
-    kernels by device ms)."""
+    kernels by device ms, the number of kernels the card ran)."""
     import torch
     from repro_torch.models import spmd
 
@@ -1494,6 +1539,8 @@ def profiled(fn):
     with torch.profiler.profile(activities=acts) as prof:
         out, sec = synced(fn)
     by_name = device_time(prof, skip=(spmd.COLLECTIVE,))
+    launches = sum(e.device_type == torch.autograd.DeviceType.CUDA and
+                   e.name != spmd.COLLECTIVE for e in prof.events())
 
     def nested(e):
         p = e.cpu_parent
@@ -1507,12 +1554,13 @@ def profiled(fn):
               if e.name == spmd.COLLECTIVE and e.device_type == torch.autograd.DeviceType.CPU]
     coll = sum(e.device_time_total for e in ranges if not nested(e)) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return out, sec, sum(by_name.values()), coll, len(ranges), top
+    return out, sec, sum(by_name.values()), coll, len(ranges), top, launches
 
 
-def profile_line(sec, busy, coll, n_ranges, top) -> str:
+def profile_line(sec, busy, coll, n_ranges, top, launches) -> str:
     return (f"the card busy {busy:.1f} ms of the step's {sec * 1e3:.1f} ms (busy share "
-            f"{busy / (sec * 1e3):.3f}); collectives ({n_ranges} spmd.collective ranges) " +
+            f"{busy / (sec * 1e3):.3f}, {launches} kernels); collectives ({n_ranges} "
+            f"spmd.collective ranges) " +
             (f"{coll:.1f} ms of device time ({coll / busy:.4f} of busy)" if coll > 0 else
              "not measured (no device time under the ranges)") + "; by kernel: " +
             "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
@@ -2698,6 +2746,362 @@ def moe_phase(dev, kernels, reset_counts, read_counts, topk_check):
     moe_serve(dev, "x2", qwen, X_QWEN_STEPS, reset_counts, read_counts)
     moe_train(dev, reset_counts, read_counts)
     log(f"[x] phase {time.perf_counter() - t_x:.2f}s")
+
+
+class KeepProbe:
+    """Within ``with``, record every ``layers._route`` call's expert ids and
+    probabilities and every ``layers._keep`` call's count of dropped
+    assignments, in call order (the one-device layer calls each once a
+    layer; the slot program once a slot of each data group)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.routes, self.drops = [], []
+
+    def __enter__(self):
+        lay = self.layers
+        route, keep = self.orig = lay._route, lay._keep
+
+        def probe_route(cfg, probs):
+            gates, eidx = route(cfg, probs)
+            self.routes.append((eidx.detach(), probs.detach()))
+            return gates, eidx
+
+        def probe_keep(cfg, *args, **kw):
+            out = keep(cfg, *args, **kw)
+            self.drops.append(int((~out[0]).sum().item()))
+            return out
+
+        lay._route, lay._keep = probe_route, probe_keep
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._route, self.layers._keep = self.orig
+
+    def by_layer(self, n_layers, n_groups=1, per=1):
+        """Per layer (the calls in layer order, ``per`` slots of each of
+        ``n_groups`` data groups a layer): (dropped assignments summed over
+        the data groups, the ids of the groups' first slots joined in token
+        order, the probabilities likewise); the slots of a group must agree."""
+        import torch
+        calls = n_groups * per
+        assert len(self.drops) == n_layers * calls == len(self.routes), \
+            (len(self.drops), len(self.routes), n_layers, calls)
+        out = []
+        for i in range(n_layers):
+            drops = self.drops[i * calls:(i + 1) * calls]
+            routes = self.routes[i * calls:(i + 1) * calls]
+            firsts = list(range(0, calls, per))
+            for f in firsts:
+                assert len(set(drops[f:f + per])) == 1, "the slots of a group keep differently"
+                assert all(bool((routes[f][0] == r[0].to(routes[f][0].device)).all())
+                           for r in routes[f:f + per]), "the slots of a group route differently"
+            join = lambda j: torch.cat([routes[f][j].to(routes[0][j].device) for f in firsts])
+            out.append((sum(drops[f] for f in firsts), join(0), join(1)))
+        return out
+
+
+def hold_routing(tag, got, want, k, hold=True):
+    """The slot program's routing by layer (``KeepProbe.by_layer``) against
+    the one-device run's; with ``hold``: up to the first layer where a
+    token's top-k set differs, the same dropped count; at that layer every
+    differing token at a tie within Y_TIE (its 8th and 9th one-device
+    probabilities).  Returns (the first such layer or None, a line that
+    says what was compared)."""
+    first, flips, worst = None, [], 0.0
+    for i, ((d_g, e_g, _), (d_w, e_w, p_w)) in enumerate(zip(got, want)):
+        differ = (e_g.sort(1).values != e_w.sort(1).values).any(1)
+        flips.append(int(differ.sum()))
+        if first is None and flips[-1]:
+            first = i
+            top = p_w[differ].sort(1, descending=True).values
+            worst = float((top[:, k - 1] - top[:, k]).max())
+            assert worst <= Y_TIE or not hold, \
+                f"({tag}) layer {i}: a top-{k} set differs away from a tie"
+        if hold and (first is None or i < first):
+            assert d_g == d_w, f"({tag}) layer {i}: dropped {d_g} assignments, one device {d_w}"
+    line = (f"dropped by layer {[g[0] for g in got]} (one device {[w[0] for w in want]}); "
+            f"tokens whose top-{k} set differs from one device's by layer {flips}" +
+            ("" if first is None else f" (first at layer {first}, its largest 8th-to-9th "
+             f"probability gap {worst:.2e}" + (f" ≤ {Y_TIE}; layers past it printed, not held)"
+                                               if hold else ")")))
+    return first, line
+
+
+def moe_sharded_serve(dev, tag, model, cfg, reset_counts, read_counts, f32=False, shd_cfg=None):
+    """(y1) / (y2): ``model`` on 2 × 4 slots on the card: ``build_prefill``'s
+    step on REC_BATCH × Y_PROMPT tokens and Y_STEPS of ``build_decode``'s,
+    against the one-device ``transformer.prefill`` / ``decode_step`` on the
+    same weights; with ``f32`` held by the routing and Y_F32_ATOL, else by
+    (x)'s relative RMS criterion against a float32 run; the last step of
+    each under ``torch.profiler``.  With ``shd_cfg`` the prefill runs again
+    with the per-data-shard dispatch against the one-device prefill given
+    the mesh's ``ShardingCtx``.  Returns (decode cell, per-slot argument
+    and output bytes of a decode step on the card)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as lm
+    from repro_torch.sharding import ShardingCtx
+    from repro_torch.utils import tree_leaves
+
+    t_y = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    assert set(mesh.slot_devices) == {str(dev) if dev.type == "cpu" else "cuda:0"}
+    n = len(mesh.slot_devices)
+    cache_len = Y_PROMPT + Y_STEPS
+    rng = np.random.default_rng(REC_SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (REC_BATCH, Y_PROMPT)), device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (Y_STEPS, REC_BATCH)), device=dev)
+    p_shape = ShapeConfig(f"prefill_{tag}", "prefill", cache_len, REC_BATCH)
+    d_shape = ShapeConfig(f"decode_{tag}", "decode", cache_len, REC_BATCH)
+    k = cfg.moe.top_k
+
+    def one_device(c):
+        logits, cache = lm.prefill(model, c, tokens, cache_len)
+        out = [logits.float()]
+        for i in range(Y_STEPS):
+            logits, cache = lm.decode_step(model, c, toks[i], cache, Y_PROMPT + i)
+            out.append(logits.float())
+        return torch.stack(out, 1), cache
+
+    l32 = None
+    if not f32:
+        l32, _ = one_device(dataclasses.replace(cfg, dtype="float32"))
+        model._compute = None                      # the float32 copy of the weights
+    with KeepProbe() as ref_probe:
+        (ref, ref_cache), ref_s = synced(lambda: one_device(cfg))
+    pre_d = ref_probe.drops[:cfg.n_layers]
+    (_, ref_c), ref_pre_s = synced(lambda: lm.prefill(model, cfg, tokens, cache_len))
+    ref_secs = []
+    for i in range(Y_STEPS):
+        _, sec = synced(lambda: lm.decode_step(model, cfg, toks[i], ref_c, Y_PROMPT + i))
+        ref_secs.append(sec)
+    ref_prof = profiled(lambda: lm.decode_step(model, cfg, toks[0], ref_c, Y_PROMPT))
+    del ref_c
+
+    prefill, _, (p_sh, b_sh) = steps.build_prefill(cfg, p_shape, mesh)
+    step, _, (_, tok_sh, c_sh, pos_sh) = steps.build_decode(cfg, d_shape, mesh)
+    params = steps.place(model.tree(), p_sh)
+    batch = steps.place({"tokens": tokens}, b_sh)
+    specs = sorted({str(a.sharding.spec) for a in tree_leaves(params["layers"][0]["moe"])})
+    log(f"[{tag}] {cfg.name}'s width (d_model {cfg.d_model}, {cfg.moe.n_experts} experts "
+        f"top-{k} × d_expert {cfg.moe.d_expert}, capacity {cfg.moe.capacity_factor}, vocab "
+        f"{cfg.vocab_size}) with n_layers cut to {cfg.n_layers}, {cfg.dtype} activations, "
+        f"{cfg.param_dtype} weights{', fsdp' if cfg.fsdp else ''} from seed {REC_SEED}, on "
+        f"{mesh.sizes[0]} × {mesh.sizes[1]} slots; the MoE layer's specs {specs}; prompt "
+        f"{REC_BATCH} × {Y_PROMPT}, {Y_STEPS} decode steps")
+    reset_counts()
+    with KeepProbe() as probe:
+        (logits, cache), _ = synced(lambda: prefill(params, batch))
+        got = [logits.gather().float()]
+        for i in range(Y_STEPS):
+            logits, cache = step(params, tok_sh.place(toks[i]), cache,
+                                 pos_sh.place(torch.tensor(Y_PROMPT + i, dtype=torch.int32)))
+            got.append(logits.gather().float())
+    read_counts(f"({tag}) sharded prefill and decode (no custom kernel on this path)")
+    got = torch.stack(got, 1)
+    sp = probe.by_layer(cfg.n_layers * (1 + Y_STEPS), *mesh.sizes)
+    ref_all = ref_probe.by_layer(cfg.n_layers * (1 + Y_STEPS))
+    first, line = hold_routing(f"{tag} prefill", sp[:cfg.n_layers], ref_all[:cfg.n_layers], k,
+                               f32)
+    d_first, d_line = hold_routing(f"{tag} decode", sp[cfg.n_layers:], ref_all[cfg.n_layers:], k,
+                                   f32)
+    gap = (got - ref).abs().max().item()
+    if f32:
+        log(f"[{tag}] the prefill's routing at capacity {cfg.moe.capacity_factor}: dropped share "
+            f"by layer {[round(x / (REC_BATCH * Y_PROMPT * k), 4) for x in pre_d]}; {line}")
+        log(f"[{tag}] decode's routing: {d_line}")
+        log(f"[{tag}] logits (prefill's last and {Y_STEPS} decode steps) max |Δ| {gap:.3e} from "
+            f"the one-device run's (≤ {Y_F32_ATOL} where no top-{k} set differs)")
+        if first is None and d_first is None:
+            assert gap <= Y_F32_ATOL, f"({tag}) the float32 logits stray from one device's"
+    else:
+        g, noise = rel_rms(got, l32), rel_rms(ref, l32)
+        log(f"[{tag}] prefill and decode at capacity {cfg.moe.capacity_factor}: relative RMS "
+            f"gap to the float32 logits {g:.4e} (the one-device bf16 run's {noise:.4e}; ≤ "
+            f"{X_RMS_RATIO:g} ×), max |Δ| to the bf16 run's {gap:.4f}; {line}; decode: {d_line}")
+        assert g <= X_RMS_RATIO * noise, f"({tag}) the logits stray beyond bf16 rounding"
+    del got, ref, l32
+
+    # Timed: the sharded prefill and decode steps from a fresh prefill.
+    (_, cache), pre_s = synced(lambda: prefill(params, batch))
+    secs = []
+    for i in range(Y_STEPS):
+        tok = tok_sh.place(toks[i])
+        pos_t = pos_sh.place(torch.tensor(Y_PROMPT + i, dtype=torch.int32))
+        if i == 0:
+            card_in = per_slot_bytes(n, params, tok, cache, pos_t)
+        (logits, cache), sec = synced(lambda: step(params, tok, cache, pos_t))
+        secs.append(sec)
+    card_out = [logits.slot_nbytes(s) + sum(a.slot_nbytes(s) for a in tree_leaves(cache))
+                for s in range(n)]
+    prof = profiled(lambda: step(params, tok_sh.place(toks[0]), cache,
+                                 pos_sh.place(torch.tensor(Y_PROMPT, dtype=torch.int32))))
+    med, ref_med = float(np.median(secs)), float(np.median(ref_secs))
+    log(f"[{tag}] prefill: sharded {pre_s:.3f} s ({REC_BATCH * Y_PROMPT / pre_s:.1f} tokens/s), "
+        f"one-device {ref_pre_s:.3f} s; decode step median: sharded {med * 1e3:.3f} ms "
+        f"[{min(secs) * 1e3:.3f}–{max(secs) * 1e3:.3f}], one-device {ref_med * 1e3:.3f} ms; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{tag}] a sharded decode step under torch.profiler: {profile_line(*prof[1:])}")
+    log(f"[{tag}] a one-device decode step under torch.profiler: {profile_line(*ref_prof[1:])}")
+
+    if shd_cfg is not None:
+        fn, _, (ps_sh, bs_sh) = steps.build_prefill(shd_cfg, p_shape, mesh)
+        shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
+        with KeepProbe() as ref_sd:
+            want, _ = lm.prefill(model, shd_cfg, tokens, cache_len, shd)
+        with KeepProbe() as sd:
+            (lg, _), sd_s = synced(lambda: fn(params, batch))
+        sd_gap = (lg.gather().float() - want.float()).abs().max().item()
+        chunks = [sum(ref_sd.drops[i * 2:i * 2 + 2]) for i in range(cfg.n_layers)]
+        slots_ = [sum(sd.drops[i * n + g * SPMD_MODEL] for g in range(2))
+                  for i in range(cfg.n_layers)]
+        log(f"[{tag}] the per-data-shard dispatch (moe_sharded_dispatch, a buffer a data group "
+            f"of cap {layers._moe_cap(shd_cfg, REC_BATCH * Y_PROMPT // 2)}): sharded prefill "
+            f"{sd_s:.3f} s, "
+            f"last logits max |Δ| {sd_gap:.3e} from the one-device prefill with the mesh's "
+            f"ShardingCtx (≤ {Y_F32_ATOL}); dropped by layer {slots_} (one device's chunks "
+            f"{chunks})")
+        if slots_ == chunks:
+            assert sd_gap <= Y_F32_ATOL, f"({tag}) the per-data-shard prefill strays"
+        assert max(abs(a - b) for a, b in zip(slots_, chunks)) <= k, \
+            f"({tag}) the per-data-shard dispatch drops other assignments than one device's"
+    del cache, params, batch, logits, ref_cache
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase {time.perf_counter() - t_y:.2f}s")
+    return d_shape, card_in, card_out
+
+
+
+def moe_sharded_train(dev, reset_counts, read_counts):
+    """(y3) one sharded train step at granite_moe_1b_a400m's width, depth
+    Y_TRAIN_LAYERS, on 2 × 4 slots, once with each dispatch, from seed
+    REC_SEED weights; step 1 held to the one-device ``make_train_step`` (the
+    per-data-shard one given the mesh's ``ShardingCtx``) by (t1)'s bounds;
+    ``moe_aux`` finite and above 0."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.sharding import ShardingCtx
+    from repro_torch.utils import tree_leaves
+
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    full = get_config("granite_moe_1b_a400m")
+    for sharded in (False, True):
+        t_y3 = time.perf_counter()
+        cfg = dataclasses.replace(full, n_layers=Y_TRAIN_LAYERS, moe_sharded_dispatch=sharded)
+        opt_cfg = OptConfig(total_steps=2, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+        pipe = TokenPipeline(cfg, SHAPES["train_4k"], batch_override=Y_TRAIN_BATCH,
+                             seq_override=Y_TRAIN_SEQ)
+        batch = pipe.next_batch(dev)
+        shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard) if sharded \
+            else None
+        ref = lm.init_params(REC_SEED, cfg, device=dev)
+        (ref_state, ref_m), ref_s = synced(lambda: steps.make_train_step(cfg, opt_cfg, shd)(
+            {"params": ref, "opt": init_opt_state(ref.tree(), opt_cfg)}, batch))
+        ref_loss, ref_aux, lr1 = (ref_m[k].item() for k in ("loss", "moe_aux", "lr"))
+        model = lm.init_params(REC_SEED, cfg, device=dev)
+        step, _, (st_sh, _) = steps.build_train(cfg, SHAPES["train_4k"], mesh, opt_cfg)
+        state = steps.init_placed_state(model.tree(), opt_cfg, st_sh)
+        del model
+        reset_counts()
+        (state, m), sec = synced(lambda: step(state, batch))
+        read_counts(f"(y3) granite sharded train step (no custom kernel on this path)")
+        loss, aux = m["loss"].item(), m["moe_aux"].item()
+        gap, n_far, n_all = 0.0, 0, 0
+        with torch.no_grad():
+            for a, r in zip(tree_leaves(state["params"]), tree_leaves(ref.tree())):
+                d = (a.gather() - r).abs()
+                gap = max(gap, d.max().item())
+                n_far += int((d > lr1).sum().item())
+                n_all += d.numel()
+        what = "per-data-shard" if sharded else "global"
+        log(f"[y3] {what} dispatch: granite's width, n_layers cut {full.n_layers} → "
+            f"{cfg.n_layers}, batch {Y_TRAIN_BATCH} × {pipe.seq} on {mesh.sizes[0]} × "
+            f"{mesh.sizes[1]} slots: step 1 loss {loss:.6f}, moe_aux {aux:.6f} in {sec:.3f} s; the "
+            f"one-device step: loss {ref_loss:.6f}, moe_aux {ref_aux:.6f} in {ref_s:.3f} s; "
+            f"|Δloss| {abs(loss - ref_loss):.3e}, |Δmoe_aux| {abs(aux - ref_aux):.3e} (≤ "
+            f"{TRAIN_LOSS_TOL}); max |Δmaster| {gap:.3e} (≤ 2·lr₁ + {SPMD_MASTER_ATOL}), "
+            f"{n_far} of {n_all} ({n_far / n_all:.3e}) apart by more than lr₁ (≤ "
+            f"{SPMD_FLIP_SHARE}); {time.perf_counter() - t_y3:.2f} s")
+        assert np.isfinite([loss, aux]).all() and aux > 0, "(y3) moe_aux is not finite and positive"
+        assert abs(loss - ref_loss) <= TRAIN_LOSS_TOL, "(y3) the loss strays from one device's"
+        assert abs(aux - ref_aux) <= TRAIN_LOSS_TOL, "(y3) moe_aux strays from one device's"
+        assert gap <= 2 * lr1 + SPMD_MASTER_ATOL, "(y3) a master strays past two steps"
+        assert n_far <= SPMD_FLIP_SHARE * n_all, "(y3) too many masters off the one-device step"
+        del state, ref, ref_state, batch, step, m
+        torch.cuda.empty_cache()
+
+
+def moe_sharded_phase(dev, reset_counts, read_counts):
+    """(y) the MoE presets in the slot program on 2 × 4 slots on the card:
+    (y1) granite_moe_1b_a400m at its widths, depth Y_LAYERS, float32, the
+    published capacity (the global dispatch across the data groups held
+    by its dropped counts), and its prefill with the per-data-shard
+    dispatch; (y2) qwen3_moe_235b_a22b at its widths, depth Y_QWEN_LAYERS,
+    bf16 and FSDP, capacity Y_QWEN_CAPACITY; (y3) granite's sharded train
+    step with each dispatch; (y4) the dry run's records of (y1)'s and (y2)'s
+    decode cells on 2 × 4 ``meta`` slots beside the card's blocks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+
+    t_y = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[y] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"), n_layers=Y_LAYERS,
+                              dtype="float32")
+    model = lm.init_params(REC_SEED, cfg, device=dev)
+    cells = [(cfg,) + moe_sharded_serve(dev, "y1", model, cfg, reset_counts, read_counts,
+                                        f32=True, shd_cfg=dataclasses.replace(
+                                            cfg, moe_sharded_dispatch=True))]
+    del model
+    q = get_config("qwen3_moe_235b_a22b")
+    cfg = dataclasses.replace(q, n_layers=Y_QWEN_LAYERS, moe=dataclasses.replace(
+        q.moe, capacity_factor=Y_QWEN_CAPACITY))
+    model = lm.init_params(REC_SEED, cfg, device=dev)
+    cells.append((cfg,) + moe_sharded_serve(dev, "y2", model, cfg, reset_counts, read_counts))
+    del model
+    torch.cuda.empty_cache()
+    moe_sharded_train(dev, reset_counts, read_counts)
+    meta_mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device="meta")
+    for tag, (cfg, shape, card_in, card_out) in zip(("y1", "y2"), cells):
+        rec = dryrun.record_cell(cfg.name, shape, meta_mesh, cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        ma = rec["memory_analysis"]
+        log(f"[y4] ({tag})'s decode cell: dry run traced in {rec['t_lower_s']:.2f} s (depths "
+            f"{rec['trace']['depths']}); per slot: arguments {ma['argument_size_in_bytes']} B (on "
+            f"the card {card_in[0]}), outputs {ma['output_size_in_bytes']} B (on the card "
+            f"{card_out[0]}); collectives per slot {rec['collective_bytes_weighted']} "
+            f"({rec['collective_counts']} once)")
+        assert card_in == [ma["argument_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(y4) ({tag})'s per-slot argument bytes differ from the card's"
+        assert card_out == [ma["output_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(y4) ({tag})'s per-slot output bytes differ from the card's"
+    log(f"[y] phase {time.perf_counter() - t_y:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -4288,6 +4692,9 @@ def main(argv=None) -> int:
 
     # -- path 20: (x) the MoE presets on one card ---------------------------------
     moe_phase(dev, kernels, reset_counts, read_counts, topk_check)
+
+    # -- path 21: (y) the MoE presets in the slot program -------------------------
+    moe_sharded_phase(dev, reset_counts, read_counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

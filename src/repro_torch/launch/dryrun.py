@@ -44,21 +44,22 @@ shapes and dtypes without the loop over the tokens (``prefill_32k`` is
 the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
 slots, real loops, equal to its record on ``meta``).
 
-Presets the port does not carry yet, and the MoE presets (the slot program
-has no MoE layer yet), are recorded as failed cells, the error naming their
-ROADMAP queue item, as the reference records a failure.
+Presets the port does not carry yet are recorded as failed cells, the
+error naming their ROADMAP queue item, as the reference records a failure.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
         --shape train_4k --mesh both
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 40 cells + 24 failed
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 52 cells + 12 failed
 
-(``--all``: the four dense presets' 24 cells and the 16 of ``rwkv6_3b`` and
+(``--all``: the four dense presets' 24 cells, the 16 of ``rwkv6_3b`` and
 ``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
-meshes); 24 recorded failures, the base shapes on both meshes of the two
-MoE presets, which load but whose steps the slot program refuses (queue A
-item 20b), and of the two unported presets (queue A items 21 and 21b).)
+meshes) and the 12 of the MoE presets ``granite_moe_1b_a400m`` and
+``qwen3_moe_235b_a22b`` (their three base shapes on both meshes); 12
+recorded failures, the base shapes on both meshes of the two unported
+presets, ``whisper_large_v3`` and ``llava_next_mistral_7b`` (queue A items
+21 and 21b).)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """

@@ -28,9 +28,12 @@ on a slot mesh (``models/spmd.prefill`` / ``decode_step``: logits placed as
 ``transformer.cache_specs``).  Every step runs alike on concrete placed
 tensors (the card's
 slots, CPU slots) and on ``meta`` slots, which is how ``launch/dryrun.py``
-traces a cell.  The three builders refuse an MoE config before any
-placement (``spmd.check_supported``: the slot program has no MoE layer yet,
-ROADMAP queue A item 20b); ``make_train_step`` trains one on one device.
+traces a cell.  The MoE presets run there too, their experts placed by the
+``"experts"`` rule: under expert parallelism each expert block's replicas
+are the slots of one model index across the data groups, and the gradient
+sum over replicas covers them as any other block.  The three builders
+refuse, before any placement, what the one-device model lacks
+(``spmd.check_supported``: the encoder, the VLM projector).
 Token ids are int64 here, where the reference's are int32
 (``TokenPipeline`` gives int64).
 """

@@ -25,7 +25,10 @@ sort-based, capacity-bounded top-k dispatch on one device: a stable
 descending sort for the top-k (the reference's tie-break, which
 ``torch.topk`` does not keep), the experts' products as batched matmuls,
 and a combine that adds each token's contributions in a fixed order (no
-atomics); the per-data-shard dispatch raises (ROADMAP queue A item 20b).
+atomics), in named steps (``_route``, ``_sort``, ``_keep``, ``_buffer``,
+``_experts``, ``_combine``) that the slot program (``models/spmd.py``)
+calls too; ``apply_moe`` takes the reference's per-data-shard dispatch
+where ``cfg.moe_sharded_dispatch`` asks for it.
 
 ``chunked_xent`` is the trainer's loss.  The recurrent mixers are
 ``models/rglru.py`` and ``models/rwkv6.py``; the attention functions
@@ -419,54 +422,95 @@ def _router_probs(params, xt: torch.Tensor) -> torch.Tensor:
     return torch.softmax((xt @ params["router"]).float(), dim=-1)
 
 
+# The dispatch in named steps, which the one-device layer (``_moe_dispatch``)
+# and the slot program (``models/spmd.py``) both call.
+
+def _route(cfg: ModelConfig, probs: torch.Tensor):
+    """The top-k of the router's probabilities (T, e): (gates (T, K)
+    renormalized to sum to 1, expert ids (T, K))."""
+    gates, eidx = _top_k(probs, cfg.moe.top_k)
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx
+
+
+def _aux(cfg: ModelConfig, density: torch.Tensor, proxy: torch.Tensor) -> torch.Tensor:
+    """The Switch-style load-balance loss from the means over the tokens of
+    one_hot(top-1) (``density``) and of the probabilities (``proxy``)."""
+    return (density * proxy).sum() * cfg.moe.n_experts
+
+
+def _sort(cfg: ModelConfig, eidx: torch.Tensor):
+    """The flat (token, k) assignments sorted by expert, stably: (order,
+    their experts ``se``, each expert's first sorted position ``starts``)."""
+    flat_e = eidx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    return order, se, torch.searchsorted(se, torch.arange(cfg.moe.n_experts,
+                                                          device=eidx.device))
+
+
+def _keep(cfg: ModelConfig, se, starts, cap: int, rows: int, offsets=None):
+    """(keep, slot) of each sorted assignment: kept where its position among
+    its expert's assignments, after ``offsets[e]`` of them ahead of this
+    block (the data groups before this one), is below ``cap``; ``slot`` its
+    row of an expert-major buffer of ``rows`` rows an expert, e·rows where
+    it is dropped."""
+    pos = torch.arange(se.shape[0], device=se.device) - starts[se]
+    keep = (pos if offsets is None else pos + offsets[se]) < cap
+    return keep, torch.where(keep, se * rows + pos, cfg.moe.n_experts * rows)
+
+
+def _buffer(xt: torch.Tensor, order, k_top: int, slot, n_rows: int) -> torch.Tensor:
+    """The (n_rows, d) buffer of the assignments' tokens by ``slot``; row
+    n_rows takes every slot past the buffer and is cut off."""
+    buf = xt.new_zeros((n_rows + 1, xt.shape[1]))
+    st = torch.div(order, k_top, rounding_mode="floor")            # the token of each
+    return buf.index_put((slot,), xt[st])[:n_rows]
+
+
+def _experts(params, h: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over h (e, rows, d) as batched products."""
+    a = torch.bmm(h, params["w_gate"])
+    u = torch.bmm(h, params["w_up"])
+    return torch.bmm(a * sigmoid(a) * u, params["w_down"])
+
+
+def _combine(of: torch.Tensor, keep, slot, gates, order, k_top: int) -> torch.Tensor:
+    """(T, d): each token's kept contributions from the expert rows ``of``
+    (e·rows, d), gate-weighted and added one after another in of's dtype,
+    by expert ascending, as the reference's scatter-add meets them, so the
+    sum is the same each run (no atomics)."""
+    t = gates.shape[0]
+    sg = gates.reshape(-1)[order]
+    contrib = torch.where(keep[:, None], of[slot.clamp(max=of.shape[0] - 1)], 0.0) * \
+        sg[:, None].to(of.dtype)
+    # Each token's K sorted positions, ascending: its contributions by expert.
+    at = torch.empty_like(order)
+    at[order] = torch.arange(t * k_top, device=order.device)
+    parts = contrib[at.reshape(t, k_top).sort(dim=1).values]      # (T, K, d)
+    out = parts[:, 0]
+    for i in range(1, k_top):
+        out = out + parts[:, i]
+    return out
+
+
 def _moe_dispatch(params, cfg: ModelConfig, xt: torch.Tensor, cap: int):
     """Sort-based capacity-bounded top-k dispatch of a token block xt (T, d),
     step for step as the reference: the router's logits in the activation
     dtype, then a float32 softmax and top-k; the assignments sorted by
     expert (stably), each expert's first ``cap`` of them written to its rows
     of an (e·cap, d) buffer and the rest dropped; the experts' SwiGLU as
-    batched products.  The combine adds a token's kept contributions one
-    after another in x's dtype, by expert ascending, as the reference's
-    scatter-add meets them, so the sum is the same each run (no atomics).
-    Returns (out (T, d), aux ()), the Switch-style load-balance loss."""
+    batched products; the ordered combine.  Returns (out (T, d), aux ()),
+    the Switch-style load-balance loss."""
     t, d = xt.shape
     e, k_top = cfg.moe.n_experts, cfg.moe.top_k
-    dev = xt.device
-
     probs = _router_probs(params, xt)
-    gates, eidx = _top_k(probs, k_top)                             # (T, K)
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-
-    density = F.one_hot(eidx[:, 0], e).float().mean(0)
-    aux = (density * probs.mean(0)).sum() * e
-
-    flat_e = eidx.reshape(-1)                                      # (T*K,)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
-    st = torch.div(order, k_top, rounding_mode="floor")            # the token of each
-    sg = gates.reshape(-1)[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=dev))
-    pos_in_e = torch.arange(t * k_top, device=dev) - starts[se]
-    keep = pos_in_e < cap
-    slot = torch.where(keep, se * cap + pos_in_e, e * cap)
-
-    # Row e·cap takes every dropped assignment and is cut off.
-    buf = xt.new_zeros((e * cap + 1, d)).index_put((slot,), xt[st])
-    h = buf[:e * cap].reshape(e, cap, d)
-    a = torch.bmm(h, params["w_gate"])
-    u = torch.bmm(h, params["w_up"])
-    of = torch.bmm(a * sigmoid(a) * u, params["w_down"]).reshape(e * cap, d)
-
-    contrib = torch.where(keep[:, None], of[slot.clamp(max=e * cap - 1)], 0.0) * \
-        sg[:, None].to(xt.dtype)
-    # Each token's K sorted positions, ascending: its contributions by expert.
-    at = torch.empty_like(order)
-    at[order] = torch.arange(t * k_top, device=dev)
-    parts = contrib[at.reshape(t, k_top).sort(dim=1).values]      # (T, K, d)
-    out = parts[:, 0]
-    for i in range(1, k_top):
-        out = out + parts[:, i]
-    return out, aux
+    gates, eidx = _route(cfg, probs)
+    aux = _aux(cfg, F.one_hot(eidx[:, 0], e).float().mean(0), probs.mean(0))
+    order, se, starts = _sort(cfg, eidx)
+    keep, slot = _keep(cfg, se, starts, cap, cap)
+    h = _buffer(xt, order, k_top, slot, e * cap).reshape(e, cap, d)
+    of = _experts(params, h).reshape(e * cap, d)
+    return _combine(of, keep, slot, gates, order, k_top), aux
 
 
 def _moe_cap(cfg: ModelConfig, t: int) -> int:
@@ -474,20 +518,32 @@ def _moe_cap(cfg: ModelConfig, t: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
+def moe_chunks(cfg: ModelConfig, t: int, n_data: int) -> int:
+    """How many capacity buffers the reference's ``apply_moe`` cuts t tokens
+    into on a mesh of ``n_data`` data slots: one a data slot where
+    ``cfg.moe_sharded_dispatch`` is set, there are several and their count
+    divides t; else one."""
+    return n_data if (cfg.moe_sharded_dispatch and n_data > 1 and t % n_data == 0) else 1
+
+
 def apply_moe(params, cfg: ModelConfig, x: torch.Tensor, shd=None):
-    """MoE layer over x (B, S, D): one capacity buffer over all B·S tokens
-    (the reference's global dispatch).  Returns (out, aux).  Where the
-    reference splits the tokens into one buffer per data shard
-    (``cfg.moe_sharded_dispatch`` on a mesh of several data slots whose
-    count divides the tokens), the port raises."""
+    """MoE layer over x (B, S, D).  Returns (out, aux).  The global dispatch
+    (the reference's baseline): one capacity buffer over all B·S tokens.
+    The per-data-shard dispatch (``moe_chunks`` > 1 on ``shd``'s mesh): the
+    flat tokens cut into one contiguous chunk a data slot, each dispatched
+    into its own buffer with a chunk's capacity, the aux the mean of the
+    chunks' (the reference's ``jax.vmap`` over the chunks, as a loop)."""
     b, s, d = x.shape
     t = b * s
-    if cfg.moe_sharded_dispatch and shd is not None and shd.mesh is not None:
-        n_data = axis_size(shd.mesh, data_axis_names(shd.mesh))
-        if n_data > 1 and t % n_data == 0:
-            raise unported("per-data-shard MoE dispatch", "queue A item 20b")
-    out, aux = _moe_dispatch(params, cfg, x.reshape(t, d), _moe_cap(cfg, t))
-    return out.reshape(b, s, d), aux
+    xt = x.reshape(t, d)
+    mesh = None if shd is None else shd.mesh
+    n = moe_chunks(cfg, t, 1 if mesh is None else axis_size(mesh, data_axis_names(mesh)))
+    if n == 1:
+        out, aux = _moe_dispatch(params, cfg, xt, _moe_cap(cfg, t))
+        return out.reshape(b, s, d), aux
+    cap = _moe_cap(cfg, t // n)
+    outs, auxes = zip(*(_moe_dispatch(params, cfg, c, cap) for c in xt.chunk(n)))
+    return torch.cat(outs).reshape(b, s, d), torch.stack(auxes).mean()
 
 
 # --------------------------------------------------------------------------

@@ -79,9 +79,42 @@ A global batch whose rows do not split over the data groups (``act_batch``
 unresolved, as ``long_500k``'s one row on 16 data groups) is replicated:
 every data group runs all of it, and the loss counts data group 0's once.
 
-MoE layers do not run here yet (ROADMAP queue A item 20b): ``check_supported``
-refuses them in ``loss_fn``, ``prefill``, ``decode_step`` and the builders of
-``launch/steps.py``.
+An MoE layer (``moe`` in place of ``mlp``) runs in one of three layouts,
+by its spec: expert parallel (``"experts"`` on "model": slot m holds e/M
+whole experts and the router's columns for them), the ``expert_mlp``
+fallback where the experts do not divide the model axis (``d_expert``
+split, ``w_down`` row-parallel; the router whole), or whole.  A
+column-sharded router's (T_d, e/M) logits are gathered over the model group
+in float32 (``all-gather``) before the softmax, and every model slot takes
+the same stable top-k, sort and keep mask (``layers._route``, ``_sort``,
+``_keep``).  Under EP slot m fills and runs the rows of its own experts, a
+static slice of the expert-major buffer; the group's slices joined in slot
+order on its first slot (recorded as ``all-to-all``, GSPMD's EP exchange)
+are the one-device buffer's output rows, and the combine
+(``layers._combine``) runs there unchanged, so a token's adds keep their
+order.  Under the fallback the ``w_down`` partials are summed in float32
+and rounded once (an all-reduce), as an MLP's are.  The global dispatch
+(the reference's default) keeps an assignment by its position among the
+whole batch's assignments to its expert: where a config has MoE layers, the
+data groups advance together, one layer at a time; at an MoE layer each
+group counts its assignments per expert, the counts are gathered over the
+data groups (an ``(e,)`` integer vector a slot, ``all-gather``), group d's
+offset for an expert is the sum of the groups' before it, and an assignment
+is kept where offset + its position in the group is below the global
+capacity.  A group's buffer holds min(cap, T_d) rows an expert (a token
+picks an expert once).  The aux takes the means over every token: each
+group's sums of one_hot(top-1) and of the probabilities are all-reduced
+(``reduce_sum``, so the router's gradient flows back).  Where the batch
+does not split, every group dispatches all of it: no exchange, group 0's
+aux.  The per-data-shard dispatch (``cfg.moe_sharded_dispatch``, the
+reference's ``apply_moe`` with its sharding context): each group's rows are
+one chunk with the capacity of a chunk, no count crosses groups, and the
+aux is the mean of the groups' (an all-reduce of one scalar); where the
+rows do not split, each group cuts all of them into the data groups' count
+of chunks, as ``layers.apply_moe`` does.  A decode step always takes the
+global dispatch and drops the aux, as the reference does; a prefill drops
+it too (nothing reads it).  No buffer's shape depends on the data, so an
+MoE step traces on ``meta`` slots as any other.
 """
 from __future__ import annotations
 
@@ -93,6 +126,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -295,38 +329,43 @@ class _Gathered(torch.autograd.Function):
         return g, None
 
 
+_BACKWARD_KIND = {"all-gather": "reduce-scatter", "all-to-all": "all-to-all"}
+
+
 class _AllGather(torch.autograd.Function):
     """The concatenation of ``parts`` (one a model slot, in model order)
     along ``dim`` onto each of ``devices``; backward sums the copies'
     gradients in float32, rounds once and hands each part its slice.
-    Recorded as an all-gather of a part over ``slots``; its backward as a
-    reduce-scatter of the gathered gradient."""
+    Recorded as ``kind`` (an all-gather, or the all-to-all of an EP
+    exchange) of a part over ``slots``; its backward as a reduce-scatter of
+    the gathered gradient (an all-to-all)."""
 
     @staticmethod
-    def forward(ctx, dim, slots, devices, *parts):
+    def forward(ctx, dim, slots, devices, kind, *parts):
         with torch.profiler.record_function(COLLECTIVE):
-            ctx.dim, ctx.slots, ctx.repeat = dim, slots, _REPEAT
+            ctx.dim, ctx.slots, ctx.repeat, ctx.kind = dim, slots, _REPEAT, kind
             ctx.metas = [(p.device, p.dtype, p.shape[dim]) for p in parts]
-            note("all-gather", _nbytes(parts[0]), slots)
+            note(kind, _nbytes(parts[0]), slots)
             return tuple(torch.cat([p.to(d) for p in parts], dim=dim) for d in devices)
 
     @staticmethod
     def backward(ctx, *grads):
         with torch.profiler.record_function(COLLECTIVE):
-            note("reduce-scatter", _nbytes(grads[0]), ctx.slots, ctx.repeat)
+            note(_BACKWARD_KIND[ctx.kind], _nbytes(grads[0]), ctx.slots, ctx.repeat)
             acc = None
             for g in grads:
                 g = g.to(device=ctx.metas[0][0], dtype=torch.float32)
                 acc = g if acc is None else acc + g
             pieces = acc.split([n for _, _, n in ctx.metas], dim=ctx.dim)
-            return (None, None, None) + tuple(p.to(device=d, dtype=dt)
-                                              for p, (d, dt, _) in zip(pieces, ctx.metas))
+            return (None,) * 4 + tuple(p.to(device=d, dtype=dt)
+                                       for p, (d, dt, _) in zip(pieces, ctx.metas))
 
 
-def all_gather(parts: List[torch.Tensor], dim: int, devices, slots=()) -> tuple:
+def all_gather(parts: List[torch.Tensor], dim: int, devices, slots=(),
+               kind: str = "all-gather") -> tuple:
     """``parts`` (those of ``slots``) joined along ``dim`` onto each of
-    ``devices``."""
-    return _AllGather.apply(dim, tuple(slots), tuple(devices), *parts)
+    ``devices``, recorded as ``kind``."""
+    return _AllGather.apply(dim, tuple(slots), tuple(devices), kind, *parts)
 
 
 def broadcast(x: torch.Tensor, devices, slots=()) -> tuple:
@@ -430,11 +469,8 @@ class _Placed:
 # --------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the one-device model lacks, and for MoE layers, which
-    the slot program does not run yet."""
+    """Raise for what the one-device model lacks."""
     T._check_supported(cfg)
-    if cfg.moe is not None:
-        raise unported("MoE in the slot program", "queue A item 20b")
 
 
 class _Program:
@@ -546,9 +582,31 @@ _RWKV_CHANNELS = {**{k: 1 for k in ("wr", "wk", "wv", "wg", "wo", "cm_r", "wd_b"
 _RWKV_WHOLE = rwkv_lib._MU + ("ln1", "ln2", "cm_mu_k", "cm_mu_r")   # every slot's, whole
 
 
+_MOE_LAYOUTS = {"ep": {"router": 1, "w_gate": 0, "w_up": 0, "w_down": 0},
+                "tp": {"router": None, "w_gate": 2, "w_up": 2, "w_down": 1},
+                None: {"router": None, "w_gate": None, "w_up": None, "w_down": None}}
+
+
+def _moe_layout(moe: _Placed):
+    """The MoE layer's split over "model": ``"ep"`` (e/M whole experts a
+    slot, the router by columns), ``"tp"`` (the ``expert_mlp`` fallback:
+    d_expert split, the router whole) or None (whole)."""
+    got = {k: model_dim(a) for k, a in moe.arrs.items()}
+    for layout, want in _MOE_LAYOUTS.items():
+        if got == want:
+            return layout
+    raise ValueError(f"the MoE layer's weights split over 'model' on dims {got}; the slot "
+                     f"program takes {list(_MOE_LAYOUTS.values())}")
+
+
+def _ffn_layout(lp: Dict[str, _Placed], cfg: ModelConfig):
+    """The MoE layer's layout, or whether the MLP shards d_ff."""
+    return _moe_layout(lp["moe"]) if "moe" in lp else _mlp_layout(lp["mlp"], cfg)
+
+
 def _layout(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str) -> tuple:
-    """One layer's split over "model", d_ff's last: (Q sharded, K/V
-    sharded, d_ff sharded) for attention; (rnn_d sharded, d_ff sharded) for
+    """One layer's split over "model", the MLP's (``_ffn_layout``) last: (Q
+    sharded, K/V sharded, MLP) for attention; (rnn_d sharded, MLP) for
     ``rglru``; (channels sharded, heads sharded, d_ff sharded) for
     ``rwkv``.  A leaf shards on the dim the program expects, or not at
     all."""
@@ -564,13 +622,13 @@ def _layout(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str) -> tuple:
         dims = {"w_in": 1, "w_gate": 1, "conv": 1, "w_out": 0,
                 **{k: 0 for k in ("lam", "w_i", "b_i", "w_a", "b_a")}}
         return (_together(lp["rglru"].arrs, dims, "the RG-LRU's rnn_d leaves"),
-                _mlp_layout(lp["mlp"], cfg))
+                _ffn_layout(lp, cfg))
     attn = lp["attn"]
     q_sh = _check_model_dim(attn.arrs["wq"], "wq", 1)
     kv_sh = _check_model_dim(attn.arrs["wk"], "wk", 1)
     if _check_model_dim(attn.arrs["wo"], "wo", 0) != q_sh or (kv_sh and not q_sh):
         raise ValueError("wq and wo shard their heads together, and K/V only with them")
-    return q_sh, kv_sh, _mlp_layout(lp["mlp"], cfg)
+    return q_sh, kv_sh, _ffn_layout(lp, cfg)
 
 
 def _attn_block(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x,
@@ -595,6 +653,163 @@ def _mlp_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int,
         hn = L.apply_norm(lp["norm2"].slot(s), cfg, xs)
         outs.append(L.apply_mlp(lp["mlp"].slot(s), cfg, hn))
     return x + (reduce_sum(outs, devs[0], slots=slots) if f_sh else outs[0])
+
+
+# --------------------------------------------------------------------------
+# the MoE sublayer
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _MoEPlan:
+    """How a step dispatches its ``tokens`` (B·S of the global batch):
+    ``cap`` an expert's capacity in a buffer; ``chunks`` the buffers a data
+    group's tokens are cut into; ``exchange`` whether positions count over
+    the data groups (the count exchange); ``aux`` ``"global"`` (the means
+    over every token), ``"mean"`` (the mean of the buffers' aux values) or
+    None (not computed)."""
+    cap: int
+    chunks: int
+    exchange: bool
+    aux: Optional[str]
+    tokens: int
+
+
+def _moe_plan(prog: "_Program", cfg: ModelConfig, tokens: int, split: bool, *, seq: bool,
+              aux: bool) -> Optional[_MoEPlan]:
+    """The dispatch of a step over ``tokens`` whose rows ``split`` over the
+    data groups (else every group runs them all): a sequence step (``seq``)
+    takes the per-data-shard dispatch where ``layers.moe_chunks`` says the
+    reference does; a decode step never does."""
+    if cfg.moe is None:
+        return None
+    n = L.moe_chunks(cfg, tokens, prog.groups.n_data) if seq else 1
+    if n > 1:
+        return _MoEPlan(L._moe_cap(cfg, tokens // n), 1 if split else n, False,
+                        "mean" if aux else None, tokens)
+    return _MoEPlan(L._moe_cap(cfg, tokens), 1, split, "global" if aux else None, tokens)
+
+
+def _moe_probs(pl: _Placed, cfg: ModelConfig, groups: Groups, d: int, hns: list, ep: bool):
+    """Each model slot's router probabilities (T_d, e), float32, of data
+    group d's tokens ``hns`` (one copy a slot): the column blocks' logits
+    gathered over the model group where the router shards."""
+    slots, devs = groups.slots[d], groups.devices[d]
+    if not ep:
+        return [L._router_probs({"router": pl.local("router", s)}, h) for s, h in zip(slots, hns)]
+    parts = [(h @ pl.local("router", s)).float() for s, h in zip(slots, hns)]
+    return [torch.softmax(lg, dim=-1) for lg in all_gather(parts, -1, devs, slots)]
+
+
+def _moe_rows(pl: _Placed, cfg: ModelConfig, groups: Groups, d: int, layout, hns, sorts, keeps,
+              rows: int):
+    """The experts' output rows (e·rows, d) of one buffer of data group d on
+    its first slot: under EP each slot fills and runs its experts' slice of
+    the expert-major buffer and the slices are joined in slot order; under
+    the fallback the ``w_down`` partials are summed in float32; whole, slot
+    0's."""
+    k_top = cfg.moe.top_k
+    slots, devs = groups.slots[d], groups.devices[d]
+    dm = hns[0].shape[-1]
+    outs = []
+    for m, (s, h, (order, _, _), (_, slot)) in enumerate(zip(slots, hns, sorts, keeps)):
+        p = {k: pl.local(k, s) for k in ("w_gate", "w_up", "w_down")}
+        n_e = p["w_gate"].shape[0]
+        if layout == "ep":
+            lo = m * n_e * rows
+            slot = torch.where((slot >= lo) & (slot < lo + n_e * rows), slot - lo, n_e * rows)
+        buf = L._buffer(h, order, k_top, slot, n_e * rows).reshape(n_e, rows, dm)
+        outs.append(L._experts(p, buf).reshape(n_e * rows, dm))
+    if layout == "ep":
+        return all_gather(outs, 0, (devs[0],), slots, kind="all-to-all")[0]
+    if layout == "tp":
+        return reduce_sum(outs, devs[0], slots=slots)
+    return outs[0]
+
+
+def _moe_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, ds, xs, layout,
+               plan: _MoEPlan):
+    """x + the MoE sublayer for each data group of ``ds`` (``xs`` their
+    residual streams), the groups in lockstep as the count exchange needs.
+    Returns (the new streams, the aux on group 0's first slot or None)."""
+    pl = lp["moe"]
+    e = cfg.moe.n_experts
+    every = [s for row in groups.slots for s in row]
+    routed = []                     # per group: the slots' tokens, probs, (gates, ids)
+    for d, x in zip(ds, xs):
+        slots, devs = groups.slots[d], groups.devices[d]
+        hns = [L.apply_norm(lp["norm2"].slot(s), cfg, xb).reshape(-1, x.shape[-1])
+               for s, xb in zip(slots, broadcast(x, devs, slots))]
+        probs = _moe_probs(pl, cfg, groups, d, hns, layout == "ep")
+        routed.append((hns, probs, [L._route(cfg, p) for p in probs]))
+
+    # Each buffer's assignments sorted by expert on each slot; a group's
+    # offsets from the counts of the groups before it.
+    n_tok = routed[0][0][0].shape[0]
+    tc = n_tok // plan.chunks
+    cuts = [slice(c * tc, (c + 1) * tc) for c in range(plan.chunks)]
+    sorts = [[[L._sort(cfg, eidx[cut]) for _, eidx in routes] for cut in cuts]
+             for _, _, routes in routed]
+    offsets = [None] * len(ds)
+    if plan.exchange:
+        with torch.profiler.record_function(COLLECTIVE):
+            starts = [g[0][0][2] for g in sorts]      # each group's first slot's
+            counts = [torch.diff(st, append=st.new_full((1,), tc * cfg.moe.top_k))
+                      for st in starts]
+            note("all-gather", _nbytes(counts[0]), every)
+            dev0 = lambda j: groups.devices[ds[j]][0]
+            offsets = [None] + [torch.stack([c.to(dev0(j)) for c in counts[:j]]).sum(0)
+                                for j in range(1, len(ds))]
+    rows = min(plan.cap, tc)
+    outs, auxes = [], []
+    for j, (d, x) in enumerate(zip(ds, xs)):
+        hns, probs, routes = routed[j]
+        parts = []
+        for c, cut in enumerate(cuts):
+            srt = sorts[j][c]
+            keeps = [L._keep(cfg, se, starts, plan.cap, rows,
+                             None if offsets[j] is None else offsets[j].to(se.device))
+                     for _, se, starts in srt]
+            of = _moe_rows(pl, cfg, groups, d, layout, [h[cut] for h in hns], srt, keeps, rows)
+            gates = routes[0][0][cut]
+            parts.append(L._combine(of, keeps[0][0], keeps[0][1], gates, srt[0][0],
+                                    cfg.moe.top_k))
+            if plan.aux == "mean":
+                top1 = routes[0][1][cut, 0]
+                auxes.append(L._aux(cfg, F.one_hot(top1, e).float().mean(0),
+                                    probs[0][cut].mean(0)))
+        outs.append(x + torch.cat(parts).reshape(x.shape))
+        if plan.aux == "global":
+            auxes.append(torch.stack([F.one_hot(routes[0][1][:, 0], e)
+                                      .float().sum(0), probs[0].sum(0)]))
+    if plan.aux is None:
+        return tuple(outs), None
+    dev = groups.devices[ds[0]][0]
+    if plan.aux == "global":
+        if plan.exchange:
+            sums, n = reduce_sum(auxes, dev, slots=every), plan.tokens
+        else:
+            sums, n = auxes[0], n_tok
+        return tuple(outs), L._aux(cfg, sums[0] / n, sums[1] / n)
+    if plan.chunks > 1:             # the rows do not split: group 0's chunks
+        return tuple(outs), torch.stack(auxes[:plan.chunks]).mean()
+    return tuple(outs), reduce_sum(auxes, dev, slots=every) / groups.n_data
+
+
+def _ffn(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, ds, xs, layout,
+         moe: Optional[_MoEPlan]):
+    """x + the MLP (or the MoE sublayer) for each data group of ``ds``:
+    (the new streams, the MoE aux or None)."""
+    if "moe" in lp:
+        return _moe_block(lp, cfg, groups, ds, xs, layout, moe)
+    return tuple(_mlp_block(lp, cfg, groups, d, x, layout) for d, x in zip(ds, xs)), None
+
+
+def _lockstep(groups: Groups, cfg: ModelConfig) -> list:
+    """The lists of data groups whose programs advance together, one layer
+    at a time: all of them where MoE layers exchange between the groups,
+    else each alone."""
+    ds = list(_data_groups(groups))
+    return [ds] if cfg.moe is not None else [[d] for d in ds]
 
 
 def _join(parts: list, sharded: bool, device, slots):
@@ -692,17 +907,18 @@ def _rwkv_block(pl: _Placed, cfg: ModelConfig, groups: Groups, d: int, x, layout
                  for w, xn, x2n in zip(wkvs, xns, x2ns)]
 
 
-def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x):
-    """One decoder layer for data group d (x -> x + mixer, then + mlp; an
-    ``rwkv`` layer holds both)."""
+def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, ds,
+           moe: Optional[_MoEPlan], *xs):
+    """One decoder layer for the data groups ``ds`` (x -> x + mixer, then +
+    mlp; an ``rwkv`` layer holds both): (the new streams, the MoE aux or
+    None)."""
     layout = _layout(lp, cfg, kind)
     if kind == "rwkv":
-        return _rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)[0]
-    if kind == "rglru":
-        x, _ = _rglru_block(lp, cfg, groups, d, x, layout)
-    else:
-        x, _ = _attn_block(lp, cfg, kind, groups, d, x, layout)
-    return _mlp_block(lp, cfg, groups, d, x, layout[-1])
+        return tuple(_rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)[0]
+                     for d, x in zip(ds, xs)), None
+    mixed = [(_rglru_block(lp, cfg, groups, d, x, layout) if kind == "rglru" else
+              _attn_block(lp, cfg, kind, groups, d, x, layout))[0] for d, x in zip(ds, xs)]
+    return _ffn(lp, cfg, groups, ds, mixed, layout[-1], moe)
 
 
 def _final_hidden(prog: _Program, cfg: ModelConfig, d: int, x) -> list:
@@ -752,9 +968,11 @@ def loss_fn(params, cfg: ModelConfig, batch):
     "moe_aux"}) on slot 0's device.  ``batch`` holds global tensors
     (``tokens``, ``labels``, optional ``loss_mask``) whose rows split over
     the data groups where ``act_batch`` resolves (else each group runs them
-    all and group 0's count).  Each scanned layer of a data group runs under a
-    checkpoint when ``cfg.remat`` is set and gradients are on, as the
-    one-device forward does in training.  An unsharded vocabulary's logits are
+    all and group 0's count).  Each scanned layer of a data group (of all of
+    them in lockstep where MoE layers exchange between the groups) runs under
+    a checkpoint when ``cfg.remat`` is set and gradients are on, as the
+    one-device forward does in training; ``moe_aux`` is the MoE layers' aux
+    summed in float32.  An unsharded vocabulary's logits are
     computed on the group's slot 0 alone (no other copy would reach the
     loss)."""
     if batch.get("frames") is not None or batch.get("patches") is not None:
@@ -769,26 +987,31 @@ def loss_fn(params, cfg: ModelConfig, batch):
     cuts = prog.rows(cfg, tokens.shape[0])
     n_scanned = plan.n_groups * len(plan.pattern)
     use_remat = cfg.remat and torch.is_grad_enabled()
+    moe = _moe_plan(prog, cfg, tokens.numel(), cuts[0] != cuts[-1], seq=True, aux=True)
+    dev = groups.devices[0][0]
 
     tots, cnts = [], []
-    for d in _data_groups(groups):
-        dev0 = groups.devices[d][0]
-        cut = cuts[d]
-        x = _embed(prog.emb_c, cfg, tokens[cut], groups, d)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for ds in _lockstep(groups, cfg):
+        xs = tuple(_embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d) for d in ds)
         for i, kind in enumerate(plan.kinds):
-            fn = _scoped(i, plan, functools.partial(_layer, prog.layers[i], cfg, kind, groups, d))
-            x = T._remat(cfg, fn)(x) if (use_remat and i < n_scanned) else fn(x)
-        hs = _final_hidden(prog, cfg, d, x)
-        tot, cnt = L.chunked_nll(_nll_fn(prog.emb_m, cfg, groups, d), hs, labels[cut].to(dev0),
-                                 mask[cut].to(dev0), cfg.xent_chunk)
-        tots.append(tot)
-        cnts.append(cnt)
-    dev = groups.devices[0][0]
+            fn = _scoped(i, plan, functools.partial(_layer, prog.layers[i], cfg, kind, groups, ds,
+                                                    moe))
+            xs, aux_i = T._remat(cfg, fn)(*xs) if (use_remat and i < n_scanned) else fn(*xs)
+            if aux_i is not None:
+                aux = aux + aux_i
+        for d, x in zip(ds, xs):
+            dev0 = groups.devices[d][0]
+            hs = _final_hidden(prog, cfg, d, x)
+            tot, cnt = L.chunked_nll(_nll_fn(prog.emb_m, cfg, groups, d), hs,
+                                     labels[cuts[d]].to(dev0), mask[cuts[d]].to(dev0),
+                                     cfg.xent_chunk)
+            tots.append(tot)
+            cnts.append(cnt)
     note("all-reduce", 2 * _nbytes(tots[0]), range(len(prog.mesh.slot_devices)))
     if cuts[0] == cuts[-1]:         # every data group ran every row: count them once
         tots, cnts = tots[:1], cnts[:1]
     xent = sum(t.to(dev) for t in tots) / torch.clamp(sum(c.to(dev) for c in cnts), min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return xent + 0.01 * aux, {"xent": xent, "moe_aux": aux}
 
 
@@ -877,37 +1100,41 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
     blocks = [{g: {n: [None] * n_slots for n in leaves} for g, leaves in st.items()}
               for st in shapes]
     hidden = [None] * n_slots
+    moe = _moe_plan(prog, cfg, b * tokens.shape[1], cuts[0] != cuts[-1], seq=True, aux=False)
 
-    for d in _data_groups(groups):
-        slots = groups.slots[d]
+    def write(i, group, d, per_slot):
+        for n, arr in shard[i][group].items():
+            for s, v in zip(groups.slots[d], per_slot):
+                blocks[i][group][n][s] = _block_of(v[n], arr, s, shapes[i][group][n].shape)
 
-        def write(i, group, per_slot):
-            for n, arr in shard[i][group].items():
-                for s, v in zip(slots, per_slot):
-                    blocks[i][group][n][s] = _block_of(v[n], arr, s, shapes[i][group][n].shape)
-
-        def layer(i, kind, x):
-            lp = prog.layers[i]
-            layout = _layout(lp, cfg, kind)
-            _check_state(shard[i], layout, kind)
+    def layer(i, kind, ds, *xs):
+        lp = prog.layers[i]
+        layout = _layout(lp, cfg, kind)
+        _check_state(shard[i], layout, kind)
+        mixed = []
+        for d, x in zip(ds, xs):
             if kind == "rwkv":
                 x, states = _rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)
-                write(i, "rnn", states)
-                return x
-            if kind == "rglru":
+                write(i, "rnn", d, states)
+            elif kind == "rglru":
                 x, states = _rglru_block(lp, cfg, groups, d, x, layout)
-                write(i, "rnn", states)
+                write(i, "rnn", d, states)
             else:
                 x, kvs = _attn_block(lp, cfg, kind, groups, d, x, layout)
-                write(i, "kv", [{n: T.cache_layout(kv[j], cfg, kind, cache_len)
-                                 for j, n in enumerate(("k", "v"))} for kv in kvs])
-            return _mlp_block(lp, cfg, groups, d, x, layout[-1])
+                write(i, "kv", d, [{n: T.cache_layout(kv[j], cfg, kind, cache_len)
+                                    for j, n in enumerate(("k", "v"))} for kv in kvs])
+            mixed.append(x)
+        if kind == "rwkv":
+            return tuple(mixed)
+        return _ffn(lp, cfg, groups, ds, mixed, layout[-1], moe)[0]
 
-        x = _embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d)
+    for ds in _lockstep(groups, cfg):
+        xs = tuple(_embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d) for d in ds)
         for i, kind in enumerate(plan.kinds):
-            x = _scoped(i, plan, functools.partial(layer, i, kind))(x)
-        for s, h in zip(slots, _final_hidden(prog, cfg, d, x)):
-            hidden[s] = h[:, -1]
+            xs = _scoped(i, plan, functools.partial(layer, i, kind, ds))(*xs)
+        for d, x in zip(ds, xs):
+            for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x)):
+                hidden[s] = h[:, -1]
     cache = [{g: {n: SlotArray(shard[i][g][n], tuple(shapes[i][g][n].shape),
                                _fill_groups(groups, bl)) for n, bl in leaves.items()}
               for g, leaves in blocks[i].items()}
@@ -968,26 +1195,34 @@ def _write_state(st: dict, states: list, slots) -> None:
             arr.blocks[s].copy_(_block_of(v[n], arr.sharding, s, arr.shape))
 
 
-def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int,
-                  st: dict, pos: int, x1):
-    """One decoder layer of a decode step for data group d over the
-    layer's placed decode state ``st``, updated in place: a recurrent
-    layer's state blocks rewritten; an attention layer's new K/V written on
-    the slot that holds position ``pos``.  x1 (r, 1, D) -> x1 + mixer, then
-    + mlp (an ``rwkv`` layer holds both)."""
+def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, ds,
+                  st: dict, pos: int, moe: Optional[_MoEPlan], *xs):
+    """One decoder layer of a decode step for the data groups ``ds`` over
+    the layer's placed decode state ``st``, updated in place: x1 (r, 1, D)
+    -> x1 + mixer (``_decode_mixer``), then + mlp (an ``rwkv`` layer holds
+    both)."""
     layout = _layout(lp, cfg, kind)
     _check_state({g: {n: a.sharding for n, a in leaves.items()} for g, leaves in st.items()},
                  layout, kind)
-    slots = groups.slots[d]
+    xs = [_decode_mixer(lp, cfg, kind, groups, d, st, pos, x1, layout) for d, x1 in zip(ds, xs)]
     if kind == "rwkv":
-        x1, states = _rwkv_block(lp["rwkv"], cfg, groups, d, x1, layout, st["rnn"])
+        return tuple(xs)
+    return _ffn(lp, cfg, groups, ds, xs, layout[-1], moe)[0]
+
+
+def _decode_mixer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int,
+                  st: dict, pos: int, x1, layout):
+    """Data group d's mixer of a decode step: a recurrent layer's state
+    blocks rewritten (an ``rwkv`` layer's channel mix too); an attention
+    layer's new K/V written on the slot that holds position ``pos``."""
+    slots = groups.slots[d]
+    if kind in ("rwkv", "rglru"):
+        block = _rwkv_block if kind == "rwkv" else _rglru_block
+        x1, states = block(lp["rwkv"] if kind == "rwkv" else lp, cfg, groups, d, x1, layout,
+                           st["rnn"])
         _write_state(st["rnn"], states, slots)
         return x1
-    if kind == "rglru":
-        x1, states = _rglru_block(lp, cfg, groups, d, x1, layout, st["rnn"])
-        _write_state(st["rnn"], states, slots)
-        return _mlp_block(lp, cfg, groups, d, x1, layout[-1])
-    q_sh, kv_sh, f_sh = layout
+    q_sh, kv_sh, _ = layout
     ck, cv = st["kv"]["k"], st["kv"]["v"]
     cdim = model_dim(ck.sharding)
     devs = groups.devices[d]
@@ -1031,7 +1266,7 @@ def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: G
             out = L._gqa_attend(lcfg, qs[m], k, v, mask)
             outs.append(torch.einsum("bshk,hkd->bsd", out, wo[m]))
         x1 = x1 + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0])
-    return _mlp_block(lp, cfg, groups, d, x1, f_sh)
+    return x1
 
 
 @torch.no_grad()
@@ -1050,12 +1285,14 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     b = tokens.shape[0]
     cuts = prog.rows(cfg, b)
     hidden = [None] * len(prog.mesh.slot_devices)
-    for d in _data_groups(groups):
-        x1 = _embed(prog.emb_c, cfg, tokens[cuts[d], None], groups, d)
+    moe = _moe_plan(prog, cfg, b, cuts[0] != cuts[-1], seq=False, aux=False)
+    for ds in _lockstep(groups, cfg):
+        xs = tuple(_embed(prog.emb_c, cfg, tokens[cuts[d], None], groups, d) for d in ds)
         for i, kind in enumerate(plan.kinds):
-            fn = functools.partial(_decode_layer, prog.layers[i], cfg, kind, groups, d,
-                                   cache[i], pos)
-            x1 = _scoped(i, plan, fn)(x1)
-        for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x1)):
-            hidden[s] = h[:, 0]
+            fn = functools.partial(_decode_layer, prog.layers[i], cfg, kind, groups, ds,
+                                   cache[i], pos, moe)
+            xs = _scoped(i, plan, fn)(*xs)
+        for d, x1 in zip(ds, xs):
+            for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x1)):
+                hidden[s] = h[:, 0]
     return _logits(prog, cfg, b, _fill_groups(groups, hidden)), cache

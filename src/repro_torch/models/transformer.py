@@ -489,13 +489,13 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg: ModelConfig, fn):
-    """``fn(x)`` under a per-layer checkpoint, with ``cfg.remat_policy``;
+    """``fn(*xs)`` under a per-layer checkpoint, with ``cfg.remat_policy``;
     ``fn`` may return a tuple (a layer's x and its aux)."""
     kwargs = {}
     if cfg.remat_policy == "dots":
         kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _save_dots)
-    return lambda x: checkpoint(fn, x, use_reentrant=False, **kwargs)
+    return lambda *xs: checkpoint(fn, *xs, use_reentrant=False, **kwargs)
 
 
 def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frames=None,
@@ -511,7 +511,7 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     attention layers ignore their entry, as the reference's do.  In training
     (``_training``) with ``cfg.remat``, each layer of the scanned groups is
     checkpointed, its aux returned beside x so that it stays differentiable.
-    ``shd`` reaches the MoE layers (the per-data-shard dispatch raises).
+    ``shd`` reaches the MoE layers (their per-data-shard dispatch).
     ``frames`` and ``patches`` (encoder and VLM inputs) raise."""
     if frames is not None or patches is not None:
         raise unported("forward_seq(frames= / patches=)", "queue A item 21")

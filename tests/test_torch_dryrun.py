@@ -16,9 +16,10 @@ peaks.
 
 The dry run traces on ``meta`` slots: the reference's cell
 (``olmo_1b`` × ``decode_32k`` on 512 slots) succeeds with the per-slot
-argument and output bytes counted by hand; an unported preset is a failed
-cell naming its queue item; the collectives of a smoke config on (1, 2)
-equal a hand count; and the trace's two shortcuts — a deep model extended
+argument and output bytes counted by hand, and the reference's MoE cell
+(``granite_moe_1b_a400m`` × ``decode_32k``) too; an unported preset is a
+failed cell naming its queue item; the collectives of smoke configs (dense,
+recurrent, MoE) equal a hand count; and the trace's two shortcuts — a deep model extended
 from two depths, data group 0's programs alone — give the record and the
 output bytes of the full trace exactly."""
 import dataclasses
@@ -134,7 +135,8 @@ def _shape_dtype(tree, jax_side=False):
                         is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
-@pytest.mark.parametrize("arch", DENSE + ("rwkv6_3b", "recurrentgemma_9b"))
+@pytest.mark.parametrize("arch", DENSE + ("rwkv6_3b", "recurrentgemma_9b", "granite_moe_1b_a400m",
+                                  "qwen3_moe_235b_a22b"))
 def test_build_specs_match_jax(arch):
     """The in-specs of the three ``build_*`` functions, shape and dtype, leaf
     for leaf."""
@@ -221,8 +223,19 @@ def test_dryrun_reference_cell_on_512_meta_slots():
 
 
 def test_dryrun_records_an_unported_preset():
-    rec = dryrun.run_cell("granite_moe_1b_a400m", "train_4k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 20b" in rec["error"]
+    rec = dryrun.run_cell("whisper_large_v3", "train_4k", multi_pod=False, verbose=False)
+    assert not rec["ok"] and "queue A item 21" in rec["error"]
+
+
+def test_dryrun_single_cell_end_to_end():
+    """The reference's own miniature of the deliverable
+    (``tests/test_distributed.py::test_dryrun_single_cell_end_to_end``): an
+    MoE cell on the 512-slot multi-pod mesh."""
+    rec = dryrun.run_cell("granite_moe_1b_a400m", "decode_32k", multi_pod=True, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["chips"] == 512
+    assert rec["collective_bytes_weighted"]["total"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
 
 
 def _long_500k_arg_bytes(cfg):
@@ -285,6 +298,52 @@ def test_collectives_hand_count(kind):
     assert rec["collective_counts"] == want
     assert rec["collective_bytes"] == rec["collective_bytes_weighted"] == \
         {**{k: v * act for k, v in want.items()}, "total": 2 * n * act}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "loss"])
+def test_moe_collectives_hand_count(kind):
+    """granite's smoke config (3 layers, 4 experts top-2, 2 KV heads) on 2 ×
+    2, four rows: 2 experts a slot (EP), attention and vocab sharded.  Per
+    slot, beside the dense layer's collectives (the embedding's and each
+    ``wo``'s all-reduce, the residual's broadcast before each sublayer and
+    the final norm): per MoE layer the router's column logits gathered over
+    the model group (float32, T_d · e/2 · 4 bytes), the count exchange over
+    the data groups (an (e,) int64 vector) and the experts' rows joined as
+    an all-to-all ((e/2) · min(cap, T_d) rows of d).  The loss (a forward
+    without gradients) adds each MoE layer's aux sums, a (2, e) float32
+    all-reduce over the data groups, the vocab-parallel cross-entropy's
+    three all-reduces of (rows, S) float32 and the loss's 8 bytes."""
+    cfg = C.get_smoke_config("granite_moe_1b_a400m")
+    b, s = 4, (1 if kind == "decode" else 8)
+    mesh = make_host_mesh(2, slots=4, device="cpu")
+    n, e, d, L = 4, cfg.moe.n_experts, cfg.d_model, cfg.n_layers
+    t_d = b // 2 * s
+    rows = min(-(-int(np.ceil(b * s * 2 / e * 1.25)) // 8) * 8, t_d) if kind != "decode" else \
+        min(8, t_d)
+    if kind == "loss":
+        model = T.init_params(0, cfg, device="cpu")
+        _, _, (st_sh, _) = steps.build_train(cfg, C.ShapeConfig("t", "train", s, b), mesh)
+        params = steps.place(model.tree(), st_sh["params"])
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(0))
+        with spmd.record_collectives(n) as r, torch.no_grad():
+            spmd.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
+        rec = {"collective_counts": hlo_analysis.collective_counts(r),
+               "collective_bytes": hlo_analysis.collective_bytes(r)}
+    else:
+        rec = dryrun.record_cell("granite_moe_1b_a400m", C.ShapeConfig(kind, kind, s, b), mesh,
+                                 cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+    act = t_d * d * 4
+    want = {"all-gather": 2 * L, "all-reduce": 1 + L, "reduce-scatter": 0, "all-to-all": L,
+            "collective-permute": 0, "broadcast": 2 * L + 1}
+    nbytes = {"all-gather": L * (t_d * e // 2 * 4 + e * 8), "all-reduce": (1 + L) * act,
+              "reduce-scatter": 0, "all-to-all": L * e // 2 * rows * d * 4,
+              "collective-permute": 0, "broadcast": (2 * L + 1) * act}
+    if kind == "loss":
+        want["all-reduce"] += L + 3 + 1
+        nbytes["all-reduce"] += L * 2 * e * 4 + 3 * t_d * 4 + 8
+    assert rec["collective_counts"] == want
+    assert rec["collective_bytes"] == {**nbytes, "total": sum(nbytes.values())}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])

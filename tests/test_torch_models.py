@@ -37,6 +37,7 @@ from repro_torch import configs as C
 from repro_torch import sharding
 from repro_torch.launch import make_host_mesh, make_serving_mesh
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps
 from repro_torch.models import layers as L
 from repro_torch.models import spmd
 from repro_torch.models import transformer as T
@@ -505,12 +506,14 @@ def test_sharding_ctx_keeps_values():
 
 
 UNPORTED = {
-    "spmd loss_fn": lambda: spmd.loss_fn(None, C.get_smoke_config("granite_moe_1b_a400m"),
-                                         {"tokens": np.zeros((1, 4), np.int32)}),
-    "spmd prefill": lambda: spmd.prefill(None, C.get_smoke_config("granite_moe_1b_a400m"),
-                                         np.zeros((1, 4), np.int32), 8),
-    "spmd decode_step": lambda: spmd.decode_step(
-        None, C.get_smoke_config("qwen3_moe_235b_a22b"), np.zeros(1, np.int32), None, 0),
+    "spmd loss_fn frames": lambda: spmd.loss_fn(
+        None, C.get_smoke_config("olmo_1b"), {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
+    "spmd prefill encoder": lambda: spmd.prefill(
+        None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_encoder_layers=2),
+        np.zeros((1, 4), np.int32), 8),
+    "spmd decode_step vlm": lambda: spmd.decode_step(
+        None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
+        np.zeros(1, np.int32), None, 0),
     "encoder": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), n_encoder_layers=2), device="cpu"),
     "vlm": lambda: T.init_params(0, dataclasses.replace(
@@ -519,11 +522,9 @@ UNPORTED = {
                                  C.get_smoke_config("olmo_1b"),
                                  {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
     "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
-    "sharded apply_moe": lambda: L.apply_moe(
-        {}, dataclasses.replace(C.get_smoke_config("granite_moe_1b_a400m"),
-                                moe_sharded_dispatch=True),
-        torch.zeros(2, 2, 96), sharding.ShardingCtx.for_mesh(make_host_mesh(1, slots=2,
-                                                                            device="cpu"))),
+    "build_prefill vlm": lambda: steps.build_prefill(
+        dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
+        C.SHAPES["prefill_32k"], make_host_mesh(2, slots=4, device="cpu")),
     "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
                                          encoder_out=1),
 }
@@ -531,10 +532,9 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 20b
-    (MoE in the slot program and the per-data-shard dispatch), 21
-    (encoder), 21b (VLM)."""
-    with pytest.raises(NotImplementedError, match="queue A item (20b|21|21b)"):
+    """Every refusal names the queue A item that brings the feature: 21
+    (encoder), 21b (VLM), in the one-device model and the slot program."""
+    with pytest.raises(NotImplementedError, match="queue A item (21|21b)"):
         UNPORTED[what]()
 
 

@@ -42,7 +42,6 @@ from repro import optim as JO
 from repro_torch import configs as C
 from repro_torch import optim as O
 from repro_torch.data import TokenPipeline
-from repro_torch.launch import dryrun
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import knn_lm as K
@@ -442,7 +441,7 @@ def test_decode_step_retrieval_matches_jax():
 
 
 # --------------------------------------------------------------------------
-# presets, refusals
+# presets, the slot program's entry points, the dispatch's choice
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -477,50 +476,73 @@ def _placed_smoke():
     return cfg, mesh
 
 
-REFUSALS = {
-    "spmd.loss_fn": lambda cfg, mesh: spmd.loss_fn(
-        None, cfg, {"tokens": np.zeros((2, 4), np.int32), "labels": np.zeros((2, 4), np.int32)}),
-    "spmd.prefill": lambda cfg, mesh: spmd.prefill(None, cfg, np.zeros((2, 4), np.int32), 8),
-    "spmd.decode_step": lambda cfg, mesh: spmd.decode_step(None, cfg, np.zeros(2, np.int32),
-                                                           None, 0),
-    "build_train": lambda cfg, mesh: S.build_train(cfg, C.SHAPES["train_4k"], mesh),
-    "build_prefill": lambda cfg, mesh: S.build_prefill(cfg, C.SHAPES["prefill_32k"], mesh),
-    "build_decode": lambda cfg, mesh: S.build_decode(cfg, C.SHAPES["decode_32k"], mesh),
-}
+ENTRY_POINTS = ("spmd.loss_fn", "spmd.prefill", "spmd.decode_step", "build_train",
+                "build_prefill", "build_decode")
 
 
-@pytest.mark.parametrize("what", list(REFUSALS))
-def test_slot_program_refuses_moe(what):
+@pytest.mark.parametrize("what", ENTRY_POINTS)
+def test_slot_program_runs_moe(what):
+    """Each entry point of the slot program runs granite's smoke model on 2 ×
+    2 CPU slots (2 experts a slot): the shapes its callers expect, finite
+    values, ``moe_aux`` above 0 where a loss is taken.  The values are held
+    to the JAX package in ``tests/test_torch_moe_sharded.py``."""
     cfg, mesh = _placed_smoke()
-    with pytest.raises(NotImplementedError, match="queue A item 20b"):
-        REFUSALS[what](cfg, mesh)
-
-
-def test_sharded_dispatch_refuses_where_the_reference_splits():
-    """``moe_sharded_dispatch`` on a mesh of 2 data slots raises where the
-    token count splits over them, through ``apply_moe`` and through
-    ``forward_seq``'s ``shd``; an odd token count, one data slot, or the
-    option off take the global dispatch, as the reference does."""
-    cfg = dataclasses.replace(C.get_smoke_config("granite_moe_1b_a400m"),
-                              moe_sharded_dispatch=True)
-    p = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, device="cpu")
-    two = ShardingCtx.for_mesh(make_host_mesh(1, slots=2, device="cpu"))
-    x = torch.randn(2, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="queue A item 20b"):
-        L.apply_moe(p, cfg, x, two)
+    b, s = 2, 8
     model = T.init_params(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 20b"):
-        T.forward_seq(model, cfg, np.zeros((2, 4), np.int32), two)
-    want = L.apply_moe(p, cfg, x[:1])[0]
-    for shd, xi in ((two, x[:1]), (ShardingCtx.for_mesh(make_host_mesh(1, slots=1,
-                                                                        device="cpu")), x[:1]),
-                    (None, x[:1])):
-        torch.testing.assert_close(L.apply_moe(p, cfg, xi, shd)[0], want, rtol=0, atol=0)
-    off = dataclasses.replace(cfg, moe_sharded_dispatch=False)
-    L.apply_moe(p, off, x, two)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s + 1)))
+    opt = O.OptConfig(total_steps=2, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+    step, _, (st_sh, _) = S.build_train(cfg, C.ShapeConfig("t", "train", s, b), mesh, opt)
+    params = S.place(model.tree(), st_sh["params"])
+    if what in ("spmd.loss_fn", "build_train"):
+        batch = {"tokens": toks[:, :s], "labels": toks[:, 1:]}
+        if what == "spmd.loss_fn":
+            loss, m = spmd.loss_fn(params, cfg, batch)
+            vals = [loss, m["xent"]]
+        else:
+            state, m = step(S.init_placed_state(model.tree(), opt, st_sh), batch)
+            loss = m["loss"]
+            vals = [loss, m["grad_norm"]] + [a.gather() for a in tree_leaves(state["params"])]
+        assert loss.shape == () and float(m["moe_aux"]) > 0
+    else:
+        fn, _, (p_sh, b_sh) = S.build_prefill(cfg, C.ShapeConfig("p", "prefill", s + 1, b), mesh)
+        if what == "build_prefill":
+            logits, cache = fn(params, S.place({"tokens": toks[:, :s]}, b_sh))
+        else:
+            logits, cache = spmd.prefill(params, cfg, toks[:, :s], s + 1)
+        if what.endswith("decode_step"):
+            logits, cache = spmd.decode_step(params, cfg, toks[:, s], cache, s)
+        elif what == "build_decode":
+            dec, _, (_, tok_sh, c_sh, pos_sh) = S.build_decode(
+                cfg, C.ShapeConfig("d", "decode", s + 1, b), mesh)
+            placed = S.place(T.init_cache(cfg, b, s + 1, device="cpu"), c_sh)
+            logits, cache = dec(params, tok_sh.place(toks[:, s]), placed,
+                                pos_sh.place(torch.tensor(s, dtype=torch.int32)))
+        assert logits.shape == (b, cfg.vocab_size) and len(cache) == cfg.n_layers
+        vals = [logits.gather()] + [a.gather() for a in tree_leaves(cache)]
+    assert all(bool(torch.isfinite(v).all()) for v in vals)
 
 
-def test_dryrun_records_item_20b():
-    """A granite cell's record: the preset loads, the builder refuses."""
-    rec = dryrun.run_cell("granite_moe_1b_a400m", "decode_32k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 20b" in rec["error"]
+GLOBAL_PATHS = {"odd_tokens": (2, True, (1, 3)), "one_data_slot": (1, True, (2, 3)),
+                "option_off": (2, False, (2, 3))}
+
+
+@pytest.mark.parametrize("case", list(GLOBAL_PATHS))
+def test_sharded_dispatch_takes_the_global_path_where_the_reference_does(case):
+    """``moe_sharded_dispatch`` cuts the tokens into one buffer a data slot
+    only where the reference's ``apply_moe`` does: an odd token count on 2
+    data slots, one data slot, or the option off take the global dispatch,
+    bit for bit the layer without a mesh (through ``apply_moe`` and
+    ``forward_seq``'s ``shd``)."""
+    n_data, on, shape = GLOBAL_PATHS[case]
+    cfg = dataclasses.replace(C.get_smoke_config("granite_moe_1b_a400m"), moe_sharded_dispatch=on)
+    shd = ShardingCtx.for_mesh(make_host_mesh(1, slots=n_data, device="cpu"))
+    assert L.moe_chunks(cfg, shape[0] * shape[1], n_data) == 1
+    p = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, device="cpu")
+    x = torch.randn(*shape, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    for got, want in zip(L.apply_moe(p, cfg, x, shd), L.apply_moe(p, cfg, x)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    model = T.init_params(0, cfg, device="cpu")
+    toks = np.zeros(shape, np.int64)
+    for got, want in zip(T.forward_seq(model, cfg, toks, shd)[:2],
+                         T.forward_seq(model, cfg, toks)[:2]):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
