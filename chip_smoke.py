@@ -128,7 +128,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          against float64 and against (c)'s single-device answers (distances
          within 2e-6, ids equal except float64 ties); the tree merge against
          the all-gather fold on that call's shard blocks; a sharded self-join
-         of the first 1,048,576 rows.  (q2) a 2 × 2 replica × shard index (ε
+         of the first 524,288 rows.  (q2) a 2 × 2 replica × shard index (ε
          pinned) on 4,096 of (c)'s rows: healthy, with replica 0 killed
          (bit-identical, retries counted), with shard 1 lost (coverage column
          false, exact over shard 0's points), and behind ``KNNServer``'s
@@ -137,7 +137,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          inserts and 5 deletes on the 2 × 2 index at K = 16, exact over the
          net corpus; save, load onto 2 × 2 (bit-identical), no mesh and 4 × 1;
          ``compact()`` bit-identical to a fresh sharded build.  (q4)
-         ``ring_self_join`` over 1,048,576 rows on 4 slots (exact), its bf16
+         ``ring_self_join`` over 524,288 rows on 4 slots (exact), its bf16
          wire variant, and ``hybrid_join_spmd`` over 262,144 rows (resolved
          rows exact, ``n_unresolved`` printed).  (a) holds the per-shard
          brute and dense calls and a ring hop's chunk against their plain
@@ -172,8 +172,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          d_model 2,048, vocab 50,304, ``attn_chunk`` 1,024, remat "full", bf16
          activations, float32 masters and moments; 1,176,764,416 parameters
          from seed 0 on the card): ``TokenPipeline(cfg, SHAPES["train_4k"],
-         batch_override=4)``, 16,384 tokens a step, 12 steps of
-         ``make_train_step`` under ``OptConfig(total_steps=12,
+         batch_override=4)``, 16,384 tokens a step, 8 steps of
+         ``make_train_step`` under ``OptConfig(total_steps=8,
          warmup_steps=1)``: every loss finite, the last three's mean below
          the first three's, ``grad_norm`` > 0, step 1 within
          ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_RTOL`` of a float32 step of the
@@ -182,7 +182,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          ``launch/train.py``'s ``main`` at that width with ``n_layers`` cut to
          2 (237,240,320 parameters), seq 1,024, batch 4, 10 steps, a
          checkpoint every 5, under ``torch.use_deterministic_algorithms``: a
-         clean run; a run with ``--inject-fault 7`` (exactly one restart, the
+         clean run (saving only its final state); a run with ``--inject-fault 7`` (exactly one restart, the
          injected fault's; its losses and final parameters bit-identical to
          the clean run's); ``--resume`` after the step-10 checkpoint and
          ``LATEST`` are removed (steps 5–9 again, bit-identical); save and
@@ -190,7 +190,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   (t)    the sharded train step on a 2 × 4 mesh of logical slots, all on
          ``cuda:0`` (``make_host_mesh(4, slots=8)``; no kernel of ``csrc/``
          runs on it).  (t1) olmo_1b's width (d_model 2,048, 16 heads, d_ff
-         8,192, vocab 50,304) at depth 8 (cut from 16 to make room for (u))
+         8,192, vocab 50,304) at depth 4 (cut from 16 for the time limit)
          from seed 0, placed by ``build_train``'s shardings (every weight
          split four ways over "model", replicated over the two data slots;
          each slot's bytes of masters and moments checked against the spec's
@@ -202,19 +202,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          under ``torch.profiler`` with the device time of the
          ``spmd.collective`` ranges apart.  (t2) ``launch/train.py`` with
          ``--model-axis 4 --slots 8`` at (s2)'s depth and sizes under
-         deterministic algorithms: a clean run and one with ``--inject-fault
+         deterministic algorithms: a clean run (saving only its final state)
+         and one with ``--inject-fault
          7`` (one restart, losses bit-identical); the latest save restored
          with ``shardings=`` onto a 4 × 2 mesh and onto one device, bit for
          bit; two more steps on 4 × 2 within (s1)'s tolerances of the same
          steps on 2 × 4.
   (u)    the sharded serving steps on the same 2 × 4 slots at olmo_1b's full
          width with bf16 weights from seed 0 (no kernel of ``csrc/`` runs on
-         it).  (u1) ``build_prefill``'s step on a 2 × 16,384 prompt
-         (``prefill_32k``, batch cut 32 → 2, prompt 32,768 → 16,384), three
-         times: the first run's
-         last logits and cache (each layer gathered) held to the one-device
+         it).  (u1) ``build_prefill``'s step on a 2 × 8,192 prompt
+         (``prefill_32k``, batch cut 32 → 2, prompt 32,768 → 8,192), once,
+         timed: its last logits and cache (each layer gathered) held to the one-device
          ``transformer.prefill`` of the same weights (``SERVE_LOGIT_ATOL``,
-         ``SERVE_KV_RTOL``); each run timed.  (u2) ``build_decode``'s step
+         ``SERVE_KV_RTOL``).  (u2) ``build_decode``'s step
          (``decode_32k``, batch cut 128 → 4) over a seeded cache of 32,768
          positions placed by ``cache_shapes_and_shardings``, 16 steps from
          pos 32,752, each step's logits and written K/V held to the
@@ -249,7 +249,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          local layer sees its own chunk).  Prefill s, decode ms a step (LM and
          lookup), tokens/s, peak memory, one profiled decode step.  (v3)
          two ``make_train_step`` steps at ``rwkv6_3b``'s width with
-         ``n_layers`` cut to 4, batch 2 × seq 1,024 (a checkpoint per 512-token
+         ``n_layers`` cut to 2, batch 2 × seq 1,024 (a checkpoint per 512-token
          chunk of the scan): finite, step 1's loss within ``TRAIN_LOSS_TOL``
          of the float32 loss of the same masters and batch.  (a)
          holds each lookup's first call at D = 2,560 and D = 4,096.
@@ -268,7 +268,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          (r)'s bf16 criterion against a float32 run of the same weights;
          every layer's state (gathered) within ``W_STATE_RATIO`` times the
          one-device bf16 state's own gap to float32.  (w3) one sharded train
-         step on 2 × 4 slots, batch 2 × 512, of ``rwkv6_3b`` at depth 2 (in
+         step on 2 × 4 slots, batch 2 × 256, of ``rwkv6_3b`` at depth 2 (in
          float32: its bf16 gradient is dominated by rounding) and
          ``recurrentgemma_9b`` at depth 3 (bf16), loss and grad_norm within
          (s1)'s tolerances of the one-device step.  (w4) ``dryrun``'s
@@ -323,6 +323,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          ``moe_aux`` finite and above 0.  (y4) the dry run of (y1)'s and
          (y2)'s decode cells on 2 × 4 ``meta`` slots: per-slot argument and
          output bytes equal to the card's.
+  (z)    the encoder-decoder on one card (``models/transformer.encode``, the
+         ``enc-attn`` layers, cross-attention and its cache, plain tensor
+         code; no kernel of ``csrc/`` but the lookup's), seed 3.  (z1)
+         ``whisper_large_v3`` at its published config (32 encoder + 32
+         decoder layers, d_model 1,280, 20/20 heads × 64, d_ff 5,120,
+         LayerNorm + GELU, vocab 51,866, encoder_seq 1,500 in the flash loop
+         at attn_chunk 1,024; f32 masters, bf16 activations, 1,600,783,360
+         parameters by ``n_params()``) with the kNN-LM head as in (v): 16,384
+         keys from 32 × 513 tokens (the decoder without frames), seeded
+         standard normal frames (2, 1,500, 1,280), ``prefill(frames=)`` of 2 ×
+         256 tokens, then 16 greedy ``decode_step_retrieval`` steps (16
+         ``knn_tile_topk`` launches counted: the prefill's logits are bare).
+         Held: (a) each decoder layer's prefill cross cache equals
+         ``init_cross_cache`` of ``encode(frames)`` bit for bit; (b) the
+         serving loop's LM logits and ``forward_seq(frames=)``'s over the
+         same 272 tokens against a float32 forward by (r)'s criterion; (c)
+         the prefill's last logits with and without the frames differ by
+         more than ``Z_FRAMES_RATIO`` times the bf16 forward's relative RMS
+         gap to float32.  ``encode`` ms alone, prefill s, decode ms a step
+         (LM and lookup), tokens/s after the prefill, peak memory, one
+         profiled decode step.  (a) holds the lookup's first call at D =
+         1,280.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -334,13 +356,13 @@ Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
 (s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
 steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2), (x3), the
-prefill and decode of (y1) and (y2) and each step of (y3) —
+prefill and decode of (y1) and (y2), each step of (y3) and (z1) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
 of (b)–(d); (o)'s are on its own ``(serving micro-batch)`` rows, (q1)'s on the
 ``(sharded, per shard)`` rows, the ring's on ``(ring hop chunk)``, (r1)'s
-and (r2)'s, (v1)'s, (v2)'s and (x1)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
+and (r2)'s, (v1)'s, (v2)'s, (x1)'s and (z1)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
 limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -396,7 +418,8 @@ SERVE_MEASURED_RUNS = 3           # (o)'s 2× run timed on the card, repeated
 CRASH_QUERIES = 4096               # (p)
 CRASH_DELETE = 5                   # per phase: 15 tombstones, headroom 16 at K_MUT
 MESH_SHARDS = 4                    # (q1): four logical slots, all on cuda:0
-MESH_SELF_ROWS = 1_048_576         # (q1) sharded self-join, (q4) ring joins
+MESH_SELF_ROWS = 524_288           # (q1) sharded self-join, (q4) ring joins (1,048,576 until
+                                   # the script neared its time limit)
 MESH_QUERIES = 4096                # (q2), (q3): the first rows of (c)'s batch
 MESH_SERVE_REQUESTS = 1024         # (q2): KNNServer trace over the 2 × 2 index
 MESH_DELETE = 5                    # (q3): base ids deleted on the 2 × 2 index
@@ -414,7 +437,8 @@ LM_SEED = 7                        # weights and corpus
 LM_CHECK_STEPS = 4                 # decode steps held against the forward
 TRAIN_SEED = 0                     # (s): launch/train.py's init seed
 TRAIN_BATCH = 4                    # (s1): 4 × train_4k's 4,096 tokens a step
-TRAIN_STEPS = 12
+TRAIN_STEPS = 8                    # (s1): steps at the published config (12 before the script
+                                   # neared its time limit)
 # (s1) step 1 in bf16 activations against a float32 step of the same masters
 # and batch: |Δloss| ≤ TRAIN_LOSS_TOL (0.2 % of the ~10.8 nats at init) and a
 # relative grad_norm gap ≤ TRAIN_GNORM_RTOL.  The bf16 path rounds the
@@ -432,7 +456,8 @@ DRILL_EVERY = 5                    # --checkpoint-every
 DRILL_FAULT = 7                    # --inject-fault
 SPMD_MODEL = 4                     # (t): make_host_mesh(model=4, slots=8), 2 × 4 slots on cuda:0
 SPMD_SLOTS = 8
-SPMD_LAYERS = 8                    # (t1): olmo_1b's width, depth cut 16 → 8 (room for (u))
+SPMD_LAYERS = 4                    # (t1): olmo_1b's width, depth cut 16 → 4 (8 before the
+                                   # script neared its time limit)
 SPMD_STEPS = 6
 SPMD_MORE = 2                      # (t2): steps after the elastic restore, 4 × 2 against 2 × 4
 # (t1) step 1 on the 2 × 4 slots against the one-device step, both in bf16
@@ -449,10 +474,11 @@ SPMD_MORE = 2                      # (t2): steps after the elastic restore, 4 ×
 SPMD_MASTER_ATOL = 1e-6
 SPMD_FLIP_SHARE = 0.05
 SERVE_SEED = 0                     # (u): bf16 weights, prompt, cache and tokens
-SERVE_PROMPT = 16_384              # (u1): prefill_32k's prompt cut 32,768 → 16,384: uncut, (u)
-                                   # took 299.6 s alone on an H100, past its 150 s
+SERVE_PROMPT = 8192                # (u1): prefill_32k's prompt cut 32,768 → 8,192: uncut, (u)
+                                   # took 299.6 s alone on an H100, past its 150 s; 16,384
+                                   # until the script neared its time limit
 SERVE_PREFILL_BATCH = 2            # (u1): prefill_32k's global batch 32 cut to 2 (one card)
-SERVE_PREFILL_RUNS = 3             # (u1): timed sharded prefills (the first one checked)
+SERVE_PREFILL_RUNS = 1             # (u1): timed sharded prefills (the first one checked)
 SERVE_CACHE = 32_768               # (u2): decode_32k's cache, uncut
 SERVE_DECODE_BATCH = 4             # (u2): decode_32k's global batch 128 cut to 4
 SERVE_STEPS = 16                   # (u2): decode steps from pos = SERVE_CACHE − SERVE_STEPS
@@ -481,7 +507,7 @@ REC_BATCH = 2                      # prompts a generate call
 REC_STEPS = 16                     # decode steps, each with the in-step lookup
 RWKV_PROMPT = 512                  # (v1): rwkv6_3b's prefill, 2 × 512 tokens
 RG_PROMPT = 2560                   # (v2): recurrentgemma_9b's, past its 2,048-token window
-REC_TRAIN_LAYERS = 4               # (v3): rwkv6_3b's width, depth cut 32 → 4
+REC_TRAIN_LAYERS = 2               # (v3): rwkv6_3b's width, depth cut 32 → 2
 REC_TRAIN_BATCH = 2
 REC_TRAIN_SEQ = 1024
 REC_TRAIN_STEPS = 2
@@ -503,8 +529,8 @@ W_STRADDLE_STEPS = 4
 # and moments would not fit twice on the card.
 W_TRAIN = {"rwkv6_3b": (2, "float32", "float32"),
            "recurrentgemma_9b": (3, "bfloat16", "bfloat16")}
-W_TRAIN_BATCH = 2                  # (w3): batch 2 × 512 (train_4k's 256 × 4,096 cut)
-W_TRAIN_SEQ = 512
+W_TRAIN_BATCH = 2                  # (w3): batch 2 × 256 (train_4k's 256 × 4,096 cut)
+W_TRAIN_SEQ = 256
 # (w) the recurrent layers in the slot program against the one-device
 # functions, both in bf16 from the same bf16 weights: two bf16 runs of one
 # function, the slot program rounding in other places (each row-parallel
@@ -570,6 +596,17 @@ Y_TRAIN_SEQ = 1024
 # experts' shares (the logits by their own scale).
 Y_F32_ATOL = 2e-4
 Y_TIE = 1e-5
+Z_PARAMS = 1_600_783_360           # (z1): whisper_large_v3's n_params() (norms left out)
+Z_PROMPT = 256                     # (z1): prompts of 2 × 256 tokens and 16 decode steps:
+Z_STEPS = 16                       # 272 positions, inside whisper's 448-token decoder context
+# (z1) check (c): the prefill's last logits with the frames and without them
+# differ, by relative RMS, by more than Z_FRAMES_RATIO times the bf16
+# forward's own relative RMS gap to float32, so a cross-attention that adds
+# nothing fails.  CPU rehearsal (whisper at 4 + 4 layers, d_model 256, 4
+# heads, d_ff 1,024, vocab 2,048, encoder_seq 1,500, 2 × 64 prompts, seed
+# 3): with / without frames 1.1104 apart against a bf16 gap of 8.1991e-3, a
+# ratio of 135.4.
+Z_FRAMES_RATIO = 10.0
 
 
 def log(msg: str) -> None:
@@ -1462,14 +1499,20 @@ def train_phase(dev, reset_counts, read_counts):
     try:
         with mock.patch.object(train, "get_config", lambda arch: cut), saves, writes, loads:
             reset_counts()
-            clean = train.main(flags + ["--ckpt-dir", os.path.join(root, "clean")])
+            # The clean run's saves are never read: it saves its final state alone.
+            t0 = time.perf_counter()
+            clean = train.main(flags + ["--checkpoint-every", str(DRILL_STEPS),
+                                        "--ckpt-dir", os.path.join(root, "clean")])
+            run_s = [time.perf_counter() - t0]
             clean_report, clean_loss = clean.report, dict(clean.losses)
             final = [p.detach().clone() for p in clean.state["params"].parameters()]
             del clean
             shutil.rmtree(os.path.join(root, "clean"))
             drill_dir = os.path.join(root, "drill")
+            t0 = time.perf_counter()
             drill = train.main(flags + ["--ckpt-dir", drill_dir,
                                         "--inject-fault", str(DRILL_FAULT)])
+            run_s.append(time.perf_counter() - t0)
             on_card(list(drill.state["params"].parameters()) +
                     tree_leaves(drill.state["opt"]), "the drilled run's state")
             report, drill_losses = drill.report, drill.losses
@@ -1480,7 +1523,9 @@ def train_phase(dev, reset_counts, read_counts):
             n_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
             shutil.rmtree(os.path.join(drill_dir, f"step-{DRILL_STEPS:09d}"))
             os.remove(os.path.join(drill_dir, "LATEST"))
+            t0 = time.perf_counter()
             resumed = train.main(flags + ["--ckpt-dir", drill_dir, "--resume"])
+            run_s.append(time.perf_counter() - t0)
             read_counts("(s2) launch/train.py: clean, drilled and resumed runs")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1500,7 +1545,8 @@ def train_phase(dev, reset_counts, read_counts):
         f"blocking (the snapshot to host memory, and waiting for the previous write) "
         f"{', '.join(f'{t:.3f}' for t in saves.times)} s; background write "
         f"{', '.join(f'{t:.3f}' for t in writes.times)} s; restore "
-        f"{', '.join(f'{t:.3f}' for t in loads.times)} s; the runs' last saves wait in main")
+        f"{', '.join(f'{t:.3f}' for t in loads.times)} s; the runs' last saves wait in main; "
+        f"the clean, drilled and resumed runs {', '.join(f'{t:.2f}' for t in run_s)} s")
     assert clean_report.completed and clean_report.restarts == 0, "(s2) the clean run failed"
     assert report.completed and report.restarts == 1, "(s2) the drill did not restart exactly once"
     assert report.failures == [
@@ -1716,35 +1762,40 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     try:
         with mock.patch.object(train, "get_config", lambda arch: cut), loads:
             reset_counts()
-            clean = train.main(flags + ["--ckpt-dir", os.path.join(root, "clean")])
+            # As in (s2), the clean run saves its final state alone.
+            t0 = time.perf_counter()
+            clean = train.main(flags + ["--checkpoint-every", str(DRILL_STEPS),
+                                        "--ckpt-dir", os.path.join(root, "clean")])
+            run_s = [time.perf_counter() - t0]
             clean_report, clean_loss = clean.report, dict(clean.losses)
             del clean
             drill_dir = os.path.join(root, "drill")
+            t0 = time.perf_counter()
             drill = train.main(flags + ["--ckpt-dir", drill_dir,
                                         "--inject-fault", str(DRILL_FAULT)])
+            run_s.append(time.perf_counter() - t0)
             read_counts("(t2) launch/train.py on slots: clean and drilled runs")
             report, drill_losses = drill.report, drill.losses
             state = drill.state
             del drill
+            # The latest save, laid onto 4 × 2 and onto one device, each held
+            # to the live final state.
             mgr = CheckpointManager(drill_dir)
             template = train.state_tree(state)
-            saved, extra, at = mgr.restore(template)
             _, _, (sh42, _) = steps.build_train(
                 cut, shape, make_host_mesh(SPMD_SLOTS // SPMD_MODEL, slots=SPMD_SLOTS, device=dev),
                 OptConfig(total_steps=DRILL_STEPS, warmup_steps=max(DRILL_STEPS // 10, 1),
                           moment_dtype=cut.opt_state_dtype))
-            on42, _, _ = mgr.restore(template, shardings=sh42)
+            on42, extra, at = mgr.restore(template, shardings=sh42)
             one = NamedSharding(make_host_mesh(device=dev), PartitionSpec())
             on1, _, _ = mgr.restore(template, shardings=one)
-            same42 = same1 = same_live = True
-            for want, a42, a1, live in zip(tree_leaves(saved), tree_leaves(on42),
-                                           tree_leaves(on1), tree_leaves(template)):
-                want = torch.as_tensor(want).to(dev)
+            same42 = same1 = True
+            for a42, a1, live in zip(tree_leaves(on42), tree_leaves(on1), tree_leaves(template)):
+                want = live.gather()
                 same42 &= a42.sharding.mesh.sizes == (SPMD_MODEL, SPMD_SLOTS // SPMD_MODEL) and \
                     torch.equal(a42.gather(), want)
                 same1 &= a1.blocks[0].device == one.device(0) and torch.equal(a1.blocks[0], want)
-                same_live &= torch.equal(live.gather(), want)
-            del saved, on1
+            del on1
             # A few more steps from the restore: 4 × 2 against the live 2 × 4 state.
             opt_more = OptConfig(total_steps=DRILL_STEPS, warmup_steps=max(DRILL_STEPS // 10, 1),
                                  moment_dtype=cut.opt_state_dtype)
@@ -1766,17 +1817,18 @@ def sharded_train_phase(dev, reset_counts, read_counts, s1):
     log(f"[t2] clean run: losses {[round(clean_loss[k], 6) for k in sorted(clean_loss)]}")
     log(f"[t2] drilled run: completed={report.completed}, restarts {report.restarts}; steps "
         f"executed {replayed}; losses bit-identical to the clean run's: {same_loss}")
-    log(f"[t2] the step-{at} save (the final state: {same_live}) restored with shardings= onto "
-        f"4 × 2 ({sh42['params']['embed']['tok'].spec} for embed/tok) and onto one device "
-        f"(P()), bit-identical to the saved arrays: {same42}, {same1}; restore "
-        f"{', '.join(f'{t:.3f}' for t in loads.times)} s")
+    log(f"[t2] the step-{at} save restored with shardings= onto 4 × 2 "
+        f"({sh42['params']['embed']['tok'].spec} for embed/tok) and onto one device (P()), "
+        f"bit-identical to the final state: {same42}, {same1}; restore "
+        f"{', '.join(f'{t:.3f}' for t in loads.times)} s; the clean and drilled runs "
+        f"{', '.join(f'{t:.2f}' for t in run_s)} s")
     log(f"[t2] {SPMD_MORE} more steps (loss, grad_norm): 2 × 4 {more_24}, 4 × 2 {more_42}")
     assert clean_report.completed and clean_report.restarts == 0, "(t2) the clean run failed"
     assert report.completed and report.restarts == 1, "(t2) the drill did not restart exactly once"
     assert replayed == list(range(DRILL_FAULT)) + list(range(DRILL_EVERY, DRILL_STEPS))
     assert same_loss, "(t2) the replay differs from the uninterrupted run"
-    assert at == DRILL_STEPS and same_live, "(t2) the latest save is not the final state"
-    assert same42 and same1, "(t2) an elastic restore differs from the save"
+    assert at == DRILL_STEPS, "(t2) the latest save is not the final step's"
+    assert same42 and same1, "(t2) an elastic restore differs from the final state"
     for (l24, g24), (l42, g42) in zip(more_24, more_42):
         assert np.isfinite([l24, l42]).all()
         assert abs(l24 - l42) <= TRAIN_LOSS_TOL and abs(g24 - g42) <= TRAIN_GNORM_RTOL * g24, \
@@ -3104,6 +3156,170 @@ def moe_sharded_phase(dev, reset_counts, read_counts):
     log(f"[y] phase {time.perf_counter() - t_y:.2f}s")
 
 
+def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
+    """(z) the encoder-decoder on one card: (z1) ``whisper_large_v3`` at its
+    published config served with the kNN-LM head's in-step lookup — the
+    prefill given the frames, then ``decode_step_retrieval`` greedily —
+    with four checks: (a) each decoder layer's cross cache is
+    ``init_cross_cache`` of ``encode(frames)`` bit for bit; (b) the
+    decode's logits and ``forward_seq(frames=)``'s, each in bf16, against a
+    float32 forward by (r)'s criterion; (c) the frames move the prefill's
+    logits (``Z_FRAMES_RATIO``); (d) the lookup's ``knn_tile_topk`` against
+    its plain version, its row appended to ``kernels``.  One profiled
+    decode step."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import RetrievalConfig, get_config
+    from repro_torch.kernels.knn_topk import ops as topk_ops
+    from repro_torch.models import knn_lm
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    t_z = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[z] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = dataclasses.replace(get_config("whisper_large_v3"), retrieval=RetrievalConfig(
+        enabled=True, k=8, lam=0.9, temperature=1.0))
+    model, init_ms = timed(lambda: lm.init_params(REC_SEED, cfg, device=dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    assert n_par == sum(t.numel() for t in tree_leaves(lm.param_shapes(cfg))), \
+        "(z1) the model's parameter count is not its tables'"
+    assert cfg.n_params() == Z_PARAMS
+    log(f"[z1] {cfg.name}: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads × {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, encoder_seq {cfg.encoder_seq}, attn_chunk "
+        f"{cfg.attn_chunk}, LayerNorm + GELU, {cfg.dtype} activations, {cfg.param_dtype} "
+        f"weights; {n_par} parameters (n_params() {cfg.n_params()} without the norms) from "
+        f"seed {REC_SEED} in {init_ms / 1e3:.3f}s")
+    rng = np.random.default_rng(REC_SEED)
+    corpus = rng.integers(0, cfg.vocab_size, (REC_KEY_SEQS, REC_KEY_LEN))
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (REC_BATCH, Z_PROMPT)),
+                              device=dev)
+    # The reference pipeline's stub frontend: seeded standard normal frames.
+    frames = torch.as_tensor(rng.standard_normal(
+        (REC_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32), device=dev)
+    (ds, ds_s) = synced(lambda: knn_lm.build_datastore(model, cfg, [corpus]))
+    n_keys = REC_KEY_SEQS * (REC_KEY_LEN - 1)
+    assert tuple(ds.keys.shape) == (n_keys, cfg.d_model)
+    log(f"[z1] build_datastore over {REC_KEY_SEQS} × {REC_KEY_LEN} tokens (the decoder "
+        f"without frames, as the reference builds it): {n_keys} keys × {cfg.d_model} dims in "
+        f"{ds_s:.3f}s")
+
+    # The serving loop: serve.generate's, with the prefill given the frames.
+    cache_len = Z_PROMPT + Z_STEPS + 2           # two more for the profiled step
+
+    def serve():
+        logits, cache = lm.prefill(model, cfg, prompts, cache_len, frames=frames)
+        toks = [torch.argmax(logits, dim=-1)]
+        for t in range(Z_STEPS):
+            logits, cache = knn_lm.decode_step_retrieval(model, cfg, toks[-1], cache,
+                                                         Z_PROMPT + t, ds)
+            toks.append(torch.argmax(logits, dim=-1))
+        return torch.stack(toks, dim=1), cache
+
+    spies = [Spy(lm, "prefill"), Spy(lm, "decode_step_hidden"), Spy(knn_lm, "lookup", keep=False)]
+    reset_counts()
+    with contextlib.ExitStack() as stack, FirstCall(topk_ops, "knn_topk") as call:
+        for sp in spies:
+            stack.enter_context(sp)
+        (out, cache), wall = synced(serve)
+    launches = read_counts(f"(z1) {cfg.name}: prefill(frames=) + {Z_STEPS} decode steps with "
+                           f"the in-step lookup")
+    assert tuple(out.shape) == (REC_BATCH, Z_STEPS + 1)
+    assert launches.get("knn_tile_topk", 0) == Z_STEPS, \
+        "(z1) expected one knn_tile_topk launch a decode step"
+    pre_s = spies[0].times[0]
+    lm_t = np.array(spies[1].times) * 1e3
+    ret_t = np.array(spies[2].times) * 1e3
+    tok_s = REC_BATCH * Z_STEPS / (wall - pre_s)
+    with torch.no_grad():
+        eo, enc_ms = timed(lambda: lm.encode(model, cfg, frames))
+    log(f"[z1] serving: encode of {REC_BATCH} × {cfg.encoder_seq} frames {enc_ms:.3f} ms alone; "
+        f"prefill of {REC_BATCH} × {Z_PROMPT} tokens with the frames {pre_s:.3f}s; per decode "
+        f"step: LM {lm_t.mean():.3f} ms [{lm_t.min():.3f}–{lm_t.max():.3f}], lookup "
+        f"{ret_t.mean():.3f} ms [{ret_t.min():.3f}–{ret_t.max():.3f}]; {REC_BATCH} × {Z_STEPS} "
+        f"tokens in {wall:.3f}s, {tok_s:.1f} tokens/s after the prefill; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (a) the cross cache, bit for bit.
+    p = lm._cast_params(model, cfg)
+    for i, (lp, st) in enumerate(zip(p["layers"], cache)):
+        want = lm_layers.init_cross_cache(lp["xattn"], cfg, eo)
+        assert torch.equal(st["cross"]["k"], want["k"]) and \
+            torch.equal(st["cross"]["v"], want["v"]), \
+            f"(z1) layer {i}'s cross cache is not init_cross_cache(encode(frames))"
+    log(f"[z1] (a) every one of the {cfg.n_layers} layers' prefill cross cache "
+        f"({tuple(cache[0]['cross']['k'].shape)} K and V) equals init_cross_cache of "
+        f"encode(frames) bit for bit")
+    del p, eo
+
+    # (b) decode against forward: the serving loop's LM logits (the prefill's,
+    # then each step's unembedded hidden state) and forward_seq(frames=) over
+    # the same tokens, each against a float32 forward of the same masters.
+    with torch.no_grad():
+        pre_logits = spies[0].calls[0][2][0]
+        hid = torch.stack([c[2][0] for c in spies[1].calls], 1)
+        dec = torch.cat([pre_logits[:, None],
+                         lm_layers.unembed(model.embed, cfg, hid)], 1).float()
+        seq = torch.cat([prompts, out[:, :Z_STEPS]], 1)
+        last = slice(Z_PROMPT - 1, Z_PROMPT + Z_STEPS)
+        fwd = lm_layers.unembed(model.embed, cfg, lm.forward_seq(
+            model, cfg, seq, frames=frames)[0][:, last]).float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        f32 = lm_layers.unembed(model.embed, cfg32, lm.forward_seq(
+            model, cfg32, seq, frames=frames)[0][:, last]).float()
+        model._compute = None                  # the float32 compute tree
+        bare, _ = lm.prefill(model, cfg, prompts, Z_PROMPT)
+    del spies, cache, hid
+    log(f"[z1] (b) decode matches forward over {dec.shape[1]} positions × {REC_BATCH} rows "
+        f"(the bf16 forward's relative RMS gap to float32 {rel_rms(fwd, f32):.4e}, the "
+        f"decode's {rel_rms(dec, f32):.4e}):")
+    logit_check("(z1) prefill(frames=) + decode steps", dec, fwd, f32)
+
+    # (c) the frames matter.
+    noise = rel_rms(fwd, f32)
+    moved = rel_rms(bare.float(), pre_logits.float())
+    log(f"[z1] (c) the prefill's last logits with the frames and without them: relative RMS "
+        f"{moved:.4e}, {moved / noise:.1f} × the bf16 forward's gap to float32 (> "
+        f"{Z_FRAMES_RATIO:g} ×)")
+    assert moved > Z_FRAMES_RATIO * noise, "(z1) the frames do not move the logits"
+    del bare, pre_logits, dec, fwd, f32
+
+    # One decode step under torch.profiler (printed, not gated).
+    with torch.no_grad():
+        _, cache = lm.prefill(model, cfg, prompts, cache_len, frames=frames)
+    tok = out[:, -1]
+    lm.decode_step_hidden(model, cfg, tok, cache, Z_PROMPT)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        (_, step_s) = synced(lambda: lm.decode_step_hidden(model, cfg, tok, cache, Z_PROMPT + 1))
+    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    log(f"[z1] one LM decode step under torch.profiler: {len(dev_ev)} device events, the card "
+        f"busy {busy:.3f} ms of {step_s * 1e3:.3f} ms (busy share {busy / (step_s * 1e3):.3f}; "
+        f"{lm_t.mean():.3f} ms unprofiled)" if dev_ev else
+        "[z1] one LM decode step under torch.profiler: no device events recorded")
+    del cache, model, prof
+    torch.cuda.empty_cache()
+
+    # (d) the lookup's kernel against its plain version.
+    (q, c, qid, cid), kw = call.args
+    kernels.append(topk_check(f"knn_tile_topk (kNN-LM lookup, {cfg.name}, D={cfg.d_model})",
+                              q, c, qid, cid, "l2", launches["knn_tile_topk"], fp32_bound=True,
+                              k=kw["k"]))
+    del ds, call, q, c
+    torch.cuda.empty_cache()
+    log(f"[z] phase {time.perf_counter() - t_z:.2f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the float32 check included)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=5_000_000,
@@ -3161,6 +3377,11 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     log(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+
+    def clock(before):
+        """The script's seconds so far, where ``before`` starts: where the
+        time limit goes."""
+        log(f"[clock] {time.perf_counter() - t_start:.1f}s, {before} next")
 
     def reset_counts():
         for counter in (stream_kernel.launches, topk_kernel.launches, pair_kernel.launches):
@@ -3353,6 +3574,8 @@ def main(argv=None) -> int:
     for name in ("knn_stream_topk_prefetch", "knn_tile_topk", "distance_bin_histogram"):
         assert launches.get(name, 0) > 0, f"main path never launched {name}"
 
+    clock("(e)")
+
     # -- path 2: (e) the tiled pallas backend on the same points and grid ---
     reset_counts()
     t0 = time.perf_counter()
@@ -3436,6 +3659,8 @@ def main(argv=None) -> int:
         f"{n_planned})")
     assert launches_h.get("knn_stream_topk_padded", 0) == n_planned > 0, \
         "K=25 bf16 did not launch the padded kernel once per chunk of tiles"
+
+    clock("(i)")
 
     # -- path 5: (i) FMA end to end at 518 dims ---------------------------------
     # The paper's FMA workload at its published 107,000 × 518: ε selected on
@@ -3834,6 +4059,8 @@ def main(argv=None) -> int:
         scale /= 4
     assert skipped + skip_r > 0, "SHORTC never skipped a tile at FMA width"
 
+    clock("(k)")
+
     # -- path 7: (k) the mutable, durable SuSy index -------------------------
     # (b)'s fused index (ε selected, so compact() selects it anew on the net
     # corpus): inserts, deletes of base and inserted ids, the R≠S batch at
@@ -4133,6 +4360,8 @@ def main(argv=None) -> int:
     read_counts("(n) lean pass", topk_reroutes=past_k(topk_k), stream_reroutes=past_k(tiles_k))
     log(f"[n] phase {time.perf_counter() - t_n:.2f}s")
 
+    clock("(o)")
+
     # -- path 11: (o) the serving front end on SuSy ------------------------------
     # A clean index over (b)'s points with (b)'s ε pinned ((k) mutated and
     # compacted (b)'s index); single-query arrivals are (c)'s first 2,048
@@ -4370,6 +4599,8 @@ def main(argv=None) -> int:
     assert launches_p.get("knn_tile_topk", 0) > 0, "(p) never launched knn_tile_topk"
     log(f"[p] phase {time.perf_counter() - t_p:.2f}s")
     del sidx, want, live
+
+    clock("(q)")
 
     # -- path 13: (q) the mesh on the one card -----------------------------------
     # One process drives P logical slots, all on cuda:0.  (q1) a 4 × 1 mesh
@@ -4672,29 +4903,50 @@ def main(argv=None) -> int:
     del q_topk, q_stream, ring_call, q3s, c3s, q1s, c1s, q3r, c3r, sh
     log(f"[q] phase {time.perf_counter() - t_q:.2f}s")
 
+    clock("(r)")
+
     # -- path 14: (r) the kNN-LM at olmo_1b's full width ------------------------
     lm_phase(dev, kernels, reset_counts, read_counts, topk_check, hist_check)
+
+    clock("(s)")
 
     # -- path 15: (s) the dense training path at olmo_1b's full width -----------
     s1 = train_phase(dev, reset_counts, read_counts)
 
+    clock("(t)")
+
     # -- path 16: (t) the sharded train step on 2 × 4 slots at olmo_1b's width --
     sharded_train_phase(dev, reset_counts, read_counts, s1)
+
+    clock("(u)")
 
     # -- path 17: (u) the sharded serving steps and the dry run at olmo_1b's width --
     sharded_serve_phase(dev, reset_counts, read_counts)
 
+    clock("(v)")
+
     # -- path 18: (v) the recurrent presets at their published widths -----------
     recurrent_phase(dev, kernels, reset_counts, read_counts, topk_check)
+
+    clock("(w)")
 
     # -- path 19: (w) the recurrent presets in the slot program -------------------
     recurrent_sharded_phase(dev, reset_counts, read_counts)
 
+    clock("(x)")
+
     # -- path 20: (x) the MoE presets on one card ---------------------------------
     moe_phase(dev, kernels, reset_counts, read_counts, topk_check)
 
+    clock("(y)")
+
     # -- path 21: (y) the MoE presets in the slot program -------------------------
     moe_sharded_phase(dev, reset_counts, read_counts)
+
+    clock("(z)")
+
+    # -- path 22: (z) the encoder-decoder on one card ------------------------------
+    encdec_phase(dev, kernels, reset_counts, read_counts, topk_check)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -1,8 +1,8 @@
 """Model configurations of the port (``repro/configs``): the dataclasses,
 the dense presets (``olmo_1b``, ``qwen3_14b``, ``yi_9b``,
 ``llama3_405b``), the recurrent ones (``rwkv6_3b``,
-``recurrentgemma_9b``) and the MoE ones (``granite_moe_1b_a400m``,
-``qwen3_moe_235b_a22b``)."""
+``recurrentgemma_9b``), the MoE ones (``granite_moe_1b_a400m``,
+``qwen3_moe_235b_a22b``) and the encoder-decoder ``whisper_large_v3``."""
 from repro_torch.configs.base import (
     ARCH_IDS, PORTED_ARCHS, SHAPES, ModelConfig, MoEConfig, RetrievalConfig, ShapeConfig,
     applicable_shapes, get_config, get_smoke_config, sub_quadratic, torch_dtype,

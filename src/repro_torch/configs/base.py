@@ -6,9 +6,10 @@ The dataclasses carry the reference's fields and numbers unchanged; only
 <id>`` resolves inside ``repro_torch.configs``: the dense presets
 (``olmo_1b``, ``qwen3_14b``, ``yi_9b``, ``llama3_405b``), the recurrent
 ones (``rwkv6_3b``, ``recurrentgemma_9b``) and the MoE ones
-(``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``), which need only the
-layers the port has.  The encoder-decoder and VLM presets raise until the
-ROADMAP queue A items that bring their layers.
+(``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``) and the
+encoder-decoder ``whisper_large_v3``, which need only the layers the port
+has.  The VLM preset raises until ROADMAP queue A item 21b brings its
+projector.
 """
 from __future__ import annotations
 
@@ -180,10 +181,9 @@ ARCH_IDS = [
 
 # The presets this port carries so far, and the ROADMAP item of each other.
 PORTED_ARCHS = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b", "rwkv6_3b",
-                "recurrentgemma_9b", "granite_moe_1b_a400m", "qwen3_moe_235b_a22b")
-_UNPORTED_ARCHS = {
-    "whisper_large_v3": "queue A item 21", "llava_next_mistral_7b": "queue A item 21b",
-}
+                "recurrentgemma_9b", "granite_moe_1b_a400m", "qwen3_moe_235b_a22b",
+                "whisper_large_v3")
+_UNPORTED_ARCHS = {"llava_next_mistral_7b": "queue A item 21b"}
 
 
 def sub_quadratic(cfg: ModelConfig) -> bool:

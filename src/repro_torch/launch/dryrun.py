@@ -44,8 +44,9 @@ shapes and dtypes without the loop over the tokens (``prefill_32k`` is
 the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
 slots, real loops, equal to its record on ``meta``).
 
-Presets the port does not carry yet are recorded as failed cells, the
-error naming their ROADMAP queue item, as the reference records a failure.
+Presets the port or its slot program does not carry yet are recorded as
+failed cells, the error naming their ROADMAP queue item, as the reference
+records a failure.
 
 Usage::
 
@@ -57,9 +58,10 @@ Usage::
 ``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
 meshes) and the 12 of the MoE presets ``granite_moe_1b_a400m`` and
 ``qwen3_moe_235b_a22b`` (their three base shapes on both meshes); 12
-recorded failures, the base shapes on both meshes of the two unported
-presets, ``whisper_large_v3`` and ``llava_next_mistral_7b`` (queue A items
-21 and 21b).)
+recorded failures, the base shapes on both meshes of ``whisper_large_v3``,
+whose preset the port carries and whose encoder the slot program refuses
+(queue A item 21c), and of the unported ``llava_next_mistral_7b`` (item
+21b).)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """

@@ -33,7 +33,8 @@ traces a cell.  The MoE presets run there too, their experts placed by the
 are the slots of one model index across the data groups, and the gradient
 sum over replicas covers them as any other block.  The three builders
 refuse, before any placement, what the one-device model lacks
-(``spmd.check_supported``: the encoder, the VLM projector).
+(``spmd.check_supported``: the VLM projector, and the encoder, which the
+one-device model runs).
 Token ids are int64 here, where the reference's are int32
 (``TokenPipeline`` gives int64).
 """

@@ -1,6 +1,6 @@
 """Shared NN layers of the model code — port of ``repro/models/layers.py``
 (the decoder's layers: the kNN-LM's serving path, the trainer, the MoE
-layer).
+layer; the encoder's bidirectional attention and cross-attention).
 
 Parameters are mappings of tensors (a plain dict, or an
 ``nn.ParameterDict`` of ``models.transformer.Block``), with the JAX
@@ -30,9 +30,15 @@ atomics), in named steps (``_route``, ``_sort``, ``_keep``, ``_buffer``,
 calls too; ``apply_moe`` takes the reference's per-data-shard dispatch
 where ``cfg.moe_sharded_dispatch`` asks for it.
 
+Attention comes in the reference's three kinds: causal ``attn``, windowed
+``local`` and the encoder's bidirectional ``enc-attn``, each roped; and
+cross-attention (``encoder_out=``, ``cross_cache=``): a decoder query over
+the encoder's output, unroped, under a full mask, its parameters without
+qk-norm scales; its K/V are computed once a request (``init_cross_cache``).
+
 ``chunked_xent`` is the trainer's loss.  The recurrent mixers are
 ``models/rglru.py`` and ``models/rwkv6.py``; the attention functions
-refuse their kinds.  Cross-attention (queue A item 21) raises.
+refuse their kinds.
 """
 from __future__ import annotations
 
@@ -45,7 +51,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import axis_size, data_axis_names
-from repro_torch.utils import unported
 
 MASKED = -1e30                     # the reference's mask value (not −inf)
 
@@ -136,18 +141,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # --------------------------------------------------------------------------
-# attention (GQA; global / local; prefill + decode)
+# attention (GQA; global / local / bidirectional / cross; prefill + decode)
 # --------------------------------------------------------------------------
 
-def attention_table(cfg: ModelConfig) -> dict:
-    """name -> (shape, logical axes) of a self-attention's parameters, in
-    the order ``init_attention`` draws them."""
+def attention_table(cfg: ModelConfig, cross: bool = False) -> dict:
+    """name -> (shape, logical axes) of an attention's parameters, in the
+    order ``init_attention`` draws them; a cross-attention has no qk-norm
+    scales, whatever ``cfg.qk_norm`` says."""
     d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     t = {"wq": ((d, h, hd), ("embed", "heads", "head_dim")),
          "wk": ((d, g, hd), ("embed", "kv_heads", "head_dim")),
          "wv": ((d, g, hd), ("embed", "kv_heads", "head_dim")),
          "wo": ((h, hd, d), ("heads", "head_dim", "embed"))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         t["q_norm"] = ((hd,), ("head_dim",))
         t["k_norm"] = ((hd,), ("head_dim",))
     return t
@@ -155,15 +161,16 @@ def attention_table(cfg: ModelConfig) -> dict:
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, *, device,
                    cross: bool = False) -> dict:
-    if cross:
-        raise unported("cross-attention (init_attention(cross=True))", "queue A item 21")
     fan_in = {"wo": cfg.n_heads * cfg.hd}
     return {k: (torch.ones(shp, dtype=dtype, device=device) if k.endswith("_norm") else
                 dense_init(gen, shp, dtype, fan_in=fan_in.get(k), device=device))
-            for k, (shp, _) in attention_table(cfg).items()}
+            for k, (shp, _) in attention_table(cfg, cross).items()}
 
 
-def _qkv(params, cfg: ModelConfig, x, kv_input, positions, kv_positions):
+def _qkv(params, cfg: ModelConfig, x, kv_input, positions, kv_positions, use_rope: bool = True):
+    """q of ``x``, k and v of ``kv_input``; qk-norm where the parameters
+    hold its scales, then RoPE at the given positions unless ``use_rope``
+    is off (cross-attention)."""
     hd = cfg.hd
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("btd,dgk->btgk", kv_input, params["wk"])
@@ -171,6 +178,8 @@ def _qkv(params, cfg: ModelConfig, x, kv_input, positions, kv_positions):
     if "q_norm" in params:
         q = rms_head_norm(q, params["q_norm"])
         k = rms_head_norm(k, params["k_norm"])
+    if not use_rope:
+        return q, k, v
     qc, qs = rope_angles(positions, hd, cfg.rope_theta)
     kc, ks = rope_angles(kv_positions, hd, cfg.rope_theta)
     return apply_rope(q, qc, qs), apply_rope(k, kc, ks), v
@@ -198,8 +207,10 @@ def _flash_attend(cfg: ModelConfig, q, k, v, *, kind: str, q_chunk: int, kv_chun
                   causal_skip: bool):
     """Chunked online-softmax attention: the (S, T) logits are never
     materialized (peak B·qc·kc per step).  The reference's ``lax.scan``
-    over kv chunks is a loop here.  With ``causal_skip`` the loop over q
-    chunks visits only kv chunks at or below the diagonal (exact)."""
+    over kv chunks is a loop here.  ``attn`` and ``local`` are causal
+    (``local`` windowed too); ``enc-attn`` and ``cross`` keep every key but
+    the padding.  With ``causal_skip`` the loop over q chunks of a causal
+    kind visits only kv chunks at or below the diagonal (exact)."""
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rep = h // g
     b, s = q.shape[0], q.shape[1]
@@ -255,6 +266,10 @@ def _flash_attend(cfg: ModelConfig, q, k, v, *, kind: str, q_chunk: int, kv_chun
 
 
 def _self_mask(cfg: ModelConfig, kind: str, s: int, device) -> torch.Tensor:
+    """(s, s) keep-mask of a self-attention: causal, windowed for ``local``,
+    full for the encoder's ``enc-attn``."""
+    if kind == "enc-attn":
+        return torch.ones((s, s), dtype=torch.bool, device=device)
     sq = torch.arange(s, device=device)
     mask = sq[:, None] >= sq[None, :]
     if kind == "local":
@@ -262,22 +277,16 @@ def _self_mask(cfg: ModelConfig, kind: str, s: int, device) -> torch.Tensor:
     return mask
 
 
-# The ROADMAP queue A item that brings each mixer kind the port lacks.
-MIXER_ITEMS = {"enc-attn": "queue A item 21"}
-
-
 def _check_kind(kind: str, what: str) -> None:
-    if kind in MIXER_ITEMS:
-        raise unported(f"{what} of kind {kind!r}", MIXER_ITEMS[kind])
-    if kind not in ("attn", "local"):
+    if kind not in ("attn", "local", "enc-attn"):
         raise ValueError(f"{what} of kind {kind!r}: not an attention kind")
 
 
 def attention_forward_collect(params, cfg: ModelConfig, x, *, kind: str = "attn",
                               positions: Optional[torch.Tensor] = None, shd=None):
-    """Causal self-attention over a full sequence (prefill); returns
-    (out, (k, v)) with the roped K/V for cache construction.  Flash runs
-    only when the sequence is longer than ``cfg.attn_chunk``."""
+    """Self-attention over a full sequence (prefill); returns (out, (k, v))
+    with the roped K/V for cache construction.  Flash runs only when the
+    sequence is longer than ``cfg.attn_chunk``."""
     _check_kind(kind, "attention")
     b, s, _ = x.shape
     if positions is None:
@@ -288,9 +297,10 @@ def attention_forward_collect(params, cfg: ModelConfig, x, *, kind: str = "attn"
 
 
 def self_attend(cfg: ModelConfig, q, k, v, *, kind: str):
-    """Causal self-attention of roped q (B,S,H,hd) over k/v (B,S,G,hd), H
-    and G as ``cfg`` gives them: the flash loop when the sequence is longer
-    than ``cfg.attn_chunk``, else the dense ``_gqa_attend``."""
+    """Self-attention (causal, or bidirectional for ``enc-attn``) of roped q
+    (B,S,H,hd) over k/v (B,S,G,hd), H and G as ``cfg`` gives them: the flash
+    loop when the sequence is longer than ``cfg.attn_chunk``, else the dense
+    ``_gqa_attend``."""
     s = q.shape[1]
     if cfg.attn_chunk and s > cfg.attn_chunk:
         return _flash_attend(cfg, q, k, v, kind=kind, q_chunk=cfg.attn_chunk,
@@ -300,12 +310,21 @@ def self_attend(cfg: ModelConfig, q, k, v, *, kind: str):
 
 def attention_forward(params, cfg: ModelConfig, x, *, kind: str = "attn",
                       encoder_out=None, positions: Optional[torch.Tensor] = None, shd=None):
-    """Full-sequence self-attention (prefill).  Cross-attention
-    (``encoder_out``) and the encoder's bidirectional ``enc-attn`` raise."""
-    if encoder_out is not None:
-        raise unported("cross-attention (attention_forward(encoder_out=...))",
-                       "queue A item 21")
-    return attention_forward_collect(params, cfg, x, kind=kind, positions=positions)[0]
+    """Full-sequence attention (train / prefill): self-attention of
+    ``kind``, or cross-attention over ``encoder_out`` (B,T,D) when given:
+    unroped, every key kept, in the flash loop (no causal mask, the padded
+    keys dropped) when the decoder's sequence is longer than
+    ``cfg.attn_chunk``, else the dense ``_gqa_attend``."""
+    if encoder_out is None:
+        return attention_forward_collect(params, cfg, x, kind=kind, positions=positions)[0]
+    q, k, v = _qkv(params, cfg, x, encoder_out, None, None, use_rope=False)
+    s, t = q.shape[1], k.shape[1]
+    if cfg.attn_chunk and s > cfg.attn_chunk:
+        out = _flash_attend(cfg, q, k, v, kind="cross", q_chunk=cfg.attn_chunk,
+                            kv_chunk=cfg.attn_chunk, causal_skip=False)
+    else:
+        out = _gqa_attend(cfg, q, k, v, torch.ones((s, t), dtype=torch.bool, device=q.device))
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def pad_cache(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
@@ -321,9 +340,20 @@ def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
     """One-token decode.  x1 (B,1,D); ``pos`` the absolute position.
     Writes the token's K/V into ``cache`` in place (slot ``pos``, or
     ``pos % t`` in the local ring) — where the reference returns an updated
-    copy — and returns (out (B,1,D), cache)."""
+    copy — and returns (out (B,1,D), cache).
+
+    Cross-attention, with ``cross_cache`` (``init_cross_cache``'s K/V) or
+    else ``encoder_out`` (its K/V computed here): the token's unroped query
+    over every encoder position; ``cache`` is returned untouched."""
     if encoder_out is not None or cross_cache is not None:
-        raise unported("cross-attention decode", "queue A item 21")
+        if cross_cache is None:
+            q, k, v = _qkv(params, cfg, x1, encoder_out, None, None, use_rope=False)
+        else:
+            q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
+            k, v = cross_cache["k"], cross_cache["v"]
+        out = _gqa_attend(cfg, q, k, v, torch.ones((1, k.shape[1]), dtype=torch.bool,
+                                                    device=x1.device))
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
     _check_kind(kind, "attention decode")
     b = x1.shape[0]
     pos = int(pos)
@@ -340,8 +370,11 @@ def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
 
 
-def init_cross_cache(params, cfg: ModelConfig, encoder_out):
-    raise unported("init_cross_cache (cross-attention)", "queue A item 21")
+def init_cross_cache(params, cfg: ModelConfig, encoder_out) -> dict:
+    """A decoder layer's cross-attention K/V (B,T,G,hd) of the encoder's
+    output, unroped: computed once a request, by prefill."""
+    return {"k": torch.einsum("btd,dgk->btgk", encoder_out, params["wk"]),
+            "v": torch.einsum("btd,dgk->btgk", encoder_out, params["wv"])}
 
 
 # --------------------------------------------------------------------------

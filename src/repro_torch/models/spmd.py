@@ -469,8 +469,12 @@ class _Placed:
 # --------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the one-device model lacks."""
+    """Raise for what the one-device model lacks, and for an
+    encoder-decoder, which the one-device model runs and the slot program
+    does not yet."""
     T._check_supported(cfg)
+    if cfg.n_encoder_layers:
+        raise unported("the slot program's encoder and cross-attention", "queue A item 21c")
 
 
 class _Program:
@@ -976,7 +980,7 @@ def loss_fn(params, cfg: ModelConfig, batch):
     computed on the group's slot 0 alone (no other copy would reach the
     loss)."""
     if batch.get("frames") is not None or batch.get("patches") is not None:
-        raise unported("the slot program's frames / patches", "queue A item 21")
+        raise unported("the slot program's frames / patches", "queue A item 21c")
     prog = _Program(params, cfg)
     groups, plan = prog.groups, prog.plan
     tokens = T._tokens(batch["tokens"], groups.devices[0][0])

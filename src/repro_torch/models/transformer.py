@@ -3,7 +3,9 @@ decoders (pattern ``("attn",)`` or ``("local",)`` mixes: ``olmo_1b``,
 ``qwen3_14b``, ``yi_9b``, ``llama3_405b``), the MoE ones (``("attn",)``
 with ``cfg.moe``: ``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``) and
 the recurrent ones (``("rwkv",)``: ``rwkv6_3b``; ``("rglru", "rglru",
-"local")``: ``recurrentgemma_9b``), serving and training.
+"local")``: ``recurrentgemma_9b``) and the encoder-decoder
+(``whisper_large_v3``: an ``("attn",)`` decoder with cross-attention and
+``n_encoder_layers`` of ``enc-attn``), serving and training.
 
 The model is a ``Transformer`` module holding the embedding, the final
 norm and one ``Block`` module per layer, in execution order; its
@@ -11,7 +13,10 @@ parameters keep the JAX package's names and layouts.  An attention or
 ``rglru`` block holds ``norm1``, its mixer (``attn`` / ``rglru``),
 ``norm2`` and ``mlp`` (``moe`` where ``cfg.moe`` is set); an ``rwkv`` block
 is self-contained (its own norms
-and channel mix, ``models/rwkv6.py``).  The reference scans
+and channel mix, ``models/rwkv6.py``).  An encoder-decoder's decoder layers
+add ``normx`` and the cross-attention ``xattn`` after the mixer, and the
+model holds an ``Encoder`` module (``encoder``: its ``enc-attn`` layers and
+``norm``, the reference's ``params["encoder"]``).  The reference scans
 ``n_groups`` repetitions of the block pattern over stacked parameters
 (``params["blocks"]``, one list entry per pattern position, each leaf with
 a leading group axis) and runs the remainder unscanned
@@ -20,8 +25,10 @@ port loops; ``params_from_jax`` unstacks either layout into the flat layer
 list (layer ``g·len(pattern) + pos`` is group g's position pos;
 recurrentgemma_9b's 38 layers are 12 groups of its pattern, then 2
 unstacked ``rglru`` layers), and ``cache_from_jax`` does the same for a
-decode cache (KV caches and recurrent states) and ``opt_state_from_jax``
-for AdamW's moments.  As in the reference, the
+decode cache (KV caches, recurrent states, cross K/V) and
+``opt_state_from_jax`` for AdamW's moments; the encoder's layers are
+unstacked alike (the reference stacks them all in one scan when
+``cfg.scan_layers`` and there are two or more).  As in the reference, the
 scanned groups' layers run under a checkpoint when ``cfg.remat`` is set
 and gradients are on (``remat_policy="dots"`` keeps the 2-D matmul
 outputs); the unscanned tail never does.  Inside a recurrent mixer each
@@ -46,8 +53,18 @@ place and returns it.  An MoE layer's load-balance aux is summed over the
 layers into ``forward_seq``'s aux (float32), which ``loss_fn`` adds as
 ``0.01 · moe_aux``; a decode step drops it.
 
-The encoder and cross-attention (ROADMAP queue A item 21) and the VLM
-projector (item 21b) raise.
+The encoder runs over precomputed frames (B, ``cfg.encoder_seq``, D)
+(``encode``, the reference's stub frontend): its bidirectional, roped
+``enc-attn`` layers (checkpointed as the scanned groups are), then its
+norm.  ``forward_seq(frames=)``, ``loss_fn`` (``batch["frames"]``) and
+``prefill(frames=)`` run it where the config has an encoder, and ignore
+frames where it has none, as the reference does; each decoder layer then
+attends to its output, unroped, and a prefill keeps each layer's
+cross-attention K/V (``"cross"``) for decode.  A cache from ``init_cache``
+holds zero cross K/V and decode attends to them; a prefill without frames
+keeps none and decode skips cross-attention — the reference's three
+cases.  The VLM projector (ROADMAP queue A item 21b)
+raises.
 """
 from __future__ import annotations
 
@@ -69,6 +86,7 @@ from repro_torch.utils import resolve_device, tree_leaves, tree_map, unported
 
 Params = Dict[str, Any]
 _SUBLAYERS = ("norm1", "attn", "norm2", "mlp")     # an attention block's
+ENCODER_KIND = "enc-attn"
 
 
 # --------------------------------------------------------------------------
@@ -94,14 +112,19 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
     return LayerPlan(kinds, cfg.block_pattern, g, rem)
 
 
+def encoder_plan(cfg: ModelConfig) -> LayerPlan:
+    """The encoder's ``cfg.n_encoder_layers`` layers of kind ``enc-attn``,
+    laid out as the reference's ``params["encoder"]``: all stacked in one
+    scan (``blocks[0]``) when ``cfg.scan_layers`` and there are two or more,
+    else unstacked (``rem``)."""
+    return layer_plan(dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers,
+                                          block_pattern=(ENCODER_KIND,)))
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
-        if kind in L.MIXER_ITEMS:
-            raise unported(f"{kind!r} layers", L.MIXER_ITEMS[kind])
         if kind not in ("attn", "local", "rglru", "rwkv"):
             raise ValueError(f"unknown layer kind {kind!r} in {cfg.name}'s block_pattern")
-    if cfg.n_encoder_layers:
-        raise unported("the encoder and cross-attention", "queue A item 21")
     if cfg.n_patches:
         raise unported("the VLM projector (n_patches > 0)", "queue A item 21b")
 
@@ -116,11 +139,11 @@ def _param_dict(tensors: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer in the reference's layout: ``norm1``, the mixer
-    (``attn`` or ``rglru``), ``norm2``, ``mlp`` or ``moe``, each a ``ParameterDict``
-    under the reference's names (the non-parametric norms are empty); an
-    ``rwkv`` layer's flat dict of parameters is the one ``ParameterDict``
-    ``rwkv``."""
+    """One layer in the reference's layout: ``norm1``, the mixer (``attn``
+    or ``rglru``), in an encoder-decoder's decoder ``normx`` and ``xattn``,
+    then ``norm2``, ``mlp`` or ``moe``, each a ``ParameterDict`` under the
+    reference's names (the non-parametric norms are empty); an ``rwkv``
+    layer's flat dict of parameters is the one ``ParameterDict`` ``rwkv``."""
 
     def __init__(self, kind: str, params: Params):
         super().__init__()
@@ -139,17 +162,33 @@ class Block(nn.Module):
         return {name: dict(getattr(self, name)) for name in self.sublayers}
 
 
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder: ``layers`` (one ``enc-attn`` ``Block``
+    per layer, in execution order) and ``norm``."""
+
+    def __init__(self, layers: List[Block], norm: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.norm = _param_dict(norm)
+
+    def tree(self) -> Params:
+        return {"layers": [blk.tree() for blk in self.layers], "norm": dict(self.norm)}
+
+
 class Transformer(nn.Module):
-    """The decoder: ``embed`` (``tok``[, ``unembed``]), ``layers`` (one
-    ``Block`` per layer, in execution order) and ``final_norm``."""
+    """The model: ``embed`` (``tok``[, ``unembed``]), ``layers`` (one
+    decoder ``Block`` per layer, in execution order), ``final_norm``, and
+    an encoder-decoder's ``encoder`` (else None)."""
 
     def __init__(self, cfg: ModelConfig, embed: Dict[str, torch.Tensor],
-                 final_norm: Dict[str, torch.Tensor], layers: List[Block]):
+                 final_norm: Dict[str, torch.Tensor], layers: List[Block],
+                 encoder: Optional[Encoder] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = _param_dict(embed)
         self.final_norm = _param_dict(final_norm)
         self.layers = nn.ModuleList(layers)
+        self.encoder = encoder
         self._compute: Optional[Tuple[tuple, Params]] = None
 
     @property
@@ -158,9 +197,13 @@ class Transformer(nn.Module):
 
     def tree(self) -> Params:
         """The parameters as a nested dict of tensors (``embed``,
-        ``final_norm``, ``layers``: a list of per-layer dicts)."""
-        return {"embed": dict(self.embed), "final_norm": dict(self.final_norm),
-                "layers": [blk.tree() for blk in self.layers]}
+        ``final_norm``, ``layers``: a list of per-layer dicts; an
+        encoder-decoder's ``encoder``: ``{"layers", "norm"}``)."""
+        out = {"embed": dict(self.embed), "final_norm": dict(self.final_norm),
+               "layers": [blk.tree() for blk in self.layers]}
+        if self.encoder is not None:
+            out["encoder"] = self.encoder.tree()
+        return out
 
 
 def _training(model: Transformer) -> bool:
@@ -194,6 +237,11 @@ def _cast_params(model: Transformer, cfg: ModelConfig) -> Params:
 # init and weights from the JAX package
 # --------------------------------------------------------------------------
 
+def _cross(cfg: ModelConfig, kind: str) -> bool:
+    """A decoder layer of an encoder-decoder: it holds a cross-attention."""
+    return bool(cfg.n_encoder_layers) and kind != ENCODER_KIND
+
+
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device) -> Params:
     """One layer's parameters; an ``rwkv`` block is self-contained."""
     if kind == "rwkv":
@@ -201,10 +249,14 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
     mixer = (("rglru", rglru_lib.init_rglru) if kind == "rglru" else
              ("attn", L.init_attention))
     ffn = ("moe", L.init_moe) if cfg.moe is not None else ("mlp", L.init_mlp)
-    return {"norm1": L.init_norm(cfg, dtype, device=device),
-            mixer[0]: mixer[1](gen, cfg, dtype, device=device),
-            "norm2": L.init_norm(cfg, dtype, device=device),
-            ffn[0]: ffn[1](gen, cfg, dtype, device=device)}
+    p = {"norm1": L.init_norm(cfg, dtype, device=device),
+         mixer[0]: mixer[1](gen, cfg, dtype, device=device)}
+    if _cross(cfg, kind):
+        p["normx"] = L.init_norm(cfg, dtype, device=device)
+        p["xattn"] = L.init_attention(gen, cfg, dtype, device=device, cross=True)
+    p["norm2"] = L.init_norm(cfg, dtype, device=device)
+    p[ffn[0]] = ffn[1](gen, cfg, dtype, device=device)
+    return p
 
 
 def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
@@ -224,15 +276,24 @@ def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
     embed = L.init_embeddings(gen, cfg, dtype, device=dev)
     final_norm = L.init_norm(cfg, dtype, device=dev)
     layers = [Block(kind, _init_layer(gen, cfg, kind, dtype, dev)) for kind in plan.kinds]
-    return Transformer(cfg, embed, final_norm, layers)
+    encoder = None
+    if cfg.n_encoder_layers:
+        encoder = Encoder([Block(kind, _init_layer(gen, cfg, kind, dtype, dev))
+                           for kind in encoder_plan(cfg).kinds],
+                          L.init_norm(cfg, dtype, device=dev))
+    return Transformer(cfg, embed, final_norm, layers, encoder)
 
 
 def _tables(cfg: ModelConfig) -> Params:
     """The model's (shape, logical axes) pairs in ``Transformer.tree()``'s
     layout, from the sublayers' tables."""
     _check_supported(cfg)
-    return {"embed": L.embedding_table(cfg), "final_norm": L.norm_table(cfg),
-            "layers": [_layer_table(cfg, kind) for kind in layer_plan(cfg).kinds]}
+    out = {"embed": L.embedding_table(cfg), "final_norm": L.norm_table(cfg),
+           "layers": [_layer_table(cfg, kind) for kind in layer_plan(cfg).kinds]}
+    if cfg.n_encoder_layers:
+        out["encoder"] = {"layers": [_layer_table(cfg, kind) for kind in encoder_plan(cfg).kinds],
+                          "norm": L.norm_table(cfg)}
+    return out
 
 
 def _layer_table(cfg: ModelConfig, kind: str) -> Params:
@@ -241,8 +302,13 @@ def _layer_table(cfg: ModelConfig, kind: str) -> Params:
     mixer = ("rglru", rglru_lib.rglru_table(cfg)) if kind == "rglru" else \
         ("attn", L.attention_table(cfg))
     ffn = ("moe", L.moe_table(cfg)) if cfg.moe is not None else ("mlp", L.mlp_table(cfg))
-    return {"norm1": L.norm_table(cfg), mixer[0]: mixer[1], "norm2": L.norm_table(cfg),
-            ffn[0]: ffn[1]}
+    t = {"norm1": L.norm_table(cfg), mixer[0]: mixer[1]}
+    if _cross(cfg, kind):
+        t["normx"] = L.norm_table(cfg)
+        t["xattn"] = L.attention_table(cfg, cross=True)
+    t["norm2"] = L.norm_table(cfg)
+    t[ffn[0]] = ffn[1]
+    return t
 
 
 def _map_pairs(tree, fn):
@@ -270,11 +336,11 @@ def param_shapes(cfg: ModelConfig, dtype=None) -> Params:
                       lambda shape, axes: torch.empty(shape, dtype=dt, device="meta"))
 
 
-def _layer_sources(cfg: ModelConfig):
-    """For each layer in execution order: (kind, where its parameters sit
-    in the reference's tree) — ("blocks", pattern position, group) or
-    ("rem", index)."""
-    plan = layer_plan(cfg)
+def _layer_sources(cfg: ModelConfig, plan: Optional[LayerPlan] = None):
+    """For each layer of ``plan`` (the decoder's by default) in execution
+    order: (kind, where its parameters sit in the reference's tree, or its
+    encoder's) — ("blocks", pattern position, group) or ("rem", index)."""
+    plan = plan or layer_plan(cfg)
     out = []
     for g in range(plan.n_groups):
         for pos, kind in enumerate(plan.pattern):
@@ -312,11 +378,28 @@ def _tensor(x, device) -> torch.Tensor:
 
 def _unstack(tree_np: Params, cfg: ModelConfig, dev) -> Params:
     """A tree in the JAX parameter layout as the port's ``{"embed",
-    "final_norm", "layers"}`` (``Transformer.tree()``'s layout), each leaf
-    copied to ``dev``."""
+    "final_norm", "layers"[, "encoder"]}`` (``Transformer.tree()``'s
+    layout), each leaf copied to ``dev``."""
     conv = lambda x: _tensor(x, dev)
-    return {"embed": _map(tree_np["embed"], conv), "final_norm": _map(tree_np["final_norm"], conv),
-            "layers": [_map(_pick(tree_np, src), conv) for _, src in _layer_sources(cfg)]}
+    out = {"embed": _map(tree_np["embed"], conv), "final_norm": _map(tree_np["final_norm"], conv),
+           "layers": [_map(_pick(tree_np, src), conv) for _, src in _layer_sources(cfg)]}
+    if cfg.n_encoder_layers:
+        enc = tree_np["encoder"]
+        out["encoder"] = {"layers": [_map(_pick(enc, src), conv)
+                                     for _, src in _layer_sources(cfg, encoder_plan(cfg))],
+                          "norm": _map(enc["norm"], conv)}
+    return out
+
+
+def _check_layout(tree_np: Params, plan: LayerPlan, what: str) -> None:
+    """The tree's ``blocks`` / ``rem`` lists hold ``plan``'s layers."""
+    blocks = tree_np.get("blocks", [])
+    groups = {int(np.shape(leaf)[0]) for b in blocks for leaf in tree_leaves(b)}
+    if len(blocks) != (len(plan.pattern) if plan.n_groups else 0) or \
+            groups - {plan.n_groups} or len(tree_np["rem"]) != len(plan.rem_kinds):
+        raise ValueError(f"the tree's blocks / rem lists do not match {what}'s layer plan "
+                         f"({plan.n_groups} groups of {plan.pattern}, {len(plan.rem_kinds)} "
+                         f"unstacked)")
 
 
 def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Transformer:
@@ -325,20 +408,21 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
     the scan-stacked ``params["blocks"]`` (a list over pattern positions,
     each leaf with a leading ``n_groups`` axis: the full ``olmo_1b``'s) and
     the unstacked ``params["rem"]`` list (``smoke_config()``'s), or both
-    (``recurrentgemma_9b``'s scanned groups and its two-layer tail)."""
+    (``recurrentgemma_9b``'s scanned groups and its two-layer tail); an
+    encoder-decoder's ``params["encoder"]`` in either layout too."""
     _check_supported(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     plan = layer_plan(cfg)
-    blocks = params_np.get("blocks", [])
-    groups = {int(np.shape(leaf)[0]) for b in blocks for leaf in tree_leaves(b)}
-    if len(blocks) != (len(plan.pattern) if plan.n_groups else 0) or \
-            groups - {plan.n_groups} or len(params_np["rem"]) != len(plan.rem_kinds):
-        raise ValueError(f"the tree's blocks / rem lists do not match {cfg.name}'s layer plan "
-                         f"({plan.n_groups} groups of {plan.pattern}, {len(plan.rem_kinds)} "
-                         f"unstacked)")
+    _check_layout(params_np, plan, cfg.name)
+    if cfg.n_encoder_layers:
+        _check_layout(params_np["encoder"], encoder_plan(cfg), f"{cfg.name}'s encoder")
     tree = _unstack(params_np, cfg, dev)
     layers = [Block(kind, lp) for kind, lp in zip(plan.kinds, tree["layers"])]
-    return Transformer(cfg, tree["embed"], tree["final_norm"], layers)
+    encoder = None
+    if cfg.n_encoder_layers:
+        encoder = Encoder([Block(ENCODER_KIND, lp) for lp in tree["encoder"]["layers"]],
+                          tree["encoder"]["norm"])
+    return Transformer(cfg, tree["embed"], tree["final_norm"], layers, encoder)
 
 
 # --------------------------------------------------------------------------
@@ -445,11 +529,13 @@ def cache_layout(kv: torch.Tensor, cfg: ModelConfig, kind: str, cache_len: int):
 
 
 def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, state=None, cache_len: int,
-                     collect: bool, shd=None):
+                     collect: bool, shd=None, encoder_out=None):
     """One layer over the sequence: (x, the MoE aux — a float32 zero for
     other layers —, the layer's new state when ``collect``).  ``state`` (a
     recurrent layer's ``{"rnn": ...}``) is the state before the sequence;
-    attention layers ignore it."""
+    attention layers ignore it.  With ``encoder_out`` the layer's
+    cross-attention runs after its mixer, and a collected state keeps its
+    K/V (``"cross"``)."""
     new_state: Params = {}
     rnn0 = (state or {}).get("rnn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -470,6 +556,11 @@ def _apply_layer_seq(p: Params, cfg: ModelConfig, kind: str, x, *, state=None, c
     else:
         mix = L.attention_forward(p["attn"], cfg, h, kind=kind)
     x = x + mix
+    if encoder_out is not None:
+        hx = L.apply_norm(p["normx"], cfg, x)
+        x = x + L.attention_forward(p["xattn"], cfg, hx, encoder_out=encoder_out)
+        if collect:
+            new_state["cross"] = L.init_cross_cache(p["xattn"], cfg, encoder_out)
     h2 = L.apply_norm(p["norm2"], cfg, x)
     if "moe" in p:
         out, aux = L.apply_moe(p["moe"], cfg, h2, shd)
@@ -512,9 +603,11 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     (``_training``) with ``cfg.remat``, each layer of the scanned groups is
     checkpointed, its aux returned beside x so that it stays differentiable.
     ``shd`` reaches the MoE layers (their per-data-shard dispatch).
-    ``frames`` and ``patches`` (encoder and VLM inputs) raise."""
-    if frames is not None or patches is not None:
-        raise unported("forward_seq(frames= / patches=)", "queue A item 21")
+    ``frames`` (B, T, D), where the config has an encoder, run through it
+    (``encode``) and every decoder layer attends to its output; a config
+    without one ignores them, as the reference does."""
+    if patches is not None and cfg.n_patches:
+        raise unported("forward_seq(patches=)", "queue A item 21b")
     if states is not None and len(states) != cfg.n_layers:
         raise ValueError(f"states has {len(states)} entries; {cfg.name} has {cfg.n_layers} "
                          f"layers")
@@ -522,33 +615,38 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     x = L.embed(p["embed"], cfg, _tokens(tokens, model.device))
     plan = layer_plan(cfg)
     n_scanned = plan.n_groups * len(plan.pattern)
-    remat = cfg.remat and not collect and _training(model)
+    training = _training(model)
+    remat = cfg.remat and not collect and training
+    encoder_out = None
+    if cfg.n_encoder_layers and frames is not None:
+        encoder_out = _encode(p["encoder"], cfg, frames, model.device, cfg.remat and training)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: List[Params] = []
     for i, (lp, blk) in enumerate(zip(p["layers"], model.layers)):
         st = states[i] if states is not None else None
         if remat and i < n_scanned:
-            x, aux_i = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind, st, shd))(x)
+            x, aux_i = _remat(cfg, functools.partial(_layer_out, lp, cfg, blk.kind, st, shd,
+                                                     encoder_out))(x)
             ns: Params = {}
         else:
             x, aux_i, ns = _apply_layer_seq(lp, cfg, blk.kind, x, state=st, cache_len=cache_len,
-                                            collect=collect, shd=shd)
+                                            collect=collect, shd=shd, encoder_out=encoder_out)
         aux = aux + aux_i
         new_states.append(ns)
     x = L.apply_norm(p["final_norm"], cfg, x)
     return x, aux, (new_states if collect else None)
 
 
-def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, shd, x):
+def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, shd, encoder_out, x):
     """A layer's (x, aux), the function a training forward checkpoints."""
     return _apply_layer_seq(lp, cfg, kind, x, state=state, cache_len=0, collect=False,
-                            shd=shd)[:2]
+                            shd=shd, encoder_out=encoder_out)[:2]
 
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
     """Next-token cross entropy (+ 0.01 · the MoE aux loss, 0 without MoE).
-    ``batch``: ``tokens``, ``labels``, optional ``loss_mask`` (``frames`` /
-    ``patches`` raise in ``forward_seq``).  The unembedding runs against
+    ``batch``: ``tokens``, ``labels``, optional ``loss_mask`` and
+    ``frames`` (the encoder's input).  The unembedding runs against
     the master embedding, uncast, as the reference's does: bf16 hidden
     states against float32 masters give float32 logits.  Returns (loss,
     {"xent", "moe_aux"})."""
@@ -564,8 +662,29 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
     return loss, {"xent": xent, "moe_aux": aux}
 
 
-def encode(params, cfg: ModelConfig, frames, shd=None):
-    raise unported("encode (the whisper encoder)", "queue A item 21")
+def _encode(enc: Params, cfg: ModelConfig, frames, device, remat: bool):
+    """The encoder over ``frames`` with its compute-dtype parameters ``enc``
+    (``{"layers", "norm"}``): the frames cast to the activation dtype, each
+    ``enc-attn`` layer — under a checkpoint when ``remat``, for the layers
+    the reference scans —, then the norm."""
+    x = torch.as_tensor(np.asarray(frames) if not isinstance(frames, torch.Tensor) else frames,
+                        device=device).to(cfg.activation_dtype())
+    n_scanned = encoder_plan(cfg).n_groups
+    for i, lp in enumerate(enc["layers"]):
+        f = functools.partial(_layer_out, lp, cfg, ENCODER_KIND, None, None, None)
+        if remat and i < n_scanned:
+            x, _ = checkpoint(f, x, use_reentrant=False)
+        else:
+            x, _ = f(x)
+    return L.apply_norm(enc["norm"], cfg, x)
+
+
+def encode(model: Transformer, cfg: ModelConfig, frames, shd=None) -> torch.Tensor:
+    """The whisper-style encoder over precomputed frame embeddings (the
+    reference's stub frontend): frames (B, ``cfg.encoder_seq``, D) ->
+    (B, T, D) in the activation dtype; differentiable."""
+    return _encode(_cast_params(model, cfg)["encoder"], cfg, frames, model.device,
+                   cfg.remat and _training(model))
 
 
 # --------------------------------------------------------------------------
@@ -577,8 +696,9 @@ def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[
                        pos, shd=None):
     """Decode one token through the stack, returning the final-norm hidden
     state (B, D) — the retrieval query vector — and the cache, updated in
-    place (a KV slot written, a recurrent layer's state replaced).  An MoE
-    layer's aux is dropped, as the reference's is."""
+    place (a KV slot written, a recurrent layer's state replaced).  A layer
+    whose state holds ``"cross"`` K/V attends to them after its mixer.  An
+    MoE layer's aux is dropped, as the reference's is."""
     p = _cast_params(model, cfg)
     x1 = L.embed(p["embed"], cfg, _tokens(token, model.device)[:, None])
     for lp, blk, st in zip(p["layers"], model.layers, cache):
@@ -591,6 +711,10 @@ def decode_step_hidden(model: Transformer, cfg: ModelConfig, token, cache: List[
         else:
             mix, st["kv"] = L.attention_decode(lp["attn"], cfg, h, st["kv"], pos, kind=blk.kind)
         x1 = x1 + mix
+        if "cross" in st:
+            hx = L.apply_norm(lp["normx"], cfg, x1)
+            x1 = x1 + L.attention_decode(lp["xattn"], cfg, hx, None, pos,
+                                         cross_cache=st["cross"])[0]
         h2 = L.apply_norm(lp["norm2"], cfg, x1)
         x1 = x1 + (L.apply_moe(lp["moe"], cfg, h2)[0] if "moe" in lp else
                    L.apply_mlp(lp["mlp"], cfg, h2))
@@ -614,7 +738,8 @@ def decode_step(model: Transformer, cfg: ModelConfig, token, cache: List[Params]
 @torch.no_grad()
 def prefill(model: Transformer, cfg: ModelConfig, tokens, cache_len: int, shd=None, *,
             frames=None, patches=None):
-    """Run the full prompt, return (last_logits (B,V), cache)."""
+    """Run the full prompt (and ``frames`` through the encoder, where the
+    config has one), return (last_logits (B,V), cache)."""
     hidden, _, states = forward_seq(model, cfg, tokens, shd, frames=frames, patches=patches,
                                     collect=True, cache_len=cache_len)
     return L.unembed(model.embed, cfg, hidden[:, -1:])[:, 0], states

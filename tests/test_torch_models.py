@@ -514,27 +514,20 @@ UNPORTED = {
     "spmd decode_step vlm": lambda: spmd.decode_step(
         None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
         np.zeros(1, np.int32), None, 0),
-    "encoder": lambda: T.init_params(0, dataclasses.replace(
-        C.get_smoke_config("olmo_1b"), n_encoder_layers=2), device="cpu"),
     "vlm": lambda: T.init_params(0, dataclasses.replace(
         C.get_smoke_config("olmo_1b"), n_patches=4), device="cpu"),
-    "loss_fn": lambda: T.loss_fn(T.init_params(0, C.get_smoke_config("olmo_1b"), device="cpu"),
-                                 C.get_smoke_config("olmo_1b"),
-                                 {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
-    "frames": lambda: T.forward_seq(None, C.get_smoke_config("olmo_1b"), None, frames=1),
     "build_prefill vlm": lambda: steps.build_prefill(
         dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
         C.SHAPES["prefill_32k"], make_host_mesh(2, slots=4, device="cpu")),
-    "cross": lambda: L.attention_forward({}, C.get_smoke_config("olmo_1b"), None,
-                                         encoder_out=1),
 }
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 21
-    (encoder), 21b (VLM), in the one-device model and the slot program."""
-    with pytest.raises(NotImplementedError, match="queue A item (21|21b)"):
+    """Every refusal names the queue A item that brings the feature: 21b
+    (VLM), 21c (the encoder and frames in the slot program), in the
+    one-device model and the slot program."""
+    with pytest.raises(NotImplementedError, match="queue A item (21b|21c)"):
         UNPORTED[what]()
 
 
