@@ -113,14 +113,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          by bucket (printed, not gated);
   (p)    the crash-mid-checkpoint drill on (o)'s index through
          ``CrashingCheckpointManager`` and ``ScriptedFaults``: a durable save,
-         then for each of ``pre-arrays``, ``pre-manifest`` and ``pre-latest`` 5
-         base ids deleted (the generation stays dirty), the save crashed,
+         then at ``pre-latest`` (the last of the three crash points;
+         ``pre-arrays`` and ``pre-manifest`` run in the CPU tests) 5 base ids
+         deleted (the generation stays dirty), the save crashed,
          ``KNNIndex.load`` on the card answering 4,096 of (c)'s queries at
          K = 16 bit-identically to the last acknowledged generation, with its
-         tombstones (after ``pre-latest`` the complete step directory exists
-         while ``LATEST`` names the acknowledged one), and the retried save
-         landing and loading bit-identically to the live index; save / load
-         times and bytes on disk;
+         tombstones (the complete step directory exists while ``LATEST``
+         names the acknowledged one), and the retried save landing and
+         loading bit-identically to the live index; save / load times and
+         bytes on disk;
   (q)    the mesh on the one card: one process drives P logical slots, all on
          ``cuda:0`` (``make_serving_mesh``).  (q1) a 4 × 1 ``ShardedKNNIndex``
          over (b)'s 5M points, ε selected once globally (``bin_hist``): (c)'s
@@ -216,8 +217,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          ``transformer.prefill`` of the same weights (``SERVE_LOGIT_ATOL``,
          ``SERVE_KV_RTOL``).  (u2) ``build_decode``'s step
          (``decode_32k``, batch cut 128 → 4) over a seeded cache of 32,768
-         positions placed by ``cache_shapes_and_shardings``, 16 steps from
-         pos 32,752, each step's logits and written K/V held to the
+         positions placed by ``cache_shapes_and_shardings``, 8 steps from
+         pos 32,760, each step's logits and written K/V held to the
          one-device ``decode_step`` on the global copy of the cache; step
          times and tokens/s, the last step under ``torch.profiler`` (busy
          share, ``spmd.collective`` device time).  (u3) ``dryrun``'s records
@@ -258,7 +259,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          runs on it), at their published widths with the depth cut to 8,
          bf16 weights from seed 3.  (w1) ``rwkv6_3b`` on 2 × 4 slots of the
          card (10 heads a slot): ``build_prefill``'s step on 2 × 512 tokens,
-         then 16 ``build_decode`` steps; (w1s) the same weights on 1 × 16
+         then 8 ``build_decode`` steps; (w1s) the same weights on 1 × 16
          slots (160 channels, 2.5 heads a slot: every slot scans all 40
          heads), a 2 × 128 prefill and 4 steps; (w2) ``recurrentgemma_9b``
          on 2 × 4 (8 layers: two (rglru, rglru, local) groups and the
@@ -345,6 +346,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          (LM and lookup), tokens/s after the prefill, peak memory, one
          profiled decode step.  (a) holds the lookup's first call at D =
          1,280.
+  (za)   the VLM on one card (``models/transformer``'s ``mm_projector``,
+         ``forward_seq(patches=)``, ``prefill(patches=)``, plain tensor code;
+         no kernel of ``csrc/`` but the lookup's), seed 3.  (za1)
+         ``llava_next_mistral_7b`` at its published config (32 layers,
+         d_model 4,096, 32/8 heads × 128, d_ff 14,336, vocab 32,000, rope θ
+         1e6, attn_chunk 1,024; 2,880 patches of 1,024 CLIP features through
+         the projector; f32 masters, bf16 activations, 7,262,703,616
+         parameters) with the kNN-LM head as in (v): 16,384 keys from 32 × 513
+         tokens (the decoder without patches), seeded standard normal patches
+         (2, 2,880, 1,024), ``prefill(patches=)`` of 2 × 256 tokens, then 16
+         greedy ``decode_step_retrieval`` steps from position 2,880 + 256 (16
+         ``knn_tile_topk`` launches counted).  Held: (a) a prefill of other
+         prompts after the same patches leaves every layer's K/V at the 2,880
+         patch positions bit for bit the same; (b) the serving loop's LM
+         logits and ``forward_seq(patches=)``'s over the same 2,880 + 272
+         positions against a float32 forward by (r)'s criterion; (c) the
+         prefill's last logits with and without the patches differ by more
+         than ``ZA_PATCHES_RATIO`` times the bf16 forward's relative RMS gap
+         to float32.  The projector's ms alone, prefill s, decode ms a step
+         (LM and lookup), tokens/s after the prefill, peak memory, one
+         profiled decode step.  (a) holds the lookup's first call at D =
+         4,096.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -356,13 +379,13 @@ Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
 (s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
 steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2), (x3), the
-prefill and decode of (y1) and (y2), each step of (y3) and (z1) —
+prefill and decode of (y1) and (y2), each step of (y3), (z1) and (za1) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
 of (b)–(d); (o)'s are on its own ``(serving micro-batch)`` rows, (q1)'s on the
 ``(sharded, per shard)`` rows, the ring's on ``(ring hop chunk)``, (r1)'s
-and (r2)'s, (v1)'s, (v2)'s, (x1)'s and (z1)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
+and (r2)'s, (v1)'s, (v2)'s, (x1)'s, (z1)'s and (za1)'s on the ``(kNN-LM ...)`` rows.  The last lines are the card's name and power
 limit, one JSON line with every kernel's numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -416,7 +439,10 @@ MAX_WAIT_BUCKETS = 0.5             # micro-batch wait cap, same units
 SERVE_EXACT_ROWS = 256
 SERVE_MEASURED_RUNS = 3           # (o)'s 2× run timed on the card, repeated
 CRASH_QUERIES = 4096               # (p)
-CRASH_DELETE = 5                   # per phase: 15 tombstones, headroom 16 at K_MUT
+CRASH_DELETE = 5                   # per phase: at most 15 tombstones, headroom 16 at K_MUT
+CRASH_PHASES = ("pre-latest",)     # (p): the crash points driven on the card (pre-arrays
+                                   # and pre-manifest too, until the script neared its time
+                                   # limit)
 MESH_SHARDS = 4                    # (q1): four logical slots, all on cuda:0
 MESH_SELF_ROWS = 524_288           # (q1) sharded self-join, (q4) ring joins (1,048,576 until
                                    # the script neared its time limit)
@@ -481,7 +507,8 @@ SERVE_PREFILL_BATCH = 2            # (u1): prefill_32k's global batch 32 cut to 
 SERVE_PREFILL_RUNS = 1             # (u1): timed sharded prefills (the first one checked)
 SERVE_CACHE = 32_768               # (u2): decode_32k's cache, uncut
 SERVE_DECODE_BATCH = 4             # (u2): decode_32k's global batch 128 cut to 4
-SERVE_STEPS = 16                   # (u2): decode steps from pos = SERVE_CACHE − SERVE_STEPS
+SERVE_STEPS = 8                    # (u2): decode steps from pos = SERVE_CACHE − SERVE_STEPS (16
+                                   # until the script neared its time limit)
 # (u) the sharded serving steps against the one-device functions, both in
 # bf16 from the same bf16 weights.  As in (t1), the slot program rounds in
 # other places than the one-device step (each row-parallel partial rounded
@@ -505,6 +532,8 @@ REC_KEY_SEQS = 32                  # (v1), (v2): 32 seeded sequences of 513 toke
 REC_KEY_LEN = 513                  # 32 × 512 (hidden, next-token) pairs = 16,384 keys
 REC_BATCH = 2                      # prompts a generate call
 REC_STEPS = 16                     # decode steps, each with the in-step lookup
+W1_STEPS = 8                       # (w1)'s decode steps in the slot program (REC_STEPS until
+                                   # the script neared its time limit)
 RWKV_PROMPT = 512                  # (v1): rwkv6_3b's prefill, 2 × 512 tokens
 RG_PROMPT = 2560                   # (v2): recurrentgemma_9b's, past its 2,048-token window
 REC_TRAIN_LAYERS = 2               # (v3): rwkv6_3b's width, depth cut 32 → 2
@@ -607,6 +636,18 @@ Z_STEPS = 16                       # 272 positions, inside whisper's 448-token d
 # 3): with / without frames 1.1104 apart against a bf16 gap of 8.1991e-3, a
 # ratio of 135.4.
 Z_FRAMES_RATIO = 10.0
+ZA_PARAMS = 7_262_703_616          # (za1): llava_next_mistral_7b's parameters: n_params()
+                                   # 7,241,465,856 + the projector + the norm scales
+ZA_PROMPT = 256                    # (za1): 2 × 256 text tokens after the 2,880 patches,
+ZA_STEPS = 16                      # then 16 decode steps from position 2,880 + 256
+# (za1) check (c): the prefill's last logits with the patches and without
+# them differ, by relative RMS, by more than ZA_PATCHES_RATIO times the bf16
+# forward's own relative RMS gap to float32, so a projector that adds
+# nothing fails.  (z)'s ratio.  CPU rehearsal (llava at 4 layers, d_model
+# 256, 8/2 heads, d_ff 512, vocab 2,048, 2,880 patches of 1,024 features,
+# 2 × 64 prompts, seed 3): with / without patches 1.3858 apart against a
+# bf16 gap of 1.0535e-2, a ratio of 131.5.
+ZA_PATCHES_RATIO = 10.0
 
 
 def log(msg: str) -> None:
@@ -2483,7 +2524,7 @@ def recurrent_sharded_phase(dev, reset_counts, read_counts):
     t_w = time.perf_counter()
     model = recurrent_model(dev, "rwkv6_3b")
     cells = [(model.cfg,) + sharded_recurrent_serve(dev, "w1", model, SPMD_MODEL, SPMD_SLOTS,
-                                                    RWKV_PROMPT, REC_STEPS, reset_counts,
+                                                    RWKV_PROMPT, W1_STEPS, reset_counts,
                                                     read_counts)]
     sharded_recurrent_serve(dev, "w1s", model, W_STRADDLE_MODEL, W_STRADDLE_MODEL,
                             W_STRADDLE_PROMPT, W_STRADDLE_STEPS, reset_counts, read_counts,
@@ -3156,6 +3197,158 @@ def moe_sharded_phase(dev, reset_counts, read_counts):
     log(f"[y] phase {time.perf_counter() - t_y:.2f}s")
 
 
+def lookup_model(dev, tag, arch):
+    """(z1) / (za1): ``arch``'s published config with the kNN-LM head as in
+    (v), its seeded masters on ``dev`` (seed REC_SEED), the parameter count
+    held to its tables'.  Returns (cfg, model, count, init ms)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import RetrievalConfig, get_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[{tag}] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    cfg = dataclasses.replace(get_config(arch), retrieval=RetrievalConfig(
+        enabled=True, k=8, lam=0.9, temperature=1.0))
+    model, init_ms = timed(lambda: lm.init_params(REC_SEED, cfg, device=dev))
+    n_par = sum(p.numel() for p in model.parameters())
+    assert n_par == sum(t.numel() for t in tree_leaves(lm.param_shapes(cfg))), \
+        f"({tag}1) the model's parameter count is not its tables'"
+    return cfg, model, n_par, init_ms
+
+
+def lookup_datastore(tag, model, cfg, corpus, without):
+    """(z1) / (za1): the kNN-LM datastore over ``corpus``, built by the
+    decoder run without ``without`` (frames, patches), as the reference
+    builds it."""
+    from repro_torch.models import knn_lm
+
+    ds, ds_s = synced(lambda: knn_lm.build_datastore(model, cfg, [corpus]))
+    n_keys = corpus.shape[0] * (corpus.shape[1] - 1)
+    assert tuple(ds.keys.shape) == (n_keys, cfg.d_model)
+    log(f"[{tag}1] build_datastore over {corpus.shape[0]} × {corpus.shape[1]} tokens (the "
+        f"decoder without {without}, as the reference builds it): {n_keys} keys × "
+        f"{cfg.d_model} dims in {ds_s:.3f}s")
+    return ds
+
+
+def serve_lookup(tag, model, cfg, prompts, ds, start, n_steps, cache_len, reset_counts,
+                 read_counts, **inputs):
+    """(z1) / (za1): ``serve.generate``'s loop with the prefill given
+    ``inputs`` (``frames=`` or ``patches=``), then ``n_steps`` greedy
+    ``decode_step_retrieval`` steps from position ``start``, the prefill,
+    each LM step and each lookup timed; one ``knn_tile_topk`` launch a step
+    (the prefill's logits are bare).  Returns (tokens (B, n_steps + 1), the
+    cache, the prefill's logits, the steps' final-norm hidden states (B,
+    n_steps, D), the lookup's first ``knn_topk`` call, the launch counts,
+    the LM's ms a step, the wall seconds after the prefill)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.knn_topk import ops as topk_ops
+    from repro_torch.models import knn_lm
+    from repro_torch.models import transformer as lm
+
+    def serve():
+        logits, cache = lm.prefill(model, cfg, prompts, cache_len, **inputs)
+        toks = [torch.argmax(logits, dim=-1)]
+        for t in range(n_steps):
+            logits, cache = knn_lm.decode_step_retrieval(model, cfg, toks[-1], cache,
+                                                         start + t, ds)
+            toks.append(torch.argmax(logits, dim=-1))
+        return torch.stack(toks, dim=1), cache
+
+    what = ", ".join(inputs)
+    spies = [Spy(lm, "prefill"), Spy(lm, "decode_step_hidden"), Spy(knn_lm, "lookup", keep=False)]
+    reset_counts()
+    with contextlib.ExitStack() as stack, FirstCall(topk_ops, "knn_topk") as call:
+        for sp in spies:
+            stack.enter_context(sp)
+        (out, cache), wall = synced(serve)
+    launches = read_counts(f"({tag}1) {cfg.name}: prefill({what}=) + {n_steps} decode steps "
+                           f"with the in-step lookup")
+    assert tuple(out.shape) == (prompts.shape[0], n_steps + 1)
+    assert launches.get("knn_tile_topk", 0) == n_steps, \
+        f"({tag}1) expected one knn_tile_topk launch a decode step"
+    lm_t = np.array(spies[1].times) * 1e3
+    ret_t = np.array(spies[2].times) * 1e3
+    after = wall - spies[0].times[0]
+    log(f"[{tag}1] serving: prefill of {prompts.shape[0]} × {prompts.shape[1]} tokens with the "
+        f"{what} {spies[0].times[0]:.3f}s; per decode step: LM {lm_t.mean():.3f} ms "
+        f"[{lm_t.min():.3f}–{lm_t.max():.3f}], lookup {ret_t.mean():.3f} ms [{ret_t.min():.3f}–"
+        f"{ret_t.max():.3f}]; {prompts.shape[0]} × {n_steps} tokens in {wall:.3f}s, "
+        f"{prompts.shape[0] * n_steps / after:.1f} tokens/s after the prefill; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    hid = torch.stack([c[2][0] for c in spies[1].calls], 1)
+    return out, cache, spies[0].calls[0][2][0], hid, call, launches, lm_t
+
+
+def hold_lookup_serving(tag, model, cfg, prompts, out, pre_logits, hid, start, ratio, **inputs):
+    """(z1) / (za1) checks (b) and (c).  (b) decode against forward: the
+    serving loop's LM logits (the prefill's, then each step's unembedded
+    hidden state) and ``forward_seq(**inputs)``'s over the same tokens, from
+    position ``start`` − 1 on, each against a float32 forward of the same
+    masters, by (r)'s criterion.  (c) the prefill's last logits with
+    ``inputs`` and without them differ, by relative RMS, by more than
+    ``ratio`` times the bf16 forward's own gap to float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as lm
+
+    n_steps = hid.shape[1]
+    what = ", ".join(inputs)
+    with torch.no_grad():
+        dec = torch.cat([pre_logits[:, None],
+                         lm_layers.unembed(model.embed, cfg, hid)], 1).float()
+        seq = torch.cat([prompts, out[:, :n_steps]], 1)
+        last = slice(start - 1, start + n_steps)
+        fwd = lm_layers.unembed(model.embed, cfg, lm.forward_seq(
+            model, cfg, seq, **inputs)[0][:, last]).float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        f32 = lm_layers.unembed(model.embed, cfg32, lm.forward_seq(
+            model, cfg32, seq, **inputs)[0][:, last]).float()
+        model._compute = None                  # the float32 compute tree
+        bare, _ = lm.prefill(model, cfg, prompts, prompts.shape[1])
+    noise = rel_rms(fwd, f32)
+    log(f"[{tag}1] (b) decode matches forward over {dec.shape[1]} positions × {dec.shape[0]} "
+        f"rows (the bf16 forward's relative RMS gap to float32 {noise:.4e}, the decode's "
+        f"{rel_rms(dec, f32):.4e}):")
+    logit_check(f"({tag}1) prefill({what}=) + decode steps", dec, fwd, f32)
+    moved = rel_rms(bare.float(), pre_logits.float())
+    log(f"[{tag}1] (c) the prefill's last logits with the {what} and without them: relative RMS "
+        f"{moved:.4e}, {moved / noise:.1f} × the bf16 forward's gap to float32 (> {ratio:g} ×)")
+    assert moved > ratio * noise, f"({tag}1) the {what} do not move the logits"
+
+
+def profile_decode_step(tag, model, cfg, tok, cache, pos, lm_t):
+    """(z1) / (za1): one LM decode step at ``pos`` + 1 under
+    ``torch.profiler`` after a warm one at ``pos`` (printed, not gated)."""
+    import torch
+
+    from repro_torch.models import transformer as lm
+
+    lm.decode_step_hidden(model, cfg, tok, cache, pos)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        (_, step_s) = synced(lambda: lm.decode_step_hidden(model, cfg, tok, cache, pos + 1))
+    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    log(f"[{tag}1] one LM decode step under torch.profiler: {len(dev_ev)} device events, the "
+        f"card busy {busy:.3f} ms of {step_s * 1e3:.3f} ms (busy share "
+        f"{busy / (step_s * 1e3):.3f}; {lm_t.mean():.3f} ms unprofiled)" if dev_ev else
+        f"[{tag}1] one LM decode step under torch.profiler: no device events recorded")
+
+
 def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
     """(z) the encoder-decoder on one card: (z1) ``whisper_large_v3`` at its
     published config served with the kNN-LM head's in-step lookup — the
@@ -3167,30 +3360,14 @@ def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
     logits (``Z_FRAMES_RATIO``); (d) the lookup's ``knn_tile_topk`` against
     its plain version, its row appended to ``kernels``.  One profiled
     decode step."""
-    import contextlib
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from repro_torch.configs import RetrievalConfig, get_config
-    from repro_torch.kernels.knn_topk import ops as topk_ops
-    from repro_torch.models import knn_lm
     from repro_torch.models import layers as lm_layers
     from repro_torch.models import transformer as lm
-    from repro_torch.utils import tree_leaves
 
     t_z = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    log(f"[z] device memory held from earlier phases: "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    cfg = dataclasses.replace(get_config("whisper_large_v3"), retrieval=RetrievalConfig(
-        enabled=True, k=8, lam=0.9, temperature=1.0))
-    model, init_ms = timed(lambda: lm.init_params(REC_SEED, cfg, device=dev))
-    n_par = sum(p.numel() for p in model.parameters())
-    assert n_par == sum(t.numel() for t in tree_leaves(lm.param_shapes(cfg))), \
-        "(z1) the model's parameter count is not its tables'"
+    cfg, model, n_par, init_ms = lookup_model(dev, "z", "whisper_large_v3")
     assert cfg.n_params() == Z_PARAMS
     log(f"[z1] {cfg.name}: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads × {cfg.hd}, d_ff "
@@ -3205,48 +3382,15 @@ def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
     # The reference pipeline's stub frontend: seeded standard normal frames.
     frames = torch.as_tensor(rng.standard_normal(
         (REC_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32), device=dev)
-    (ds, ds_s) = synced(lambda: knn_lm.build_datastore(model, cfg, [corpus]))
-    n_keys = REC_KEY_SEQS * (REC_KEY_LEN - 1)
-    assert tuple(ds.keys.shape) == (n_keys, cfg.d_model)
-    log(f"[z1] build_datastore over {REC_KEY_SEQS} × {REC_KEY_LEN} tokens (the decoder "
-        f"without frames, as the reference builds it): {n_keys} keys × {cfg.d_model} dims in "
-        f"{ds_s:.3f}s")
+    ds = lookup_datastore("z", model, cfg, corpus, "frames")
 
-    # The serving loop: serve.generate's, with the prefill given the frames.
     cache_len = Z_PROMPT + Z_STEPS + 2           # two more for the profiled step
-
-    def serve():
-        logits, cache = lm.prefill(model, cfg, prompts, cache_len, frames=frames)
-        toks = [torch.argmax(logits, dim=-1)]
-        for t in range(Z_STEPS):
-            logits, cache = knn_lm.decode_step_retrieval(model, cfg, toks[-1], cache,
-                                                         Z_PROMPT + t, ds)
-            toks.append(torch.argmax(logits, dim=-1))
-        return torch.stack(toks, dim=1), cache
-
-    spies = [Spy(lm, "prefill"), Spy(lm, "decode_step_hidden"), Spy(knn_lm, "lookup", keep=False)]
-    reset_counts()
-    with contextlib.ExitStack() as stack, FirstCall(topk_ops, "knn_topk") as call:
-        for sp in spies:
-            stack.enter_context(sp)
-        (out, cache), wall = synced(serve)
-    launches = read_counts(f"(z1) {cfg.name}: prefill(frames=) + {Z_STEPS} decode steps with "
-                           f"the in-step lookup")
-    assert tuple(out.shape) == (REC_BATCH, Z_STEPS + 1)
-    assert launches.get("knn_tile_topk", 0) == Z_STEPS, \
-        "(z1) expected one knn_tile_topk launch a decode step"
-    pre_s = spies[0].times[0]
-    lm_t = np.array(spies[1].times) * 1e3
-    ret_t = np.array(spies[2].times) * 1e3
-    tok_s = REC_BATCH * Z_STEPS / (wall - pre_s)
+    out, cache, pre_logits, hid, call, launches, lm_t = serve_lookup(
+        "z", model, cfg, prompts, ds, Z_PROMPT, Z_STEPS, cache_len, reset_counts, read_counts,
+        frames=frames)
     with torch.no_grad():
         eo, enc_ms = timed(lambda: lm.encode(model, cfg, frames))
-    log(f"[z1] serving: encode of {REC_BATCH} × {cfg.encoder_seq} frames {enc_ms:.3f} ms alone; "
-        f"prefill of {REC_BATCH} × {Z_PROMPT} tokens with the frames {pre_s:.3f}s; per decode "
-        f"step: LM {lm_t.mean():.3f} ms [{lm_t.min():.3f}–{lm_t.max():.3f}], lookup "
-        f"{ret_t.mean():.3f} ms [{ret_t.min():.3f}–{ret_t.max():.3f}]; {REC_BATCH} × {Z_STEPS} "
-        f"tokens in {wall:.3f}s, {tok_s:.1f} tokens/s after the prefill; peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[z1] encode of {REC_BATCH} × {cfg.encoder_seq} frames {enc_ms:.3f} ms alone")
 
     # (a) the cross cache, bit for bit.
     p = lm._cast_params(model, cfg)
@@ -3258,55 +3402,15 @@ def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
     log(f"[z1] (a) every one of the {cfg.n_layers} layers' prefill cross cache "
         f"({tuple(cache[0]['cross']['k'].shape)} K and V) equals init_cross_cache of "
         f"encode(frames) bit for bit")
-    del p, eo
+    del p, eo, cache
 
-    # (b) decode against forward: the serving loop's LM logits (the prefill's,
-    # then each step's unembedded hidden state) and forward_seq(frames=) over
-    # the same tokens, each against a float32 forward of the same masters.
-    with torch.no_grad():
-        pre_logits = spies[0].calls[0][2][0]
-        hid = torch.stack([c[2][0] for c in spies[1].calls], 1)
-        dec = torch.cat([pre_logits[:, None],
-                         lm_layers.unembed(model.embed, cfg, hid)], 1).float()
-        seq = torch.cat([prompts, out[:, :Z_STEPS]], 1)
-        last = slice(Z_PROMPT - 1, Z_PROMPT + Z_STEPS)
-        fwd = lm_layers.unembed(model.embed, cfg, lm.forward_seq(
-            model, cfg, seq, frames=frames)[0][:, last]).float()
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        f32 = lm_layers.unembed(model.embed, cfg32, lm.forward_seq(
-            model, cfg32, seq, frames=frames)[0][:, last]).float()
-        model._compute = None                  # the float32 compute tree
-        bare, _ = lm.prefill(model, cfg, prompts, Z_PROMPT)
-    del spies, cache, hid
-    log(f"[z1] (b) decode matches forward over {dec.shape[1]} positions × {REC_BATCH} rows "
-        f"(the bf16 forward's relative RMS gap to float32 {rel_rms(fwd, f32):.4e}, the "
-        f"decode's {rel_rms(dec, f32):.4e}):")
-    logit_check("(z1) prefill(frames=) + decode steps", dec, fwd, f32)
-
-    # (c) the frames matter.
-    noise = rel_rms(fwd, f32)
-    moved = rel_rms(bare.float(), pre_logits.float())
-    log(f"[z1] (c) the prefill's last logits with the frames and without them: relative RMS "
-        f"{moved:.4e}, {moved / noise:.1f} × the bf16 forward's gap to float32 (> "
-        f"{Z_FRAMES_RATIO:g} ×)")
-    assert moved > Z_FRAMES_RATIO * noise, "(z1) the frames do not move the logits"
-    del bare, pre_logits, dec, fwd, f32
-
-    # One decode step under torch.profiler (printed, not gated).
+    hold_lookup_serving("z", model, cfg, prompts, out, pre_logits, hid, Z_PROMPT,
+                        Z_FRAMES_RATIO, frames=frames)
+    del pre_logits, hid
     with torch.no_grad():
         _, cache = lm.prefill(model, cfg, prompts, cache_len, frames=frames)
-    tok = out[:, -1]
-    lm.decode_step_hidden(model, cfg, tok, cache, Z_PROMPT)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        (_, step_s) = synced(lambda: lm.decode_step_hidden(model, cfg, tok, cache, Z_PROMPT + 1))
-    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
-    log(f"[z1] one LM decode step under torch.profiler: {len(dev_ev)} device events, the card "
-        f"busy {busy:.3f} ms of {step_s * 1e3:.3f} ms (busy share {busy / (step_s * 1e3):.3f}; "
-        f"{lm_t.mean():.3f} ms unprofiled)" if dev_ev else
-        "[z1] one LM decode step under torch.profiler: no device events recorded")
-    del cache, model, prof
+    profile_decode_step("z", model, cfg, out[:, -1], cache, Z_PROMPT, lm_t)
+    del cache, model
     torch.cuda.empty_cache()
 
     # (d) the lookup's kernel against its plain version.
@@ -3317,6 +3421,85 @@ def encdec_phase(dev, kernels, reset_counts, read_counts, topk_check):
     del ds, call, q, c
     torch.cuda.empty_cache()
     log(f"[z] phase {time.perf_counter() - t_z:.2f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the float32 check included)")
+
+
+def vlm_phase(dev, kernels, reset_counts, read_counts, topk_check):
+    """(za) the VLM on one card: (za1) ``llava_next_mistral_7b`` at its
+    published config served with the kNN-LM head's in-step lookup — the
+    prefill given the patches, then ``decode_step_retrieval`` greedily from
+    position P + S — with four checks: (a) the patches sit first and see no
+    text: a prefill of other prompts after the same patches leaves every
+    layer's K/V at the patch positions bit for bit the same; (b) the
+    decode's logits and ``forward_seq(patches=)``'s, each in bf16, against a
+    float32 forward by (r)'s criterion; (c) the patches move the prefill's
+    logits (``ZA_PATCHES_RATIO``); (d) the lookup's ``knn_tile_topk`` against
+    its plain version, its row appended to ``kernels``.  One profiled
+    decode step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as lm
+
+    t_za = time.perf_counter()
+    cfg, model, n_par, init_ms = lookup_model(dev, "za", "llava_next_mistral_7b")
+    d, n_p = cfg.d_model, cfg.n_patches
+    n_proj, n_norm = cfg.patch_dim * d + d * d, d * (2 * cfg.n_layers + 1)
+    assert n_par == cfg.n_params() + n_proj + n_norm == ZA_PARAMS, \
+        "(za1) the parameter count is not n_params() and the projector's and norms'"
+    log(f"[za1] {cfg.name}: {cfg.n_layers} layers, d_model {d}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads × {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, rope θ "
+        f"{cfg.rope_theta:g}, {n_p} patches of {cfg.patch_dim} features, attn_chunk "
+        f"{cfg.attn_chunk}, {cfg.dtype} activations, {cfg.param_dtype} weights; {n_par} "
+        f"parameters (n_params() {cfg.n_params()}, the projector {n_proj}, norm scales "
+        f"{n_norm}) from seed {REC_SEED} in {init_ms / 1e3:.3f}s")
+    rng = np.random.default_rng(REC_SEED)
+    corpus = rng.integers(0, cfg.vocab_size, (REC_KEY_SEQS, REC_KEY_LEN))
+    prompts, other = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (REC_BATCH, ZA_PROMPT)),
+                                      device=dev) for _ in range(2))
+    # The reference pipeline's stub vision tower: seeded standard normal
+    # CLIP features.
+    patches = torch.as_tensor(rng.standard_normal(
+        (REC_BATCH, n_p, cfg.patch_dim)).astype(np.float32), device=dev)
+    ds = lookup_datastore("za", model, cfg, corpus, "patches")
+
+    # The cache holds the patches' positions, and decode continues after them.
+    start = n_p + ZA_PROMPT
+    cache_len = start + ZA_STEPS + 2             # two more for the profiled step
+    out, cache, pre_logits, hid, call, launches, lm_t = serve_lookup(
+        "za", model, cfg, prompts, ds, start, ZA_STEPS, cache_len, reset_counts, read_counts,
+        patches=patches)
+    with torch.no_grad():
+        _, proj_ms = timed(lambda: lm.project_patches(model, cfg, patches))
+    log(f"[za1] the projector over {REC_BATCH} × {n_p} patches {proj_ms:.3f} ms alone")
+
+    # (a) the patches sit first and see no text: other prompts after the same
+    # patches leave their K/V bit for bit (decode wrote only from `start`).
+    _, cache2 = lm.prefill(model, cfg, other, cache_len, patches=patches)
+    for i, (st, st2) in enumerate(zip(cache, cache2)):
+        for n in ("k", "v"):
+            assert torch.equal(st["kv"][n][:, :n_p], st2["kv"][n][:, :n_p]), \
+                f"(za1) layer {i}'s {n} at the patch positions moved with the text"
+    assert not torch.equal(cache[0]["kv"]["k"][:, n_p:start], cache2[0]["kv"]["k"][:, n_p:start])
+    log(f"[za1] (a) every one of the {cfg.n_layers} layers' K and V at the {n_p} patch positions "
+        f"equal bit for bit after two different prompts; the text positions differ")
+    del cache
+
+    hold_lookup_serving("za", model, cfg, prompts, out, pre_logits, hid, start,
+                        ZA_PATCHES_RATIO, patches=patches)
+    del pre_logits, hid
+    profile_decode_step("za", model, cfg, out[:, -1], cache2, start, lm_t)
+    del cache2, model
+    torch.cuda.empty_cache()
+
+    # (d) the lookup's kernel against its plain version.
+    (q, c, qid, cid), kw = call.args
+    kernels.append(topk_check(f"knn_tile_topk (kNN-LM lookup, {cfg.name}, D={d})",
+                              q, c, qid, cid, "l2", launches["knn_tile_topk"], fp32_bound=True,
+                              k=kw["k"]))
+    del ds, call, q, c
+    torch.cuda.empty_cache()
+    log(f"[za] phase {time.perf_counter() - t_za:.2f}s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the float32 check included)")
 
 
@@ -4560,7 +4743,7 @@ def main(argv=None) -> int:
         log(f"[p] durable save step {acked} {time.perf_counter() - t0:.3f}s")
         want = sidx.query(cq, k=K_MUT)
         tombs_acked = 0
-        for phase in ("pre-arrays", "pre-manifest", "pre-latest"):
+        for phase in CRASH_PHASES:
             sidx.delete(np.unique(want.ids[:, 0])[:CRASH_DELETE])
             assert not sidx.is_clean
             faults.crash_checkpoint(phase)
@@ -4591,8 +4774,8 @@ def main(argv=None) -> int:
                 f"{acked} {t_save:.3f}s ({size / 2**20:.1f} MiB on disk), load {t_load:.3f}s, "
                 f"bit-identical to the live index")
             want = live
-    assert acked == 3 and faults.count("ckpt-crash") == 3
-    assert tombs_acked == 3 * CRASH_DELETE
+    assert acked == len(CRASH_PHASES) and faults.count("ckpt-crash") == len(CRASH_PHASES)
+    assert tombs_acked == len(CRASH_PHASES) * CRASH_DELETE
     assert past_k(topk_k) == 0 and past_k(tiles_k) == 0, \
         "(p) a dirty query left the kernels' k"
     launches_p = read_counts("(p) crash drill")
@@ -4947,6 +5130,11 @@ def main(argv=None) -> int:
 
     # -- path 22: (z) the encoder-decoder on one card ------------------------------
     encdec_phase(dev, kernels, reset_counts, read_counts, topk_check)
+
+    clock("(za)")
+
+    # -- path 23: (za) the VLM on one card -----------------------------------------
+    vlm_phase(dev, kernels, reset_counts, read_counts, topk_check)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -6,10 +6,9 @@ The dataclasses carry the reference's fields and numbers unchanged; only
 <id>`` resolves inside ``repro_torch.configs``: the dense presets
 (``olmo_1b``, ``qwen3_14b``, ``yi_9b``, ``llama3_405b``), the recurrent
 ones (``rwkv6_3b``, ``recurrentgemma_9b``) and the MoE ones
-(``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``) and the
-encoder-decoder ``whisper_large_v3``, which need only the layers the port
-has.  The VLM preset raises until ROADMAP queue A item 21b brings its
-projector.
+(``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``), the
+encoder-decoder ``whisper_large_v3`` and the VLM ``llava_next_mistral_7b``:
+every preset of the reference.
 """
 from __future__ import annotations
 
@@ -18,8 +17,6 @@ import importlib
 from typing import Optional, Tuple
 
 import torch
-
-from repro_torch.utils import unported
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -179,11 +176,8 @@ ARCH_IDS = [
     "whisper_large_v3", "llava_next_mistral_7b",
 ]
 
-# The presets this port carries so far, and the ROADMAP item of each other.
-PORTED_ARCHS = ("olmo_1b", "qwen3_14b", "yi_9b", "llama3_405b", "rwkv6_3b",
-                "recurrentgemma_9b", "granite_moe_1b_a400m", "qwen3_moe_235b_a22b",
-                "whisper_large_v3")
-_UNPORTED_ARCHS = {"llava_next_mistral_7b": "queue A item 21b"}
+# The presets this port carries: all of the reference's.
+PORTED_ARCHS = tuple(ARCH_IDS)
 
 
 def sub_quadratic(cfg: ModelConfig) -> bool:
@@ -203,8 +197,6 @@ def _preset(arch: str):
     arch = arch.replace("-", "_")
     if arch not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCH_IDS}")
-    if arch not in PORTED_ARCHS:
-        raise unported(f"the {arch} preset", _UNPORTED_ARCHS[arch])
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -44,9 +44,9 @@ shapes and dtypes without the loop over the tokens (``prefill_32k`` is
 the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
 slots, real loops, equal to its record on ``meta``).
 
-Presets the port or its slot program does not carry yet are recorded as
-failed cells, the error naming their ROADMAP queue item, as the reference
-records a failure.
+Presets the slot program does not carry yet are recorded as failed cells,
+the error naming their ROADMAP queue item, as the reference records a
+failure.
 
 Usage::
 
@@ -58,10 +58,9 @@ Usage::
 ``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
 meshes) and the 12 of the MoE presets ``granite_moe_1b_a400m`` and
 ``qwen3_moe_235b_a22b`` (their three base shapes on both meshes); 12
-recorded failures, the base shapes on both meshes of ``whisper_large_v3``,
-whose preset the port carries and whose encoder the slot program refuses
-(queue A item 21c), and of the unported ``llava_next_mistral_7b`` (item
-21b).)
+recorded failures, the base shapes on both meshes of ``whisper_large_v3``
+and ``llava_next_mistral_7b``, whose presets the one-device model runs and
+whose encoder and projector the slot program refuses (queue A item 21c).)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """
@@ -87,7 +86,6 @@ from repro_torch.utils import tree_leaves
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results",
                            "dryrun_torch")
-BASE_SHAPES = ("train_4k", "prefill_32k", "decode_32k")   # every preset's cells
 
 
 def on_meta(mesh: Mesh) -> Mesh:
@@ -229,13 +227,6 @@ def save(rec: dict, out_dir: str) -> str:
     return path
 
 
-def _shapes_of(arch: str):
-    try:
-        return applicable_shapes(get_config(arch))
-    except NotImplementedError:       # an unported preset: its failed cells
-        return list(BASE_SHAPES)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="one arch id (default all)")
@@ -250,7 +241,7 @@ def main(argv=None):
     n_ok = n_fail = 0
     t0 = time.perf_counter()
     for arch in archs:
-        shapes = [args.shape] if args.shape else _shapes_of(arch)
+        shapes = [args.shape] if args.shape else applicable_shapes(get_config(arch))
         for shape_name in shapes:
             for mp in meshes:
                 rec = run_cell(arch, shape_name, multi_pod=mp)

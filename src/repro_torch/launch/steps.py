@@ -32,8 +32,8 @@ traces a cell.  The MoE presets run there too, their experts placed by the
 ``"experts"`` rule: under expert parallelism each expert block's replicas
 are the slots of one model index across the data groups, and the gradient
 sum over replicas covers them as any other block.  The three builders
-refuse, before any placement, what the one-device model lacks
-(``spmd.check_supported``: the VLM projector, and the encoder, which the
+refuse, before any placement, what the slot program lacks
+(``spmd.check_supported``: the encoder and the VLM projector, which the
 one-device model runs).
 Token ids are int64 here, where the reference's are int32
 (``TokenPipeline`` gives int64).

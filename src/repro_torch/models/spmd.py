@@ -470,11 +470,13 @@ class _Placed:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the one-device model lacks, and for an
-    encoder-decoder, which the one-device model runs and the slot program
-    does not yet."""
+    encoder-decoder and a VLM, which the one-device model runs and the slot
+    program does not yet (it would run a VLM without its projector)."""
     T._check_supported(cfg)
     if cfg.n_encoder_layers:
         raise unported("the slot program's encoder and cross-attention", "queue A item 21c")
+    if cfg.n_patches:
+        raise unported("the slot program's VLM projector", "queue A item 21c")
 
 
 class _Program:

@@ -5,7 +5,9 @@ with ``cfg.moe``: ``granite_moe_1b_a400m``, ``qwen3_moe_235b_a22b``) and
 the recurrent ones (``("rwkv",)``: ``rwkv6_3b``; ``("rglru", "rglru",
 "local")``: ``recurrentgemma_9b``) and the encoder-decoder
 (``whisper_large_v3``: an ``("attn",)`` decoder with cross-attention and
-``n_encoder_layers`` of ``enc-attn``), serving and training.
+``n_encoder_layers`` of ``enc-attn``) and the VLM
+(``llava_next_mistral_7b``: an ``("attn",)`` decoder behind the
+``mm_projector``), serving and training.
 
 The model is a ``Transformer`` module holding the embedding, the final
 norm and one ``Block`` module per layer, in execution order; its
@@ -63,8 +65,18 @@ attends to its output, unroped, and a prefill keeps each layer's
 cross-attention K/V (``"cross"``) for decode.  A cache from ``init_cache``
 holds zero cross K/V and decode attends to them; a prefill without frames
 keeps none and decode skips cross-attention — the reference's three
-cases.  The VLM projector (ROADMAP queue A item 21b)
-raises.
+cases.
+
+A VLM's precomputed patch features (B, ``cfg.n_patches``, ``cfg.patch_dim``)
+(the reference's stub vision tower) go through the ``mm_projector``
+(``model.mm_projector``: ``w1`` (patch_dim, d), ``w2`` (d, d); in ``tree()``
+only where ``cfg.n_patches``): GELU(patches · w1) · w2, in the activation
+dtype, prepended to the token embeddings, so the patches take positions
+0 … P−1 and the text P … P+S−1.  ``forward_seq(patches=)``, ``loss_fn``
+(``batch["patches"]``, the loss over the text positions alone) and
+``prefill(patches=)`` take them where the config has ``n_patches``, and
+ignore them where it has none, as the reference does; a prefill's cache then
+holds P + S positions and decode continues at P + S.
 """
 from __future__ import annotations
 
@@ -82,7 +94,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.utils import resolve_device, tree_leaves, tree_map, unported
+from repro_torch.utils import resolve_device, tree_leaves, tree_map
 
 Params = Dict[str, Any]
 _SUBLAYERS = ("norm1", "attn", "norm2", "mlp")     # an attention block's
@@ -125,8 +137,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.block_pattern:
         if kind not in ("attn", "local", "rglru", "rwkv"):
             raise ValueError(f"unknown layer kind {kind!r} in {cfg.name}'s block_pattern")
-    if cfg.n_patches:
-        raise unported("the VLM projector (n_patches > 0)", "queue A item 21b")
 
 
 # --------------------------------------------------------------------------
@@ -177,18 +187,21 @@ class Encoder(nn.Module):
 
 class Transformer(nn.Module):
     """The model: ``embed`` (``tok``[, ``unembed``]), ``layers`` (one
-    decoder ``Block`` per layer, in execution order), ``final_norm``, and
-    an encoder-decoder's ``encoder`` (else None)."""
+    decoder ``Block`` per layer, in execution order), ``final_norm``, an
+    encoder-decoder's ``encoder`` and a VLM's ``mm_projector`` (``w1``,
+    ``w2``; each None elsewhere)."""
 
     def __init__(self, cfg: ModelConfig, embed: Dict[str, torch.Tensor],
                  final_norm: Dict[str, torch.Tensor], layers: List[Block],
-                 encoder: Optional[Encoder] = None):
+                 encoder: Optional[Encoder] = None,
+                 mm_projector: Optional[Dict[str, torch.Tensor]] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = _param_dict(embed)
         self.final_norm = _param_dict(final_norm)
         self.layers = nn.ModuleList(layers)
         self.encoder = encoder
+        self.mm_projector = None if mm_projector is None else _param_dict(mm_projector)
         self._compute: Optional[Tuple[tuple, Params]] = None
 
     @property
@@ -198,11 +211,14 @@ class Transformer(nn.Module):
     def tree(self) -> Params:
         """The parameters as a nested dict of tensors (``embed``,
         ``final_norm``, ``layers``: a list of per-layer dicts; an
-        encoder-decoder's ``encoder``: ``{"layers", "norm"}``)."""
+        encoder-decoder's ``encoder``: ``{"layers", "norm"}``; a VLM's
+        ``mm_projector``: ``{"w1", "w2"}``)."""
         out = {"embed": dict(self.embed), "final_norm": dict(self.final_norm),
                "layers": [blk.tree() for blk in self.layers]}
         if self.encoder is not None:
             out["encoder"] = self.encoder.tree()
+        if self.mm_projector is not None:
+            out["mm_projector"] = dict(self.mm_projector)
         return out
 
 
@@ -262,7 +278,8 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
 def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
     """A freshly initialized model on ``device``.  ``key`` is an int seed or
     a ``torch.Generator`` on that device; the reference's scales
-    (1/√fan_in) are drawn from it in a fixed order.  The numbers are not
+    (1/√fan_in) are drawn from it in a fixed order (a VLM's projector
+    last, after the layers, as the reference draws it).  The numbers are not
     ``jax.random``'s: carry JAX weights across with ``params_from_jax``."""
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -281,7 +298,11 @@ def init_params(key, cfg: ModelConfig, *, device="cuda") -> Transformer:
         encoder = Encoder([Block(kind, _init_layer(gen, cfg, kind, dtype, dev))
                            for kind in encoder_plan(cfg).kinds],
                           L.init_norm(cfg, dtype, device=dev))
-    return Transformer(cfg, embed, final_norm, layers, encoder)
+    proj = None
+    if cfg.n_patches:
+        proj = {k: L.dense_init(gen, shp, dtype, device=dev)
+                for k, (shp, _) in _projector_table(cfg).items()}
+    return Transformer(cfg, embed, final_norm, layers, encoder, proj)
 
 
 def _tables(cfg: ModelConfig) -> Params:
@@ -293,7 +314,16 @@ def _tables(cfg: ModelConfig) -> Params:
     if cfg.n_encoder_layers:
         out["encoder"] = {"layers": [_layer_table(cfg, kind) for kind in encoder_plan(cfg).kinds],
                           "norm": L.norm_table(cfg)}
+    if cfg.n_patches:
+        out["mm_projector"] = _projector_table(cfg)
     return out
+
+
+def _projector_table(cfg: ModelConfig) -> Params:
+    """A VLM's ``mm_projector``: ``w1`` (patch_dim, d), ``w2`` (d, d), with
+    the reference's logical axes; each drawn at 1/√fan_in, fan_in its rows."""
+    d = cfg.d_model
+    return {"w1": ((cfg.patch_dim, d), ("embed", "mlp")), "w2": ((d, d), ("mlp", "embed"))}
 
 
 def _layer_table(cfg: ModelConfig, kind: str) -> Params:
@@ -378,8 +408,8 @@ def _tensor(x, device) -> torch.Tensor:
 
 def _unstack(tree_np: Params, cfg: ModelConfig, dev) -> Params:
     """A tree in the JAX parameter layout as the port's ``{"embed",
-    "final_norm", "layers"[, "encoder"]}`` (``Transformer.tree()``'s
-    layout), each leaf copied to ``dev``."""
+    "final_norm", "layers"[, "encoder"][, "mm_projector"]}``
+    (``Transformer.tree()``'s layout), each leaf copied to ``dev``."""
     conv = lambda x: _tensor(x, dev)
     out = {"embed": _map(tree_np["embed"], conv), "final_norm": _map(tree_np["final_norm"], conv),
            "layers": [_map(_pick(tree_np, src), conv) for _, src in _layer_sources(cfg)]}
@@ -388,6 +418,8 @@ def _unstack(tree_np: Params, cfg: ModelConfig, dev) -> Params:
         out["encoder"] = {"layers": [_map(_pick(enc, src), conv)
                                      for _, src in _layer_sources(cfg, encoder_plan(cfg))],
                           "norm": _map(enc["norm"], conv)}
+    if cfg.n_patches:
+        out["mm_projector"] = _map(tree_np["mm_projector"], conv)
     return out
 
 
@@ -409,7 +441,8 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
     each leaf with a leading ``n_groups`` axis: the full ``olmo_1b``'s) and
     the unstacked ``params["rem"]`` list (``smoke_config()``'s), or both
     (``recurrentgemma_9b``'s scanned groups and its two-layer tail); an
-    encoder-decoder's ``params["encoder"]`` in either layout too."""
+    encoder-decoder's ``params["encoder"]`` in either layout too, and a
+    VLM's ``params["mm_projector"]``."""
     _check_supported(cfg)
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     plan = layer_plan(cfg)
@@ -422,7 +455,8 @@ def params_from_jax(params_np: Params, cfg: ModelConfig, *, device="cuda") -> Tr
     if cfg.n_encoder_layers:
         encoder = Encoder([Block(ENCODER_KIND, lp) for lp in tree["encoder"]["layers"]],
                           tree["encoder"]["norm"])
-    return Transformer(cfg, tree["embed"], tree["final_norm"], layers, encoder)
+    return Transformer(cfg, tree["embed"], tree["final_norm"], layers, encoder,
+                       tree.get("mm_projector"))
 
 
 # --------------------------------------------------------------------------
@@ -605,14 +639,16 @@ def forward_seq(model: Transformer, cfg: ModelConfig, tokens, shd=None, *, frame
     ``shd`` reaches the MoE layers (their per-data-shard dispatch).
     ``frames`` (B, T, D), where the config has an encoder, run through it
     (``encode``) and every decoder layer attends to its output; a config
-    without one ignores them, as the reference does."""
-    if patches is not None and cfg.n_patches:
-        raise unported("forward_seq(patches=)", "queue A item 21b")
+    without one ignores them, as the reference does.  ``patches`` (B, P,
+    patch_dim), where the config has ``n_patches``, go through the
+    projector and are prepended: the hidden states are (B, P + S, D)."""
     if states is not None and len(states) != cfg.n_layers:
         raise ValueError(f"states has {len(states)} entries; {cfg.name} has {cfg.n_layers} "
                          f"layers")
     p = _cast_params(model, cfg)
     x = L.embed(p["embed"], cfg, _tokens(tokens, model.device))
+    if cfg.n_patches and patches is not None:
+        x = torch.cat([_project(p["mm_projector"], patches, x.dtype, model.device), x], 1)
     plan = layer_plan(cfg)
     n_scanned = plan.n_groups * len(plan.pattern)
     training = _training(model)
@@ -645,8 +681,10 @@ def _layer_out(lp: Params, cfg: ModelConfig, kind: str, state, shd, encoder_out,
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
     """Next-token cross entropy (+ 0.01 · the MoE aux loss, 0 without MoE).
-    ``batch``: ``tokens``, ``labels``, optional ``loss_mask`` and
-    ``frames`` (the encoder's input).  The unembedding runs against
+    ``batch``: ``tokens``, ``labels``, optional ``loss_mask``, ``frames``
+    (the encoder's input) and ``patches`` (a VLM's: the patch positions
+    carry no loss, only the last ``labels.shape[1]`` positions of the hidden
+    states are scored).  The unembedding runs against
     the master embedding, uncast, as the reference's does: bf16 hidden
     states against float32 masters give float32 logits.  Returns (loss,
     {"xent", "moe_aux"})."""
@@ -656,6 +694,8 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch, shd=None):
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=model.device) if mask is None
             else torch.as_tensor(mask, device=model.device).float())
+    if cfg.n_patches and "patches" in batch:
+        hidden = hidden[:, hidden.shape[1] - labels.shape[1]:]
     xent = L.chunked_xent(lambda xc: L.unembed(model.embed, cfg, xc), hidden, labels, mask,
                           chunk=cfg.xent_chunk)
     loss = xent + 0.01 * aux
@@ -677,6 +717,25 @@ def _encode(enc: Params, cfg: ModelConfig, frames, device, remat: bool):
         else:
             x, _ = f(x)
     return L.apply_norm(enc["norm"], cfg, x)
+
+
+def _project(proj: Params, patches, dtype, device) -> torch.Tensor:
+    """The VLM projector with its compute-dtype parameters ``proj``:
+    GELU(patches · w1) · w2, the patches cast to ``dtype`` (the
+    activations') before the first product, as the reference casts them;
+    the GELU the reference's tanh form, rounded step by step."""
+    x = torch.as_tensor(np.asarray(patches) if not isinstance(patches, torch.Tensor)
+                        else patches, device=device).to(dtype)
+    return L._gelu_tanh(x @ proj["w1"]) @ proj["w2"]
+
+
+def project_patches(model: Transformer, cfg: ModelConfig, patches) -> torch.Tensor:
+    """A VLM's projector over precomputed patch features (the reference's
+    stub vision tower): patches (B, ``cfg.n_patches``, ``cfg.patch_dim``) ->
+    (B, P, D) in the activation dtype, the embeddings ``forward_seq``
+    prepends; differentiable."""
+    return _project(_cast_params(model, cfg)["mm_projector"], patches,
+                    cfg.activation_dtype(), model.device)
 
 
 def encode(model: Transformer, cfg: ModelConfig, frames, shd=None) -> torch.Tensor:
@@ -739,7 +798,10 @@ def decode_step(model: Transformer, cfg: ModelConfig, token, cache: List[Params]
 def prefill(model: Transformer, cfg: ModelConfig, tokens, cache_len: int, shd=None, *,
             frames=None, patches=None):
     """Run the full prompt (and ``frames`` through the encoder, where the
-    config has one), return (last_logits (B,V), cache)."""
+    config has one; ``patches`` through the projector before the prompt,
+    where it has ``n_patches``: the cache then holds P + S positions, so
+    ``cache_len`` counts them, and decode continues at position P + S),
+    return (last_logits (B,V), cache)."""
     hidden, _, states = forward_seq(model, cfg, tokens, shd, frames=frames, patches=patches,
                                     collect=True, cache_len=cache_len)
     return L.unembed(model.embed, cfg, hidden[:, -1:])[:, 0], states

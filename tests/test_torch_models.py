@@ -514,8 +514,8 @@ UNPORTED = {
     "spmd decode_step vlm": lambda: spmd.decode_step(
         None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
         np.zeros(1, np.int32), None, 0),
-    "vlm": lambda: T.init_params(0, dataclasses.replace(
-        C.get_smoke_config("olmo_1b"), n_patches=4), device="cpu"),
+    "spmd check_supported vlm": lambda: spmd.check_supported(
+        dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4)),
     "build_prefill vlm": lambda: steps.build_prefill(
         dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
         C.SHAPES["prefill_32k"], make_host_mesh(2, slots=4, device="cpu")),
@@ -524,10 +524,10 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 21b
-    (VLM), 21c (the encoder and frames in the slot program), in the
-    one-device model and the slot program."""
-    with pytest.raises(NotImplementedError, match="queue A item (21b|21c)"):
+    """Every refusal names the queue A item that brings the feature: 21c
+    (the encoder, frames, the VLM projector and patches in the slot
+    program; the one-device model runs them all)."""
+    with pytest.raises(NotImplementedError, match="queue A item 21c"):
         UNPORTED[what]()
 
 
