@@ -264,7 +264,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          heads), a 2 × 128 prefill and 4 steps; (w2) ``recurrentgemma_9b``
          on 2 × 4 (8 layers: two (rglru, rglru, local) groups and the
          2-layer tail), a 2 × 2,560 prefill that wraps the position-sharded
-         ring, then 16 steps.  Each prefill's and step's logits (gathered)
+         ring, then 8 steps.  Each prefill's and step's logits (gathered)
          held to the one-device ``transformer.prefill`` / ``decode_step`` by
          (r)'s bf16 criterion against a float32 run of the same weights;
          every layer's state (gathered) within ``W_STATE_RATIO`` times the
@@ -334,12 +334,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          parameters by ``n_params()``) with the kNN-LM head as in (v): 16,384
          keys from 32 × 513 tokens (the decoder without frames), seeded
          standard normal frames (2, 1,500, 1,280), ``prefill(frames=)`` of 2 ×
-         256 tokens, then 16 greedy ``decode_step_retrieval`` steps (16
+         256 tokens, then 8 greedy ``decode_step_retrieval`` steps (8
          ``knn_tile_topk`` launches counted: the prefill's logits are bare).
          Held: (a) each decoder layer's prefill cross cache equals
          ``init_cross_cache`` of ``encode(frames)`` bit for bit; (b) the
          serving loop's LM logits and ``forward_seq(frames=)``'s over the
-         same 272 tokens against a float32 forward by (r)'s criterion; (c)
+         same 264 tokens against a float32 forward by (r)'s criterion; (c)
          the prefill's last logits with and without the frames differ by
          more than ``Z_FRAMES_RATIO`` times the bf16 forward's relative RMS
          gap to float32.  ``encode`` ms alone, prefill s, decode ms a step
@@ -355,12 +355,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          the projector; f32 masters, bf16 activations, 7,262,703,616
          parameters) with the kNN-LM head as in (v): 16,384 keys from 32 × 513
          tokens (the decoder without patches), seeded standard normal patches
-         (2, 2,880, 1,024), ``prefill(patches=)`` of 2 × 256 tokens, then 16
-         greedy ``decode_step_retrieval`` steps from position 2,880 + 256 (16
+         (2, 2,880, 1,024), ``prefill(patches=)`` of 2 × 256 tokens, then 8
+         greedy ``decode_step_retrieval`` steps from position 2,880 + 256 (8
          ``knn_tile_topk`` launches counted).  Held: (a) a prefill of other
          prompts after the same patches leaves every layer's K/V at the 2,880
          patch positions bit for bit the same; (b) the serving loop's LM
-         logits and ``forward_seq(patches=)``'s over the same 2,880 + 272
+         logits and ``forward_seq(patches=)``'s over the same 2,880 + 264
          positions against a float32 forward by (r)'s criterion; (c) the
          prefill's last logits with and without the patches differ by more
          than ``ZA_PATCHES_RATIO`` times the bf16 forward's relative RMS gap
@@ -368,6 +368,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          (LM and lookup), tokens/s after the prefill, peak memory, one
          profiled decode step.  (a) holds the lookup's first call at D =
          4,096.
+  (zb)   frames and patches in the slot program (``models/spmd.py``'s
+         encoder per data group, cross-attention and its cache, the
+         projector; no kernel of ``csrc/``) on ``make_host_mesh(4,
+         slots=8)``'s 2 × 4 slots on ``cuda:0``, bf16 weights from seed 3,
+         at the published widths.  (zb1) ``whisper_large_v3`` with 8 encoder
+         and 8 decoder layers (5 heads a slot; the cross K/V split by
+         heads): seeded frames (2, 1,500, 1,280), ``build_prefill``'s step
+         on 2 × 256 tokens (1 row a data group), then 4 ``build_decode``
+         steps.  (zb2) ``llava_next_mistral_7b`` with 8 layers: seeded
+         patches (2, 2,880, 1,024), the prefill of 2 × 256 text tokens, 4
+         steps from position 2,880 + 256.  Each prefill's and step's logits
+         (gathered) held to the one-device ``transformer.prefill`` /
+         ``decode_step`` by (w)'s criteria against a float32 run of the same
+         weights; (zb1) every layer's gathered cross K/V within
+         ``W_STATE_RATIO`` times the one-device bf16 cross cache's gap to
+         float32, and other frames move the sharded prefill's logits by
+         more than ``Z_FRAMES_RATIO`` times the bf16 gap; (zb2) a sharded
+         prefill of other prompts leaves every layer's K/V at the 2,880
+         patch positions bit for bit, and other patches move the logits by
+         more than ``ZA_PATCHES_RATIO`` times the bf16 gap.  Prefill s,
+         decode ms a step and the card's kernels a step beside the
+         one-device functions', one profiled decode step of each (busy
+         share, ``spmd.collective`` device time).  (zb3) one sharded train
+         step of each against the one-device ``make_train_step`` by (t1)'s
+         bounds: whisper at 4 + 4 layers on 2 × 256 tokens with frames (bf16
+         activations), llava at 2 layers on 2 × (2,880 patches + 256 tokens)
+         in float32; step s, peak memory.  (zb4) the dry run of (zb1)'s
+         decode cell (the cross K/V among its arguments) and of (zb2)'s
+         prefill cell (the patches among them) on 2 × 4 ``meta`` slots:
+         per-slot argument and output bytes equal to the card's.
 
 (a) also holds the kernel shapes (m) first launched:
 ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` at the projected 6 dims,
@@ -379,7 +409,8 @@ Each path — (b)–(d), (e), (g), (h), (i), (j), (k), (l), (m), (n), (o), (p),
 (q1), (q2)–(q3), the ring of (q4), the rest of (q4), (r1), (r2), (r3), (s1),
 (s2), (t1), (t2), (u1), (u2), (v1), (v2), (v3), the prefill and the decode
 steps of (w1), (w1s) and (w2), each step of (w3), (x1), (x2), (x3), the
-prefill and decode of (y1) and (y2), each step of (y3), (z1) and (za1) —
+prefill and decode of (y1) and (y2), each step of (y3), (z1), (za1), the prefill
+and the decode steps of (zb1) and (zb2), and each step of (zb3) —
 sets the kernel launch counters to 0 just before it and reads them just
 after; the ``kernels`` line's
 main ``knn_stream_topk_prefetch`` and ``knn_tile_topk`` rows count the launches
@@ -534,6 +565,7 @@ REC_BATCH = 2                      # prompts a generate call
 REC_STEPS = 16                     # decode steps, each with the in-step lookup
 W1_STEPS = 8                       # (w1)'s decode steps in the slot program (REC_STEPS until
                                    # the script neared its time limit)
+W2_STEPS = 8                       # (w2)'s, 16 (REC_STEPS) before (zb) was paid for
 RWKV_PROMPT = 512                  # (v1): rwkv6_3b's prefill, 2 × 512 tokens
 RG_PROMPT = 2560                   # (v2): recurrentgemma_9b's, past its 2,048-token window
 REC_TRAIN_LAYERS = 2               # (v3): rwkv6_3b's width, depth cut 32 → 2
@@ -626,8 +658,8 @@ Y_TRAIN_SEQ = 1024
 Y_F32_ATOL = 2e-4
 Y_TIE = 1e-5
 Z_PARAMS = 1_600_783_360           # (z1): whisper_large_v3's n_params() (norms left out)
-Z_PROMPT = 256                     # (z1): prompts of 2 × 256 tokens and 16 decode steps:
-Z_STEPS = 16                       # 272 positions, inside whisper's 448-token decoder context
+Z_PROMPT = 256                     # (z1): prompts of 2 × 256 tokens and 8 decode steps (16
+Z_STEPS = 8                        # before (zb) was paid for): inside whisper's 448-token context
 # (z1) check (c): the prefill's last logits with the frames and without them
 # differ, by relative RMS, by more than Z_FRAMES_RATIO times the bf16
 # forward's own relative RMS gap to float32, so a cross-attention that adds
@@ -639,7 +671,8 @@ Z_FRAMES_RATIO = 10.0
 ZA_PARAMS = 7_262_703_616          # (za1): llava_next_mistral_7b's parameters: n_params()
                                    # 7,241,465,856 + the projector + the norm scales
 ZA_PROMPT = 256                    # (za1): 2 × 256 text tokens after the 2,880 patches,
-ZA_STEPS = 16                      # then 16 decode steps from position 2,880 + 256
+ZA_STEPS = 8                       # then 8 decode steps from position 2,880 + 256 (16 before
+                                   # (zb) was paid for)
 # (za1) check (c): the prefill's last logits with the patches and without
 # them differ, by relative RMS, by more than ZA_PATCHES_RATIO times the bf16
 # forward's own relative RMS gap to float32, so a projector that adds
@@ -648,6 +681,15 @@ ZA_STEPS = 16                      # then 16 decode steps from position 2,880 + 
 # 2 × 64 prompts, seed 3): with / without patches 1.3858 apart against a
 # bf16 gap of 1.0535e-2, a ratio of 131.5.
 ZA_PATCHES_RATIO = 10.0
+ZB_LAYERS = 8                      # (zb1), (zb2): whisper_large_v3's 32 + 32 layers cut to 8 + 8,
+                                   # llava_next_mistral_7b's 32 to 8, for the time limit
+ZB_PROMPT = 256                    # (zb1), (zb2): 2 × 256 tokens (1 row a data group)
+ZB_STEPS = 4                       # decode steps after each prefill
+# (zb3): one step each, (depth — whisper's encoder too —, activation dtype).
+# llava's 7.26 B float32 masters with AdamW would need ~116 GB; at depth 2
+# its 0.72 B parameters hold ~11.5 GB of state a replica.
+ZB_TRAIN = {"whisper_large_v3": (4, "bfloat16"), "llava_next_mistral_7b": (2, "float32")}
+ZB_TRAIN_TEXT = 256                # (zb3): 2 × 256 text tokens (after llava's 2,880 patches)
 
 
 def log(msg: str) -> None:
@@ -2531,7 +2573,7 @@ def recurrent_sharded_phase(dev, reset_counts, read_counts):
                             profile=False)
     model = recurrent_model(dev, "recurrentgemma_9b")
     cells.append((model.cfg,) + sharded_recurrent_serve(dev, "w2", model, SPMD_MODEL, SPMD_SLOTS,
-                                                        RG_PROMPT, REC_STEPS, reset_counts,
+                                                        RG_PROMPT, W2_STEPS, reset_counts,
                                                         read_counts))
     del model
     sharded_recurrent_train(dev, reset_counts, read_counts)
@@ -3501,6 +3543,299 @@ def vlm_phase(dev, kernels, reset_counts, read_counts, topk_check):
     torch.cuda.empty_cache()
     log(f"[za] phase {time.perf_counter() - t_za:.2f}s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the float32 check included)")
+
+
+def cross_only(cache):
+    """Each layer's cross K/V of a decode state."""
+    return [{"cross": st["cross"]} for st in cache]
+
+
+def sharded_side_serve(dev, tag, model, side, other, reset_counts, read_counts):
+    """(zb1) / (zb2): ``model`` on 2 × 4 slots on the card with ``side``
+    (``{"frames": ...}`` or ``{"patches": ...}``): ``build_prefill``'s step
+    on REC_BATCH × ZB_PROMPT tokens after them, then ZB_STEPS of
+    ``build_decode``'s, each held to the one-device ``transformer.prefill``
+    / ``decode_step`` of the same weights by (w)'s criteria against a
+    float32 run; the last step under ``torch.profiler`` beside a one-device
+    step's.  ``other`` (other frames or patches) must move the sharded
+    prefill's logits.  (zb1) holds every layer's cross K/V by
+    W_STATE_RATIO; (zb2) a sharded prefill of other prompts (the prefill
+    cell, cache of P + S positions) must leave the patches' K/V bit for
+    bit.  Returns (the dry-run cell, its per-slot argument and output bytes
+    on the card): (zb1)'s decode cell, (zb2)'s prefill cell."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.utils import tree_leaves
+
+    t_zb = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = model.cfg
+    full = get_config(cfg.name)
+    (what, inputs), = side.items()
+    n_p = cfg.n_patches if what == "patches" else 0
+    start = n_p + ZB_PROMPT
+    cache_len = start + ZB_STEPS
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    assert set(mesh.slot_devices) == {str(dev) if dev.type == "cpu" else "cuda:0"}
+    n = len(mesh.slot_devices)
+    rng = np.random.default_rng(REC_SEED)
+    tokens, prompts2 = (torch.as_tensor(rng.integers(0, cfg.vocab_size, (REC_BATCH, ZB_PROMPT)),
+                                        device=dev) for _ in range(2))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (ZB_STEPS, REC_BATCH)), device=dev)
+    p_shape = ShapeConfig(f"prefill_{tag}", "prefill", cache_len, REC_BATCH)
+    d_shape = ShapeConfig(f"decode_{tag}", "decode", cache_len, REC_BATCH)
+
+    def one_device(c):
+        (logits, cache), pre_s = synced(lambda: lm.prefill(model, c, tokens, cache_len, **side))
+        out, secs = [logits.float()], []
+        for i in range(ZB_STEPS):
+            (logits, cache), sec = synced(lambda: lm.decode_step(model, c, toks[i], cache,
+                                                                 start + i))
+            out.append(logits.float())
+            secs.append(sec)
+        return torch.stack(out, 1), cache, pre_s, secs
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    l32, ref32, _, _ = one_device(cfg32)
+    model._compute = None                          # the float32 copy of the bf16 weights
+    ref, ref_cache, ref_pre, ref_secs = one_device(cfg)
+    ref_prof = profiled(lambda: lm.decode_step(model, cfg, toks[0], ref_cache, start))
+    noise = rel_rms(ref[:, 0], l32[:, 0])          # the bf16 prefill's gap to float32
+
+    prefill, _, (p_sh, b_sh) = steps.build_prefill(cfg, p_shape, mesh)
+    step, _, (_, tok_sh, c_sh, pos_sh) = steps.build_decode(cfg, d_shape, mesh)
+    params = steps.place(model.tree(), p_sh)
+    batch = steps.place({"tokens": tokens, **side}, b_sh)
+    depth = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers (cut from "
+             f"{full.n_encoder_layers} + {full.n_layers})" if cfg.n_encoder_layers else
+             f"{cfg.n_layers} layers (cut from {full.n_layers})")
+    log(f"[{tag}] {cfg.name}'s width (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"× {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) with {depth}, bf16 weights and "
+        f"activations from seed {REC_SEED}, on {mesh.sizes[0]} × {mesh.sizes[1]} slots; "
+        f"{what} {tuple(inputs.shape)}, prompt {REC_BATCH} × {ZB_PROMPT}, {ZB_STEPS} decode steps "
+        f"from position {start}; layer 0's attention specs "
+        f"{sorted({str(a.sharding.spec) for a in tree_leaves(params['layers'][0]['attn'])})}")
+    reset_counts()
+    (logits, cache), pre_s = synced(lambda: prefill(params, batch))
+    read_counts(f"({tag}) sharded prefill with the {what} (no custom kernel on this path)")
+    got = [logits.gather().float()]
+    gap, agree, clear = hold_logits(f"({tag}) prefill", got[0], ref[:, 0])
+    log(f"[{tag}] prefill: sharded {pre_s:.3f} s ({REC_BATCH * ZB_PROMPT / pre_s:.1f} text "
+        f"tokens/s), one-device {ref_pre:.3f} s; last logits max |Δ| {gap:.4f} (≤ "
+        f"{SERVE_LOGIT_ATOL}), argmax equal in {agree} of {REC_BATCH} rows ({clear} clear of a "
+        f"tie)")
+    logit_check(f"({tag}) the sharded prefill's last logits", got[0], ref[:, 0], l32[:, 0])
+    assert [a.sharding.spec for a in tree_leaves(cache)] == \
+        [sh.spec for sh in tree_leaves(c_sh)], f"({tag}) the prefill's cache is not decode's"
+    if what == "frames":
+        held = hold_states(f"({tag}) cross K/V", cross_only(cache), cross_only(ref_cache),
+                           cross_only(ref32))
+        log(f"[{tag}] the cross K/V ({tuple(cache[0]['cross']['k'].shape)} a layer, spec "
+            f"{cache[0]['cross']['k'].sharding.spec}): {held}")
+
+    reset_counts()
+    secs, prof = [], None
+    for i in range(ZB_STEPS):
+        tok = tok_sh.place(toks[i])
+        pos_t = pos_sh.place(torch.tensor(start + i, dtype=torch.int32))
+        if i == 0:
+            card_in = per_slot_bytes(n, params, tok, cache, pos_t)
+        if i == ZB_STEPS - 1:
+            (logits, cache), *prof = profiled(lambda: step(params, tok, cache, pos_t))
+        else:
+            (logits, cache), sec = synced(lambda: step(params, tok, cache, pos_t))
+            secs.append(sec)
+        got.append(logits.gather().float())
+    read_counts(f"({tag}) sharded decode (no custom kernel on this path)")
+    card_out = [logits.slot_nbytes(s) + sum(a.slot_nbytes(s) for a in tree_leaves(cache))
+                for s in range(n)]
+    got = torch.stack(got, 1)
+    gap, agree, clear = hold_logits(f"({tag}) decode", got[:, 1:], ref[:, 1:])
+    med = float(np.median(secs))
+    log(f"[{tag}] decode: sharded step median {med * 1e3:.3f} ms [{min(secs) * 1e3:.3f}–"
+        f"{max(secs) * 1e3:.3f}], one-device {float(np.median(ref_secs)) * 1e3:.3f} ms; logits "
+        f"max |Δ| {gap:.4f} (≤ {SERVE_LOGIT_ATOL}), argmax equal in {agree} of "
+        f"{REC_BATCH * ZB_STEPS} ({clear} clear of a tie); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    logit_check(f"({tag}) {ZB_STEPS} sharded decode steps' logits", got[:, 1:], ref[:, 1:],
+                l32[:, 1:])
+    log(f"[{tag}] sharded decode step {ZB_STEPS} under torch.profiler: {profile_line(*prof)}")
+    log(f"[{tag}] a one-device decode step under torch.profiler: {profile_line(*ref_prof[1:])}")
+    del ref_cache, ref32
+
+    # The side input matters: other frames / patches move the sharded logits.
+    moved_in = steps.place({"tokens": tokens, what: other}, b_sh)
+    moved = rel_rms(prefill(params, moved_in)[0].gather().float(), got[:, 0])
+    ratio = Z_FRAMES_RATIO if what == "frames" else ZA_PATCHES_RATIO
+    log(f"[{tag}] other {what}: the sharded prefill's last logits move by relative RMS "
+        f"{moved:.4e}, {moved / noise:.1f} × the one-device bf16 prefill's gap to float32 "
+        f"{noise:.4e} (> {ratio:g} ×)")
+    assert moved > ratio * noise, f"({tag}) the {what} do not move the sharded logits"
+    del moved_in, logits
+
+    cell = (d_shape, card_in, card_out)
+    if what == "patches":
+        # The prefill cell: other prompts after the same patches, a cache of
+        # P + S positions; the patches' K/V bit for bit the first prefill's
+        # (decode wrote from position P + S on).
+        cell_shape = ShapeConfig(f"prefill_{tag}", "prefill", start, REC_BATCH)
+        fn2, _, (_, b2_sh) = steps.build_prefill(cfg, cell_shape, mesh)
+        batch2 = steps.place({"tokens": prompts2, **side}, b2_sh)
+        (logits2, cache2), pre2_s = synced(lambda: fn2(params, batch2))
+        for i, (st, st2) in enumerate(zip(cache, cache2)):
+            for k in ("k", "v"):
+                assert torch.equal(st["kv"][k].gather()[:, :n_p], st2["kv"][k].gather()[:, :n_p]), \
+                    f"({tag}) layer {i}'s {k} at the patch positions moved with the text"
+        assert not torch.equal(cache[0]["kv"]["k"].gather()[:, n_p:start],
+                               cache2[0]["kv"]["k"].gather()[:, n_p:start])
+        log(f"[{tag}] every one of the {cfg.n_layers} layers' K and V at the {n_p} patch "
+            f"positions equal bit for bit after another prompt ({pre2_s:.3f} s); the text "
+            f"positions differ")
+        cell = (cell_shape, per_slot_bytes(n, params, batch2),
+                [logits2.slot_nbytes(s) + sum(a.slot_nbytes(s) for a in tree_leaves(cache2))
+                 for s in range(n)])
+        del cache2, batch2, logits2
+    del params, batch, cache
+    torch.cuda.empty_cache()
+    log(f"[{tag}] phase {time.perf_counter() - t_zb:.2f}s")
+    return cell
+
+
+def sharded_side_train(dev, reset_counts, read_counts):
+    """(zb3) one sharded train step of each preset in ZB_TRAIN (depth and
+    activation dtype; float32 masters and moments) on 2 × 4 slots, batch
+    REC_BATCH × ZB_TRAIN_TEXT tokens with the pipeline's frames or patches,
+    from seed REC_SEED weights; step 1 held to the one-device
+    ``make_train_step`` by (t1)'s bounds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.utils import tree_leaves
+
+    mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device=dev)
+    for arch, (layers, act) in ZB_TRAIN.items():
+        t_zb3 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers, dtype=act, n_encoder_layers=(
+            layers if full.n_encoder_layers else 0))
+        opt_cfg = OptConfig(total_steps=2, warmup_steps=1, moment_dtype=cfg.opt_state_dtype)
+        pipe = TokenPipeline(cfg, SHAPES["train_4k"], batch_override=REC_BATCH,
+                             seq_override=ZB_TRAIN_TEXT + cfg.n_patches)
+        batch = pipe.next_batch(dev)
+        side = {k: tuple(v.shape) for k, v in batch.items() if k in ("frames", "patches")}
+        ref = lm.init_params(REC_SEED, cfg, device=dev)
+        opt = init_opt_state(ref.tree(), opt_cfg)
+        (_, ref_m), ref_s = synced(lambda: steps.make_train_step(cfg, opt_cfg)(
+            {"params": ref, "opt": opt}, batch))
+        del opt
+        ref_loss, lr1 = ref_m["loss"].item(), ref_m["lr"].item()
+        model = lm.init_params(REC_SEED, cfg, device=dev)
+        step, _, (st_sh, _) = steps.build_train(cfg, SHAPES["train_4k"], mesh, opt_cfg)
+        state = steps.init_placed_state(model.tree(), opt_cfg, st_sh)
+        del model
+        torch.cuda.empty_cache()
+        reset_counts()
+        (state, m), sec = synced(lambda: step(state, batch))
+        read_counts(f"(zb3) {arch} sharded train step (no custom kernel on this path)")
+        loss = m["loss"].item()
+        gap, n_far, n_all = 0.0, 0, 0
+        with torch.no_grad():
+            for a, r in zip(tree_leaves(state["params"]), tree_leaves(ref.tree())):
+                d = (a.gather() - r).abs()
+                gap = max(gap, d.max().item())
+                n_far += int((d > lr1).sum().item())
+                n_all += d.numel()
+        n_par = sum(p.numel() for p in ref.parameters())
+        log(f"[zb3] {arch}'s width, n_layers cut {full.n_layers} → {cfg.n_layers}"
+            f"{f' (the encoder too)' if cfg.n_encoder_layers else ''}, {n_par} parameters, "
+            f"{act} activations, batch {REC_BATCH} × {batch['tokens'].shape[1]} tokens with "
+            f"{side} on {mesh.sizes[0]} × {mesh.sizes[1]} slots: step 1 loss {loss:.6f} in "
+            f"{sec:.3f} s; the one-device step: loss {ref_loss:.6f} in {ref_s:.3f} s; |Δloss| "
+            f"{abs(loss - ref_loss):.3e} (≤ {TRAIN_LOSS_TOL}); max |Δmaster| {gap:.3e} (≤ "
+            f"2·lr₁ + {SPMD_MASTER_ATOL}), {n_far} of {n_all} ({n_far / n_all:.3e}) apart by "
+            f"more than lr₁ (≤ {SPMD_FLIP_SHARE}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t_zb3:.2f} s")
+        assert np.isfinite(loss), f"(zb3) {arch}: the loss is not finite"
+        assert abs(loss - ref_loss) <= TRAIN_LOSS_TOL, f"(zb3) {arch}: the loss strays"
+        assert gap <= 2 * lr1 + SPMD_MASTER_ATOL, f"(zb3) {arch}: a master strays past two steps"
+        assert n_far <= SPMD_FLIP_SHARE * n_all, f"(zb3) {arch}: too many masters off one device's"
+        del state, ref, batch, step, m
+        torch.cuda.empty_cache()
+
+
+def sharded_side_phase(dev, reset_counts, read_counts):
+    """(zb) frames and patches in the slot program on 2 × 4 slots on the
+    card: (zb1) whisper_large_v3 at its widths with ZB_LAYERS encoder and
+    decoder layers, (zb2) llava_next_mistral_7b with ZB_LAYERS layers, both
+    bf16; (zb3) one sharded train step of each; (zb4) the dry run's records
+    of (zb1)'s decode cell and (zb2)'s prefill cell on 2 × 4 ``meta`` slots
+    beside the card's blocks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as lm
+
+    t_zb = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[zb] device memory held from earlier phases: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(REC_SEED)
+    cells = []
+    for tag, arch in (("zb1", "whisper_large_v3"), ("zb2", "llava_next_mistral_7b")):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=ZB_LAYERS, param_dtype="bfloat16",
+                                  n_encoder_layers=ZB_LAYERS if full.n_encoder_layers else 0)
+        # The reference pipeline's stubs: seeded standard normal frames or
+        # CLIP features, and other ones.
+        what, shape = (("frames", (REC_BATCH, cfg.encoder_seq, cfg.d_model))
+                       if cfg.n_encoder_layers else
+                       ("patches", (REC_BATCH, cfg.n_patches, cfg.patch_dim)))
+        side, other = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+                       for _ in range(2))
+        model = lm.init_params(REC_SEED, cfg, device=dev)
+        cells.append((cfg,) + sharded_side_serve(dev, tag, model, {what: side}, other,
+                                                 reset_counts, read_counts))
+        del model, side, other
+        torch.cuda.empty_cache()
+    sharded_side_train(dev, reset_counts, read_counts)
+    meta_mesh = make_host_mesh(SPMD_MODEL, slots=SPMD_SLOTS, device="meta")
+    for tag, (cfg, shape, card_in, card_out) in zip(("zb1", "zb2"), cells):
+        rec = dryrun.record_cell(cfg.name, shape, meta_mesh, cfg=cfg, verbose=False)
+        assert rec["ok"], rec.get("traceback")
+        ma = rec["memory_analysis"]
+        log(f"[zb4] ({tag})'s {shape.kind} cell: dry run traced in {rec['t_lower_s']:.2f} s "
+            f"(depths {rec['trace']['depths']}, encoder {rec['trace'].get('encoder_depths')}); "
+            f"per slot: arguments {ma['argument_size_in_bytes']} B (on the card {card_in[0]}), "
+            f"outputs {ma['output_size_in_bytes']} B (on the card {card_out[0]}); collectives per "
+            f"slot {rec['collective_bytes_weighted']} ({rec['collective_counts']} once)")
+        assert card_in == [ma["argument_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(zb4) ({tag})'s per-slot argument bytes differ from the card's"
+        assert card_out == [ma["output_size_in_bytes"]] * SPMD_SLOTS, \
+            f"(zb4) ({tag})'s per-slot output bytes differ from the card's"
+    log(f"[zb] phase {time.perf_counter() - t_zb:.2f}s")
 
 
 def main(argv=None) -> int:
@@ -5135,6 +5470,11 @@ def main(argv=None) -> int:
 
     # -- path 23: (za) the VLM on one card -----------------------------------------
     vlm_phase(dev, kernels, reset_counts, read_counts, topk_check)
+
+    clock("(zb)")
+
+    # -- path 24: (zb) frames and patches in the slot program ---------------------
+    sharded_side_phase(dev, reset_counts, read_counts)
 
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     smi = subprocess.run(

@@ -6,11 +6,11 @@ the dense presets (``olmo_1b``, ``qwen3_14b``, ``yi_9b``,
 VLM ``llava_next_mistral_7b``."""
 from repro_torch.configs.base import (
     ARCH_IDS, PORTED_ARCHS, SHAPES, ModelConfig, MoEConfig, RetrievalConfig, ShapeConfig,
-    applicable_shapes, get_config, get_smoke_config, sub_quadratic, torch_dtype,
+    applicable_shapes, get_config, get_smoke_config, registry, sub_quadratic, torch_dtype,
 )
 
 __all__ = [
     "ARCH_IDS", "PORTED_ARCHS", "SHAPES", "ModelConfig", "MoEConfig", "RetrievalConfig",
-    "ShapeConfig", "applicable_shapes", "get_config", "get_smoke_config", "sub_quadratic",
-    "torch_dtype",
+    "ShapeConfig", "applicable_shapes", "get_config", "get_smoke_config", "registry",
+    "sub_quadratic", "torch_dtype",
 ]

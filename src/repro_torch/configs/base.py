@@ -206,3 +206,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _preset(arch).smoke_config()
+
+
+def registry() -> dict[str, ModelConfig]:
+    """Every preset's published config by arch id."""
+    return {a: get_config(a) for a in ARCH_IDS}

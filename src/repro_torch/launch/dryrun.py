@@ -31,10 +31,14 @@ apart and extends the record linearly to the full depth — the counterpart
 of the reference weighting a scan body by its trip count.  The two depths
 keep the layer plan's shape (scanned groups stay scanned, the unscanned
 tail stays), so the extension is exact: equal to the full trace
-(``tests/test_torch_dryrun.py``), and (3) runs data group 0's slot programs
-alone, the other groups' outputs taken to be its (every data group runs
-the same program on blocks of the same shapes; the cross-group collectives
-still run over every slot).  A decode cell traces at ``pos`` =
+(``tests/test_torch_dryrun.py``).  An encoder-decoder's encoder steps with
+the decoder, one layer a group (``encoder_depths``: whisper's 32 encoder
+layers are traced at 2 and 3 beside the decoder's 2 and 3), where that
+keeps the encoder plan's shape; otherwise it runs at its full depth in
+both traces, a constant the extension cancels.  (3) The trace runs data
+group 0's slot programs alone, the other groups' outputs taken to be its
+(every data group runs the same program on blocks of the same shapes; the
+cross-group collectives still run over every slot).  A decode cell traces at ``pos`` =
 ``seq_len`` − 1 (which slot writes the new K/V changes no byte).  (4) The
 recurrent scans (``rglru.linear_scan``, ``rwkv6.wkv``) hold no collective;
 on ``meta`` tensors they return outputs and states of the reference's
@@ -44,23 +48,20 @@ shapes and dtypes without the loop over the tokens (``prefill_32k`` is
 the loop (``tests/test_torch_dryrun.py`` holds a smoke cell's record on CPU
 slots, real loops, equal to its record on ``meta``).
 
-Presets the slot program does not carry yet are recorded as failed cells,
-the error naming their ROADMAP queue item, as the reference records a
-failure.
+A cell that fails is recorded as failed, its error kept, as the reference
+records a failure.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo_1b \\
         --shape train_4k --mesh both
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 52 cells + 12 failed
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all   # 64 cells
 
 (``--all``: the four dense presets' 24 cells, the 16 of ``rwkv6_3b`` and
 ``recurrentgemma_9b`` (their three base shapes and ``long_500k`` on both
-meshes) and the 12 of the MoE presets ``granite_moe_1b_a400m`` and
-``qwen3_moe_235b_a22b`` (their three base shapes on both meshes); 12
-recorded failures, the base shapes on both meshes of ``whisper_large_v3``
-and ``llava_next_mistral_7b``, whose presets the one-device model runs and
-whose encoder and projector the slot program refuses (queue A item 21c).)
+meshes), and the three base shapes on both meshes of the MoE presets
+``granite_moe_1b_a400m`` and ``qwen3_moe_235b_a22b``, the encoder-decoder
+``whisper_large_v3`` and the VLM ``llava_next_mistral_7b``, 24 more.)
 
 Records go to ``results/dryrun_torch/`` (git-ignored).
 """
@@ -80,7 +81,7 @@ import torch
 from repro_torch.configs.base import ARCH_IDS, SHAPES, applicable_shapes, get_config
 from repro_torch.launch import analytic, hlo_analysis, steps
 from repro_torch.launch.mesh import Mesh, make_production_mesh, mesh_chip_count
-from repro_torch.models import spmd
+from repro_torch.models import spmd, transformer
 from repro_torch.sharding import SlotArray
 from repro_torch.utils import tree_leaves
 
@@ -103,6 +104,21 @@ def trace_depths(cfg):
     if cfg.n_layers <= d2:
         return None
     return d1, d2, (cfg.n_layers - d1) // lp
+
+
+def encoder_depths(cfg, k: int):
+    """(e1, e1 + 1): an encoder-decoder's encoder depths for the two traces
+    of ``trace_depths``, one layer a decoder group, so that extending by
+    ``k`` groups reaches both full depths; or None, the encoder at its full
+    depth in both traces (a constant the extension cancels): no encoder, or
+    an ``e1`` that would change the encoder plan's shape (scanned or not)."""
+    n = cfg.n_encoder_layers
+    if not n or n - k < 1:
+        return None
+    scanned = lambda e: transformer.encoder_plan(
+        dataclasses.replace(cfg, n_encoder_layers=e)).n_groups > 0
+    e1 = n - k
+    return (e1, e1 + 1) if scanned(e1) == scanned(e1 + 1) == scanned(n) else None
 
 
 def _out_bytes(out, n_slots: int) -> np.ndarray:
@@ -142,10 +158,15 @@ def traced(cfg, shape, mesh):
         rec, out = trace(tcfg, shape, mesh)
         return rec, out, {"depths": [cfg.n_layers], "groups_added": 0, "attn_chunk": 0}
     d1, d2, k = depths
-    r1, o1 = trace(dataclasses.replace(tcfg, n_layers=d1), shape, mesh)
-    r2, o2 = trace(dataclasses.replace(tcfg, n_layers=d2), shape, mesh)
-    return r1.combine(r2, k), o1 + k * (o2 - o1), {"depths": [d1, d2], "groups_added": k,
-                                                   "attn_chunk": 0}
+    enc = encoder_depths(cfg, k)
+    at = lambda d, j: dataclasses.replace(
+        tcfg, n_layers=d, **({"n_encoder_layers": enc[j]} if enc else {}))
+    r1, o1 = trace(at(d1, 0), shape, mesh)
+    r2, o2 = trace(at(d2, 1), shape, mesh)
+    how = {"depths": [d1, d2], "groups_added": k, "attn_chunk": 0}
+    if cfg.n_encoder_layers:
+        how["encoder_depths"] = list(enc) if enc else [cfg.n_encoder_layers] * 2
+    return r1.combine(r2, k), o1 + k * (o2 - o1), how
 
 
 def _fill(rec: dict, cfg, shape, mesh, verbose: bool) -> dict:

@@ -31,10 +31,11 @@ slots, CPU slots) and on ``meta`` slots, which is how ``launch/dryrun.py``
 traces a cell.  The MoE presets run there too, their experts placed by the
 ``"experts"`` rule: under expert parallelism each expert block's replicas
 are the slots of one model index across the data groups, and the gradient
-sum over replicas covers them as any other block.  The three builders
-refuse, before any placement, what the slot program lacks
-(``spmd.check_supported``: the encoder and the VLM projector, which the
-one-device model runs).
+sum over replicas covers them as any other block.  An encoder-decoder's
+frames and a VLM's patches are batch inputs placed by ``act_batch``
+(``batch_specs``); a decode state holds the cross K/V placed by
+``transformer.cache_specs``.  The three builders refuse, before any
+placement, what the one-device model lacks (``spmd.check_supported``).
 Token ids are int64 here, where the reference's are int32
 (``TokenPipeline`` gives int64).
 """
@@ -130,6 +131,24 @@ def init_placed_state(params, opt_cfg: OptConfig, shardings):
 # train
 # --------------------------------------------------------------------------
 
+def _repeats(params, cfg: ModelConfig) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order): whether it belongs to
+    a scanned layer past the first group — the decoder's, or the
+    encoder's — whose gradient sum repeats the scan body's in the record of
+    collectives."""
+    def flags(layers, plan):
+        lp = len(plan.pattern)
+        return [tree_map(lambda _: plan.n_groups > 0 and lp <= i < plan.n_groups * lp, layer)
+                for i, layer in enumerate(layers)]
+
+    tree = {k: tree_map(lambda _: False, v) for k, v in params.items()}
+    tree["layers"] = flags(params["layers"], transformer.layer_plan(cfg))
+    if "encoder" in params:
+        tree["encoder"]["layers"] = flags(params["encoder"]["layers"],
+                                          transformer.encoder_plan(cfg))
+    return tree_leaves(tree)
+
+
 def _slot_grads(params, cfg: ModelConfig, batch):
     """The sharded step's loss, metrics and gradients: per leaf of
     ``params``, one gradient per slot, each the sum over the block's
@@ -142,13 +161,7 @@ def _slot_grads(params, cfg: ModelConfig, batch):
         loss, metrics = spmd.loss_fn(params, cfg, batch)
         flat = list(torch.autograd.grad(loss, masters, allow_unused=True,
                                         materialize_grads=True))
-    # A leaf of a scanned layer past the first group: its gradient sum is
-    # a repeat of the scan body's in the record of collectives.
-    plan = transformer.layer_plan(cfg)
-    lp = len(plan.pattern)
-    repeats = [False] * len(tree_leaves([params["embed"], params["final_norm"]])) + [
-        plan.n_groups > 0 and lp <= i < plan.n_groups * lp
-        for i, layer in enumerate(params["layers"]) for _ in tree_leaves(layer)]
+    repeats = _repeats(params, cfg)
     out = []
     with torch.no_grad(), torch.profiler.record_function(spmd.COLLECTIVE):
         for a, repeat in zip(arrs, repeats):
@@ -271,8 +284,10 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh, opt_cfg: Optional[Op
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh):
     """(prefill_fn, (param specs, batch specs), (param shardings, batch
     shardings)): ``prefill_fn(params, batch)`` runs the prompt
-    ``batch["tokens"]`` (``shape.global_batch`` × ``shape.seq_len``) into a
-    cache of ``shape.seq_len`` positions and returns (last logits, cache)."""
+    ``batch["tokens"]`` (``shape.global_batch`` rows; with an encoder-decoder's
+    ``frames``, or a VLM's ``patches`` before ``shape.seq_len`` − P text
+    tokens) into a cache of ``shape.seq_len`` positions and returns (last
+    logits, cache)."""
     spmd.check_supported(cfg)
     shd = ShardingCtx.for_mesh(mesh, fsdp=cfg.fsdp, seq_shard=cfg.seq_shard)
     p_shapes, p_specs = params_specs(cfg)
@@ -282,7 +297,8 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh):
     cache_len = shape.seq_len
 
     def prefill_fn(params, batch):
-        return spmd.prefill(params, cfg, batch["tokens"], cache_len)
+        return spmd.prefill(params, cfg, batch["tokens"], cache_len, frames=batch.get("frames"),
+                            patches=batch.get("patches"))
 
     return prefill_fn, (p_shapes, b), (p_shard, b_shard)
 

@@ -318,13 +318,19 @@ def attention_forward(params, cfg: ModelConfig, x, *, kind: str = "attn",
     if encoder_out is None:
         return attention_forward_collect(params, cfg, x, kind=kind, positions=positions)[0]
     q, k, v = _qkv(params, cfg, x, encoder_out, None, None, use_rope=False)
+    return torch.einsum("bshk,hkd->bsd", cross_attend(cfg, q, k, v), params["wo"])
+
+
+def cross_attend(cfg: ModelConfig, q, k, v):
+    """Cross-attention of unroped q (B,S,H,hd) over k/v (B,T,G,hd), every
+    key kept: the flash loop (no causal mask, the padded keys dropped) when
+    the decoder's sequence is longer than ``cfg.attn_chunk``, else the dense
+    ``_gqa_attend``."""
     s, t = q.shape[1], k.shape[1]
     if cfg.attn_chunk and s > cfg.attn_chunk:
-        out = _flash_attend(cfg, q, k, v, kind="cross", q_chunk=cfg.attn_chunk,
-                            kv_chunk=cfg.attn_chunk, causal_skip=False)
-    else:
-        out = _gqa_attend(cfg, q, k, v, torch.ones((s, t), dtype=torch.bool, device=q.device))
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        return _flash_attend(cfg, q, k, v, kind="cross", q_chunk=cfg.attn_chunk,
+                             kv_chunk=cfg.attn_chunk, causal_skip=False)
+    return _gqa_attend(cfg, q, k, v, torch.ones((s, t), dtype=torch.bool, device=q.device))
 
 
 def pad_cache(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
@@ -351,9 +357,7 @@ def attention_decode(params, cfg: ModelConfig, x1, cache: dict, pos: int, *,
         else:
             q = torch.einsum("bsd,dhk->bshk", x1, params["wq"])
             k, v = cross_cache["k"], cross_cache["v"]
-        out = _gqa_attend(cfg, q, k, v, torch.ones((1, k.shape[1]), dtype=torch.bool,
-                                                    device=x1.device))
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+        return torch.einsum("bshk,hkd->bsd", cross_attend(cfg, q, k, v), params["wo"]), cache
     _check_kind(kind, "attention decode")
     b = x1.shape[0]
     pos = int(pos)

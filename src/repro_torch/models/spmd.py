@@ -115,6 +115,20 @@ of chunks, as ``layers.apply_moe`` does.  A decode step always takes the
 global dispatch and drops the aux, as the reference does; a prefill drops
 it too (nothing reads it).  No buffer's shape depends on the data, so an
 MoE step traces on ``meta`` slots as any other.
+
+An encoder-decoder's encoder runs per data group over its rows of the
+frames (``act_batch``): its ``enc-attn`` layers split over "model" as the
+decoder's attention and MLP do, its norm on the group's first slot, the
+output copied to the group's slots once a step.  Each decoder layer's
+cross-attention (``normx``, ``xattn``) follows its mixer: queries from the
+residual stream, K/V of the encoder output, unroped, the heads split as
+self-attention's, ``wo`` row-parallel.  A prefill with frames writes each
+slot's block of the cross K/V by ``kv_heads`` (whole on every slot where
+the KV heads do not divide the model axis); a decode step reads them and
+writes nothing.  A VLM's patches (``act_batch``) go through the projector
+per data group — ``w1``'s columns and ``w2``'s rows on "model", the
+partials summed in float32 — and are prepended to the embeddings, so
+positions 0 … P−1 are the patches' and ``loss_fn`` scores the text.
 """
 from __future__ import annotations
 
@@ -127,6 +141,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -134,7 +149,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models import transformer as T
 from repro_torch.sharding import ShardingCtx, SlotArray, _names, data_axis_names
-from repro_torch.utils import tree_leaves, tree_map, unported
+from repro_torch.utils import tree_leaves, tree_map
 
 COLLECTIVE = "spmd.collective"
 
@@ -469,21 +484,25 @@ class _Placed:
 # --------------------------------------------------------------------------
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the one-device model lacks, and for an
-    encoder-decoder and a VLM, which the one-device model runs and the slot
-    program does not yet (it would run a VLM without its projector)."""
+    """Raise for what the one-device model lacks: the slot program runs
+    every preset the one-device model runs."""
     T._check_supported(cfg)
-    if cfg.n_encoder_layers:
-        raise unported("the slot program's encoder and cross-attention", "queue A item 21c")
-    if cfg.n_patches:
-        raise unported("the slot program's VLM projector", "queue A item 21c")
+
+
+def _placed_layers(params: list, compute: list, kinds) -> list:
+    """Each layer's sublayers as ``_Placed`` (an ``rwkv`` layer's flat dict
+    as one)."""
+    return [{"rwkv": _Placed(lp, lc)} if kind == "rwkv" else {k: _Placed(lp[k], lc[k]) for k in lp}
+            for kind, lp, lc in zip(kinds, params, compute)]
 
 
 class _Program:
     """Placed parameters as the slot programs read them: the mesh's data
     groups, each sublayer's leaves with their compute copies (float leaves
     cast to the activation dtype), and the embedding's masters, which the
-    unembedding uses uncast, as the reference's does."""
+    unembedding uses uncast, as the reference's does; an encoder-decoder's
+    encoder layers and norm (``enc_layers``, ``enc_norm``) and a VLM's
+    projector (``proj``), None elsewhere."""
 
     def __init__(self, params, cfg: ModelConfig):
         check_supported(cfg)
@@ -500,10 +519,15 @@ class _Program:
         self.emb_c = _Placed(params["embed"], compute["embed"])
         self.emb_m = _Placed(params["embed"], {k: a.blocks for k, a in params["embed"].items()})
         self.fnorm = _Placed(params["final_norm"], compute["final_norm"])
-        self.layers = [{"rwkv": _Placed(lp, lc)} if kind == "rwkv" else
-                       {k: _Placed(lp[k], lc[k]) for k in lp}
-                       for kind, lp, lc in zip(self.plan.kinds, params["layers"],
-                                               compute["layers"])]
+        self.layers = _placed_layers(params["layers"], compute["layers"], self.plan.kinds)
+        self.enc_layers = self.enc_norm = self.proj = None
+        if cfg.n_encoder_layers:
+            enc, enc_c = params["encoder"], compute["encoder"]
+            self.enc_plan = T.encoder_plan(cfg)
+            self.enc_layers = _placed_layers(enc["layers"], enc_c["layers"], self.enc_plan.kinds)
+            self.enc_norm = _Placed(enc["norm"], enc_c["norm"])
+        if cfg.n_patches:
+            self.proj = _Placed(params["mm_projector"], compute["mm_projector"])
 
     def rows(self, cfg: ModelConfig, n: int) -> List[slice]:
         """Each data group's rows of a global batch of ``n``: its share where
@@ -546,20 +570,25 @@ def _rep_heads(kv, cfg: ModelConfig, m: int, hl: int):
 
 
 def _attention(p: dict, cfg: ModelConfig, h, kind: str, m: int, n_model: int,
-               q_sharded: bool, kv_sharded: bool):
-    """Slot m's part of self-attention: (its share of ``wo``'s output — the
-    whole output where nothing shards —, its K, its V), K/V roped and of
-    the slot's KV heads (all of them where they replicate)."""
+               q_sharded: bool, kv_sharded: bool, kv_input=None):
+    """Slot m's part of self-attention, or with ``kv_input`` (the encoder's
+    output) of cross-attention: (its share of ``wo``'s output — the whole
+    output where nothing shards —, its K, its V), K/V of the slot's KV heads
+    (all of them where they replicate), roped for self-attention alone."""
     hd = cfg.hd
     hl = cfg.n_heads // n_model if q_sharded else cfg.n_heads
     gl = cfg.n_kv_heads // n_model if kv_sharded else cfg.n_kv_heads
-    pos = torch.arange(h.shape[1], device=h.device)[None, :]
-    q, k, v = L._qkv(p, cfg, h, h, pos, pos)
+    if kv_input is None:
+        pos = torch.arange(h.shape[1], device=h.device)[None, :]
+        q, k, v = L._qkv(p, cfg, h, h, pos, pos)
+    else:
+        q, k, v = L._qkv(p, cfg, h, kv_input, None, None, use_rope=False)
     ka, va = k, v
     if q_sharded and not kv_sharded:
         ka, va, gl = _rep_heads(k, cfg, m, hl), _rep_heads(v, cfg, m, hl), hl
     lcfg = dataclasses.replace(cfg, n_heads=hl, n_kv_heads=gl, head_dim=hd)
-    out = L.self_attend(lcfg, q, ka, va, kind=kind)
+    out = (L.self_attend(lcfg, q, ka, va, kind=kind) if kv_input is None else
+           L.cross_attend(lcfg, q, ka, va))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
@@ -629,12 +658,17 @@ def _layout(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str) -> tuple:
                 **{k: 0 for k in ("lam", "w_i", "b_i", "w_a", "b_a")}}
         return (_together(lp["rglru"].arrs, dims, "the RG-LRU's rnn_d leaves"),
                 _ffn_layout(lp, cfg))
-    attn = lp["attn"]
+    return _attn_layout(lp["attn"]) + (_ffn_layout(lp, cfg),)
+
+
+def _attn_layout(attn: _Placed) -> tuple:
+    """(Q sharded, K/V sharded) over "model", by heads, of a self- or
+    cross-attention."""
     q_sh = _check_model_dim(attn.arrs["wq"], "wq", 1)
     kv_sh = _check_model_dim(attn.arrs["wk"], "wk", 1)
     if _check_model_dim(attn.arrs["wo"], "wo", 0) != q_sh or (kv_sh and not q_sh):
         raise ValueError("wq and wo shard their heads together, and K/V only with them")
-    return q_sh, kv_sh, _ffn_layout(lp, cfg)
+    return q_sh, kv_sh
 
 
 def _attn_block(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int, x,
@@ -646,6 +680,21 @@ def _attn_block(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Gro
     for m, (s, xs) in enumerate(zip(slots, broadcast(x, devs, slots))):
         hn = L.apply_norm(lp["norm1"].slot(s), cfg, xs)
         out, k, v = _attention(lp["attn"].slot(s), cfg, hn, kind, m, groups.n_model, q_sh, kv_sh)
+        outs.append(out)
+        kvs.append((k, v))
+    return x + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0]), kvs
+
+
+def _cross_block(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int, x, eos: list):
+    """x + cross-attention for data group d over its encoder output ``eos``
+    (one copy a slot), and each slot's cross (K, V) of its KV heads."""
+    q_sh, kv_sh = _attn_layout(lp["xattn"])
+    slots, devs = groups.slots[d], groups.devices[d]
+    outs, kvs = [], []
+    for m, (s, xs, eo) in enumerate(zip(slots, broadcast(x, devs, slots), eos)):
+        hx = L.apply_norm(lp["normx"].slot(s), cfg, xs)
+        out, k, v = _attention(lp["xattn"].slot(s), cfg, hx, "cross", m, groups.n_model, q_sh,
+                               kv_sh, kv_input=eo)
         outs.append(out)
         kvs.append((k, v))
     return x + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0]), kvs
@@ -914,17 +963,79 @@ def _rwkv_block(pl: _Placed, cfg: ModelConfig, groups: Groups, d: int, x, layout
 
 
 def _layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, ds,
-           moe: Optional[_MoEPlan], *xs):
-    """One decoder layer for the data groups ``ds`` (x -> x + mixer, then +
-    mlp; an ``rwkv`` layer holds both): (the new streams, the MoE aux or
-    None)."""
+           moe: Optional[_MoEPlan], eos: Optional[list], *xs):
+    """One layer for the data groups ``ds`` (x -> x + mixer, then + the
+    cross-attention over ``eos`` — per group, its encoder output's copies,
+    one a slot — where given, then + mlp; an ``rwkv`` layer holds both):
+    (the new streams, the MoE aux or None)."""
     layout = _layout(lp, cfg, kind)
     if kind == "rwkv":
         return tuple(_rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)[0]
                      for d, x in zip(ds, xs)), None
     mixed = [(_rglru_block(lp, cfg, groups, d, x, layout) if kind == "rglru" else
               _attn_block(lp, cfg, kind, groups, d, x, layout))[0] for d, x in zip(ds, xs)]
+    if eos is not None:
+        mixed = [_cross_block(lp, cfg, groups, d, x, eo)[0] for d, x, eo in zip(ds, mixed, eos)]
     return _ffn(lp, cfg, groups, ds, mixed, layout[-1], moe)
+
+
+def _side_inputs(cfg: ModelConfig, device, frames, patches):
+    """(frames, patches) as global tensors on ``device`` (placed ones
+    gathered), each None where not given or where the config has no
+    encoder / no ``n_patches``: the reference ignores them there."""
+    def get(x, used):
+        if x is None or not used:
+            return None
+        x = _global(x)
+        return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x), device=device)
+
+    return get(frames, cfg.n_encoder_layers), get(patches, cfg.n_patches)
+
+
+def _encode(prog: _Program, cfg: ModelConfig, frames, cuts: List[slice], ds, remat: bool) -> list:
+    """``transformer.encode`` for each data group of ``ds`` over its rows
+    of ``frames``, cast to the activation dtype: the ``enc-attn`` layers
+    (split over "model" as the decoder's are; each of the layers the
+    reference scans under a checkpoint when ``remat``), the norm on the
+    group's first slot, the output copied to the group's slots.  Returns,
+    per group, the copies (one a slot)."""
+    groups, plan = prog.groups, prog.enc_plan
+    xs = tuple(frames[cuts[d]].to(groups.devices[d][0], cfg.activation_dtype()) for d in ds)
+    for i, lp in enumerate(prog.enc_layers):
+        fn = _scoped(i, plan, functools.partial(_layer, lp, cfg, T.ENCODER_KIND, groups, ds,
+                                                None, None))
+        xs, _ = (checkpoint(fn, *xs, use_reentrant=False) if (remat and i < plan.n_groups)
+                 else fn(*xs))
+    out = []
+    for d, x in zip(ds, xs):
+        slots = groups.slots[d]
+        eo = L.apply_norm(prog.enc_norm.slot(slots[0]), cfg, x)
+        out.append(list(broadcast(eo, groups.devices[d], slots)))
+    return out
+
+
+def _project(prog: _Program, cfg: ModelConfig, patches, d: int):
+    """Data group d's ``patches`` through the VLM projector, on its first
+    slot's device: cast to the activation dtype and copied to the group's
+    slots, GELU(patches · w1's columns) · w2's rows on each slot (d_model
+    split over "model" where their specs split it), the partials summed in
+    float32 and rounded once."""
+    groups = prog.groups
+    sharded = _together(prog.proj.arrs, {"w1": 1, "w2": 0}, "the projector's w1 and w2")
+    slots, devs = groups.slots[d], groups.devices[d]
+    x = patches.to(devs[0], cfg.activation_dtype())
+    outs = [L._gelu_tanh(xs @ prog.proj.local("w1", s)) @ prog.proj.local("w2", s)
+            for s, xs in zip(slots, broadcast(x, devs, slots))]
+    return reduce_sum(outs, devs[0], slots=slots) if sharded else outs[0]
+
+
+def _inputs(prog: _Program, cfg: ModelConfig, tokens, patches, cut: slice, d: int):
+    """Data group d's rows ``cut`` embedded on its first slot's device, a
+    VLM's projected patches before the tokens (positions 0 … P−1)."""
+    x = _embed(prog.emb_c, cfg, tokens[cut], prog.groups, d)
+    if patches is None:
+        return x
+    return torch.cat([_project(prog, cfg, patches[cut], d), x], 1)
 
 
 def _final_hidden(prog: _Program, cfg: ModelConfig, d: int, x) -> list:
@@ -972,42 +1083,47 @@ def _nll_fn(emb: _Placed, cfg: ModelConfig, groups: Groups, d: int):
 def loss_fn(params, cfg: ModelConfig, batch):
     """``transformer.loss_fn`` over placed parameters: (loss, {"xent",
     "moe_aux"}) on slot 0's device.  ``batch`` holds global tensors
-    (``tokens``, ``labels``, optional ``loss_mask``) whose rows split over
-    the data groups where ``act_batch`` resolves (else each group runs them
-    all and group 0's count).  Each scanned layer of a data group (of all of
-    them in lockstep where MoE layers exchange between the groups) runs under
-    a checkpoint when ``cfg.remat`` is set and gradients are on, as the
-    one-device forward does in training; ``moe_aux`` is the MoE layers' aux
-    summed in float32.  An unsharded vocabulary's logits are
+    (``tokens``, ``labels``, optional ``loss_mask``, ``frames``, ``patches``)
+    whose rows split over the data groups where ``act_batch`` resolves (else
+    each group runs them all and group 0's count).  Each scanned layer of a
+    data group (of all of them in lockstep where MoE layers exchange between
+    the groups) runs under a checkpoint when ``cfg.remat`` is set and
+    gradients are on, as the one-device forward does in training, the
+    encoder's scanned layers too; ``moe_aux`` is the MoE layers' aux summed
+    in float32.  With patches the last ``labels.shape[1]`` positions are
+    scored, as the reference's.  An unsharded vocabulary's logits are
     computed on the group's slot 0 alone (no other copy would reach the
     loss)."""
-    if batch.get("frames") is not None or batch.get("patches") is not None:
-        raise unported("the slot program's frames / patches", "queue A item 21c")
     prog = _Program(params, cfg)
     groups, plan = prog.groups, prog.plan
-    tokens = T._tokens(batch["tokens"], groups.devices[0][0])
-    labels = T._tokens(batch["labels"], groups.devices[0][0])
+    dev = groups.devices[0][0]
+    tokens = T._tokens(batch["tokens"], dev)
+    labels = T._tokens(batch["labels"], dev)
+    frames, patches = _side_inputs(cfg, dev, batch.get("frames"), batch.get("patches"))
     mask = batch.get("loss_mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device) if mask is None
             else torch.as_tensor(mask, device=labels.device).float())
     cuts = prog.rows(cfg, tokens.shape[0])
     n_scanned = plan.n_groups * len(plan.pattern)
     use_remat = cfg.remat and torch.is_grad_enabled()
-    moe = _moe_plan(prog, cfg, tokens.numel(), cuts[0] != cuts[-1], seq=True, aux=True)
-    dev = groups.devices[0][0]
+    seq = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    moe = _moe_plan(prog, cfg, tokens.shape[0] * seq, cuts[0] != cuts[-1], seq=True, aux=True)
 
     tots, cnts = [], []
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for ds in _lockstep(groups, cfg):
-        xs = tuple(_embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d) for d in ds)
+        eos = None if frames is None else _encode(prog, cfg, frames, cuts, ds, use_remat)
+        xs = tuple(_inputs(prog, cfg, tokens, patches, cuts[d], d) for d in ds)
         for i, kind in enumerate(plan.kinds):
             fn = _scoped(i, plan, functools.partial(_layer, prog.layers[i], cfg, kind, groups, ds,
-                                                    moe))
+                                                    moe, eos))
             xs, aux_i = T._remat(cfg, fn)(*xs) if (use_remat and i < n_scanned) else fn(*xs)
             if aux_i is not None:
                 aux = aux + aux_i
         for d, x in zip(ds, xs):
             dev0 = groups.devices[d][0]
+            if cfg.n_patches and "patches" in batch:
+                x = x[:, x.shape[1] - labels.shape[1]:]
             hs = _final_hidden(prog, cfg, d, x)
             tot, cnt = L.chunked_nll(_nll_fn(prog.emb_m, cfg, groups, d), hs,
                                      labels[cuts[d]].to(dev0), mask[cuts[d]].to(dev0),
@@ -1068,10 +1184,18 @@ def _cache_dim(sharding, kv_sharded: bool):
     return dim
 
 
-def _check_state(st: dict, layout: tuple, kind: str) -> None:
-    """A layer's decode-state shardings (``{"kv": ...}`` or ``{"rnn": ...}``)
-    against the layer's split over "model": a recurrent state shards its
-    channels (heads for ``wkv``) where the layer computes them apart."""
+def _check_state(st: dict, layout: tuple, kind: str, lp: Dict[str, _Placed]) -> None:
+    """A layer's decode-state shardings (``{"kv": ...}`` or ``{"rnn": ...}``,
+    an encoder-decoder's ``"cross"`` beside it) against the layer's split
+    over "model": a recurrent state shards its channels (heads for ``wkv``)
+    where the layer computes them apart; the cross K/V their KV heads where
+    the cross-attention's K/V shard, else nothing."""
+    if "cross" in st:
+        kv_sh = _attn_layout(lp["xattn"])[1]
+        for a in st["cross"].values():
+            if model_dim(a) != (2 if kv_sh else None):
+                raise ValueError(f"the cross cache's spec {a.spec} does not split its KV heads "
+                                 f"as the cross-attention's K/V do")
     if kind == "rwkv":
         want = {"wkv": (1, layout[1]), "shift_tm": (1, layout[0]), "shift_cm": (1, layout[0])}
     elif kind == "rglru":
@@ -1087,38 +1211,47 @@ def _check_state(st: dict, layout: tuple, kind: str) -> None:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
+def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *, frames=None, patches=None):
     """``transformer.prefill`` over placed parameters: the prompt ``tokens``
-    (B, S) — a tensor, or placed by ``act_batch`` — run through the slot
+    (B, S) — a tensor, or placed by ``act_batch`` —, an encoder-decoder's
+    ``frames`` and a VLM's ``patches`` (likewise) run through the slot
     program.  Returns (logits (B, vocab) placed as ``("act_batch",
     "act_vocab")`` — ``.gather()`` joins them —, the cache: per layer its
-    ``{"kv": {"k", "v"}}`` or ``{"rnn": ...}`` of ``SlotArray``, placed by
-    ``transformer.cache_specs`` on the parameters' mesh, each slot's block
-    written by that slot)."""
+    ``{"kv": {"k", "v"}}`` or ``{"rnn": ...}``, and with frames its cross
+    K/V ``"cross"``, of ``SlotArray``, placed by ``transformer.cache_specs``
+    on the parameters' mesh, each slot's block written by that slot).  As in
+    the reference, a prefill without frames keeps no cross K/V (decode then
+    skips cross-attention), and with patches the cache's positions 0 … P−1
+    are the patches', so ``cache_len`` counts them."""
     prog = _Program(params, cfg)
     groups, plan = prog.groups, prog.plan
-    tokens = T._tokens(_global(tokens), groups.devices[0][0])
+    dev0 = groups.devices[0][0]
+    tokens = T._tokens(_global(tokens), dev0)
+    frames, patches = _side_inputs(cfg, dev0, frames, patches)
     b = tokens.shape[0]
     cuts = prog.rows(cfg, b)
-    shapes = T.cache_shapes(cfg, b, cache_len)
-    shard = prog.ctx(cfg).param_shardings(shapes, T.cache_specs(cfg))
+    kept = lambda tree: [{g: v for g, v in st.items() if g != "cross" or frames is not None}
+                         for st in tree]
+    shapes = kept(T.cache_shapes(cfg, b, cache_len))
+    shard = prog.ctx(cfg).param_shardings(shapes, kept(T.cache_specs(cfg)))
     n_slots = len(prog.mesh.slot_devices)
     blocks = [{g: {n: [None] * n_slots for n in leaves} for g, leaves in st.items()}
               for st in shapes]
     hidden = [None] * n_slots
-    moe = _moe_plan(prog, cfg, b * tokens.shape[1], cuts[0] != cuts[-1], seq=True, aux=False)
+    seq = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    moe = _moe_plan(prog, cfg, b * seq, cuts[0] != cuts[-1], seq=True, aux=False)
 
     def write(i, group, d, per_slot):
         for n, arr in shard[i][group].items():
             for s, v in zip(groups.slots[d], per_slot):
                 blocks[i][group][n][s] = _block_of(v[n], arr, s, shapes[i][group][n].shape)
 
-    def layer(i, kind, ds, *xs):
+    def layer(i, kind, ds, eos, *xs):
         lp = prog.layers[i]
         layout = _layout(lp, cfg, kind)
-        _check_state(shard[i], layout, kind)
+        _check_state(shard[i], layout, kind, lp)
         mixed = []
-        for d, x in zip(ds, xs):
+        for j, (d, x) in enumerate(zip(ds, xs)):
             if kind == "rwkv":
                 x, states = _rwkv_block(lp["rwkv"], cfg, groups, d, x, layout)
                 write(i, "rnn", d, states)
@@ -1127,17 +1260,21 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int):
                 write(i, "rnn", d, states)
             else:
                 x, kvs = _attn_block(lp, cfg, kind, groups, d, x, layout)
-                write(i, "kv", d, [{n: T.cache_layout(kv[j], cfg, kind, cache_len)
-                                    for j, n in enumerate(("k", "v"))} for kv in kvs])
+                write(i, "kv", d, [{n: T.cache_layout(t, cfg, kind, cache_len)
+                                    for n, t in zip(("k", "v"), kv)} for kv in kvs])
+            if eos is not None and kind != "rwkv":
+                x, xkvs = _cross_block(lp, cfg, groups, d, x, eos[j])
+                write(i, "cross", d, [dict(zip(("k", "v"), kv)) for kv in xkvs])
             mixed.append(x)
         if kind == "rwkv":
             return tuple(mixed)
         return _ffn(lp, cfg, groups, ds, mixed, layout[-1], moe)[0]
 
     for ds in _lockstep(groups, cfg):
-        xs = tuple(_embed(prog.emb_c, cfg, tokens[cuts[d]], groups, d) for d in ds)
+        eos = None if frames is None else _encode(prog, cfg, frames, cuts, ds, False)
+        xs = tuple(_inputs(prog, cfg, tokens, patches, cuts[d], d) for d in ds)
         for i, kind in enumerate(plan.kinds):
-            xs = _scoped(i, plan, functools.partial(layer, i, kind, ds))(*xs)
+            xs = _scoped(i, plan, functools.partial(layer, i, kind, ds, eos))(*xs)
         for d, x in zip(ds, xs):
             for s, h in zip(groups.slots[d], _final_hidden(prog, cfg, d, x)):
                 hidden[s] = h[:, -1]
@@ -1205,15 +1342,39 @@ def _decode_layer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: G
                   st: dict, pos: int, moe: Optional[_MoEPlan], *xs):
     """One decoder layer of a decode step for the data groups ``ds`` over
     the layer's placed decode state ``st``, updated in place: x1 (r, 1, D)
-    -> x1 + mixer (``_decode_mixer``), then + mlp (an ``rwkv`` layer holds
-    both)."""
+    -> x1 + mixer (``_decode_mixer``), then + the cross-attention over the
+    state's ``"cross"`` K/V where it holds them, then + mlp (an ``rwkv``
+    layer holds both)."""
     layout = _layout(lp, cfg, kind)
     _check_state({g: {n: a.sharding for n, a in leaves.items()} for g, leaves in st.items()},
-                 layout, kind)
+                 layout, kind, lp)
     xs = [_decode_mixer(lp, cfg, kind, groups, d, st, pos, x1, layout) for d, x1 in zip(ds, xs)]
     if kind == "rwkv":
         return tuple(xs)
+    if "cross" in st:
+        xs = [_decode_cross(lp, cfg, groups, d, st["cross"], x1) for d, x1 in zip(ds, xs)]
     return _ffn(lp, cfg, groups, ds, xs, layout[-1], moe)[0]
+
+
+def _decode_cross(lp: Dict[str, _Placed], cfg: ModelConfig, groups: Groups, d: int, cross: dict,
+                  x1):
+    """x1 + data group d's cross-attention of a decode step: each slot's
+    unroped query heads over its blocks of the placed cross K/V (read, never
+    written), ``wo``'s partials summed where the heads shard."""
+    q_sh, kv_sh = _attn_layout(lp["xattn"])
+    slots, devs = groups.slots[d], groups.devices[d]
+    hl = cfg.n_heads // groups.n_model if q_sh else cfg.n_heads
+    outs = []
+    for m, (s, xs) in enumerate(zip(slots, broadcast(x1, devs, slots))):
+        hx = L.apply_norm(lp["normx"].slot(s), cfg, xs)
+        q = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"].local("wq", s))
+        k, v = cross["k"].blocks[s], cross["v"].blocks[s]
+        if q_sh and not kv_sh:
+            k, v = _rep_heads(k, cfg, m, hl), _rep_heads(v, cfg, m, hl)
+        lcfg = dataclasses.replace(cfg, n_heads=hl, n_kv_heads=k.shape[2], head_dim=cfg.hd)
+        outs.append(torch.einsum("bshk,hkd->bsd", L.cross_attend(lcfg, q, k, v),
+                                 lp["xattn"].local("wo", s)))
+    return x1 + (reduce_sum(outs, devs[0], slots=slots) if q_sh else outs[0])
 
 
 def _decode_mixer(lp: Dict[str, _Placed], cfg: ModelConfig, kind: str, groups: Groups, d: int,

@@ -56,14 +56,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def unported(feature: str, item: str) -> NotImplementedError:
-    """The error for a feature the JAX package has and this port does not
-    yet: names the ROADMAP queue item that will bring it."""
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md {item})"
-    )
-
-
 def tree_leaves(tree) -> list:
     """The leaves of a nested dict / list / tuple, dict keys in sorted order
     (``jax.tree.leaves``' order); ``None`` is an empty subtree."""

@@ -223,8 +223,25 @@ def test_dryrun_reference_cell_on_512_meta_slots():
 
 
 def test_dryrun_records_an_unported_preset():
+    """whisper's train cell, refused until the slot program carried the
+    encoder (ROADMAP queue A item 21c), traces on the (16, 16) pod, the
+    encoder stepped with the decoder; its per-slot argument bytes equal a
+    hand count: the float32 weights and both AdamW moments (whole but the
+    MLPs', d_ff split 16 ways; 20 heads and a vocab of 51,866 do not
+    split), the step count, and the slot's 16 rows of tokens and labels
+    (int64) and of frames (float32)."""
     rec = dryrun.run_cell("whisper_large_v3", "train_4k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "queue A item 21" in rec["error"]
+    assert rec["ok"], rec.get("traceback")
+    assert rec["trace"] == {"depths": [2, 3], "groups_added": 30, "attn_chunk": 0,
+                            "encoder_depths": [2, 3]}
+    cfg = C.get_config("whisper_large_v3")
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    dec = 3 * 2 * d + 8 * d * d + 2 * d * f // 16        # 3 LayerNorms, attn + xattn, MLP
+    enc = 2 * 2 * d + 4 * d * d + 2 * d * f // 16
+    weights = 2 * v * d + cfg.n_layers * dec + cfg.n_encoder_layers * enc + 2 * 2 * d
+    rows = 256 // 16
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        3 * 4 * weights + 4 + 2 * rows * 4096 * 8 + rows * cfg.encoder_seq * d * 4
 
 
 def test_dryrun_single_cell_end_to_end():
@@ -436,6 +453,14 @@ TRACE_CASES = {
     "decode_recurrentgemma_2x4": (
         dataclasses.replace(C.get_smoke_config("recurrentgemma_9b"), n_layers=14), "decode",
         (2, 4)),
+    # the encoder traced at 4 and 5 layers beside the decoder's 2 and 3
+    "train_whisper_2x2": (dataclasses.replace(C.get_smoke_config("whisper_large_v3"), n_layers=5,
+                                              n_encoder_layers=7), "train", (2, 2)),
+    "prefill_whisper_unscanned_1x4": (
+        dataclasses.replace(C.get_smoke_config("whisper_large_v3"), n_layers=5,
+                            n_encoder_layers=3, scan_layers=False), "prefill", (1, 4)),
+    "train_llava_fsdp_2x2": (dataclasses.replace(C.get_smoke_config("llava_next_mistral_7b"),
+                                                 n_layers=5, fsdp=True), "train", (2, 2)),
 }
 
 
@@ -446,7 +471,9 @@ def test_trace_shortcuts_are_exact(case):
     output bytes."""
     cfg, kind, mshape = TRACE_CASES[case]
     assert dryrun.trace_depths(cfg) is not None
-    shape = C.ShapeConfig(kind, kind, 12, 4)
+    if case == "train_whisper_2x2":
+        assert dryrun.encoder_depths(cfg, dryrun.trace_depths(cfg)[2]) == (4, 5)
+    shape = C.ShapeConfig(kind, kind, 12 + cfg.n_patches, 4)
     mesh = dryrun.on_meta(make_host_mesh(mshape[1], slots=mshape[0] * mshape[1], device="cpu"))
     full_rec, full_out = dryrun.trace(dataclasses.replace(cfg, attn_chunk=0), shape, mesh,
                                       one_group=False)

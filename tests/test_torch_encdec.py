@@ -518,28 +518,84 @@ def test_serving_loop_with_frames_matches_jax():
 
 
 # --------------------------------------------------------------------------
-# the slot program refuses an encoder-decoder
+# the calls the slot program refused until it carried the encoder
 # --------------------------------------------------------------------------
 
+def _built_train(cfg, mesh):
+    _, (st, b), (st_sh, b_sh) = S.build_train(cfg, C.SHAPES["train_4k"], mesh)
+    assert tuple(b["frames"].shape) == (256, cfg.encoder_seq, cfg.d_model)
+    assert b_sh["frames"].spec[0] == "data"
+    assert len(st["params"]["encoder"]["layers"]) == cfg.n_encoder_layers
+    assert st_sh["opt"]["mu"]["layers"][0]["xattn"]["wq"].spec == \
+        st_sh["params"]["layers"][0]["attn"]["wq"].spec
+
+
+def _built_prefill(cfg, mesh):
+    _, (_, b), (_, b_sh) = S.build_prefill(cfg, C.SHAPES["prefill_32k"], mesh)
+    assert tuple(b["frames"].shape) == (32, cfg.encoder_seq, cfg.d_model)
+    assert b_sh["frames"].spec[0] == "data"
+
+
+def _built_decode(cfg, mesh):
+    _, (_, _, cache, _), (_, _, c_sh, _) = S.build_decode(cfg, C.SHAPES["decode_32k"], mesh)
+    assert tuple(cache[0]["cross"]["k"].shape) == (128, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+    assert c_sh[0]["cross"]["k"].spec[2] == "model"      # 4 KV heads on 2 model slots
+
+
+def _prefill_without_frames(cfg, mesh):
+    """The prefill without frames keeps no cross K/V, as the reference's."""
+    jcfg, tcfg = _cfgs()
+    _, model = _model(jcfg, tcfg)
+    _, _, (st_sh, _) = S.build_train(tcfg, C.SHAPES["train_4k"], mesh)
+    params = S.place(model.tree(), st_sh["params"])
+    toks = np.zeros((1, 4), np.int32)
+    got, cache = spmd.prefill(params, tcfg, toks, 8)
+    want, ref = T.prefill(model, tcfg, toks, 8)
+    _close(got.gather(), want, TOL_M)
+    assert [set(st) for st in cache] == [set(st) for st in ref] == [{"kv"}] * tcfg.n_layers
+
+
 REFUSALS = {
-    "build_train": lambda cfg, mesh: S.build_train(cfg, C.SHAPES["train_4k"], mesh),
-    "build_prefill": lambda cfg, mesh: S.build_prefill(cfg, C.SHAPES["prefill_32k"], mesh),
-    "build_decode": lambda cfg, mesh: S.build_decode(cfg, C.SHAPES["decode_32k"], mesh),
-    "spmd.prefill": lambda cfg, mesh: spmd.prefill(None, cfg, np.zeros((1, 4), np.int32), 8),
+    "build_train": _built_train,
+    "build_prefill": _built_prefill,
+    "build_decode": _built_decode,
+    "spmd.prefill": _prefill_without_frames,
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_slot_program_refuses_whisper(what):
-    """The one-device model runs whisper; the slot program refuses it up
-    front, naming the queue A item that brings it (21c), not with an error
-    of a missing sublayer."""
-    mesh = make_host_mesh(2, slots=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A item 21c"):
-        REFUSALS[what](C.get_smoke_config(ARCH), mesh)
+    """The calls the slot program refused until it carried the encoder
+    and cross-attention (ROADMAP queue A item 21c) run on 2 × 2 CPU slots:
+    the builders place the frames by ``act_batch`` and the cross K/V by
+    their KV heads; ``tests/test_torch_encdec_sharded.py`` holds the
+    values to JAX."""
+    REFUSALS[what](C.get_smoke_config(ARCH), make_host_mesh(2, slots=4, device="cpu"))
+
+
+def _decode_arg_bytes(cfg, shape, data=16, model=16):
+    """A hand count of whisper's per-slot argument bytes in a decode cell
+    on the (16, 16) pod: float32 weights, whole but the MLPs' (d_ff splits
+    16 ways; 20 heads and a vocab of 51,866 do not); per layer the KV cache
+    of the slot's 2,048 positions (20 KV heads do not split, so the
+    positions do) and the cross K/V of its rows, whole; the tokens (int64)
+    and pos."""
+    d, f, v, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+    dec = 2 * d + 4 * d * d + 2 * d + 4 * d * d + 2 * d + 2 * d * f // model
+    enc = 2 * d + 4 * d * d + 2 * d + 2 * d * f // model
+    weights = 2 * v * d + cfg.n_layers * dec + cfg.n_encoder_layers * enc + 2 * 2 * d
+    rows, kvh = shape.global_batch // data, cfg.n_kv_heads
+    kv = 2 * rows * (shape.seq_len // model) * kvh * hd * 2
+    cross = 2 * rows * cfg.encoder_seq * kvh * hd * 2
+    return 4 * weights + cfg.n_layers * (kv + cross) + rows * 8 + 4
 
 
 def test_dryrun_records_whisper_as_refused_by_the_slot_program():
+    """whisper's decode cell on the (16, 16) pod traces; its per-slot
+    argument bytes equal the hand count, the cross K/V included."""
     rec = dryrun.run_cell(ARCH, "decode_32k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "NotImplementedError" in rec["error"] and \
-        "queue A item 21c" in rec["error"]
+    assert rec["ok"], rec.get("traceback")
+    cfg = C.get_config(ARCH)
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        _decode_arg_bytes(cfg, C.SHAPES["decode_32k"])
+    assert rec["trace"]["encoder_depths"] == [2, 3]

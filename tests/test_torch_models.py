@@ -505,30 +505,77 @@ def test_sharding_ctx_keeps_values():
         sharding.ShardingCtx.for_mesh(object())
 
 
+def _slot_case(over):
+    """olmo_1b's smoke config with ``over``, its seeded model, and the model
+    placed on 2 × 2 CPU slots."""
+    cfg = dataclasses.replace(C.get_smoke_config("olmo_1b"), **over)
+    model = T.init_params(3, cfg, device="cpu")
+    mesh = make_host_mesh(2, slots=4, device="cpu")
+    _, _, (st_sh, _) = steps.build_train(cfg, C.ShapeConfig("t", "train", 12, 2), mesh)
+    return cfg, model, steps.place(model.tree(), st_sh["params"])
+
+
+def _loss_ignores_frames():
+    cfg, _, params = _slot_case({})
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    frames = np.ones((2, cfg.encoder_seq, cfg.d_model), np.float32)
+    assert float(spmd.loss_fn(params, cfg, {**batch, "frames": frames})[0]) == \
+        float(spmd.loss_fn(params, cfg, batch)[0])
+
+
+def _prefill_with_encoder():
+    cfg, model, params = _slot_case(dict(n_encoder_layers=2, encoder_seq=6))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 4))
+    frames = np.random.default_rng(2).standard_normal((2, 6, cfg.d_model)).astype(np.float32)
+    got, cache = spmd.prefill(params, cfg, toks, 8, frames=frames)
+    want, ref = T.prefill(model, cfg, toks, 8, frames=frames)
+    np.testing.assert_allclose(got.gather().numpy(), want.numpy(), rtol=RTOL_LOGIT,
+                               atol=ATOL_LOGIT)
+    np.testing.assert_allclose(cache[1]["cross"]["k"].gather().numpy(),
+                               ref[1]["cross"]["k"].numpy(), rtol=RTOL_LOGIT, atol=ATOL_LOGIT)
+
+
+def _decode_after_patches():
+    cfg, model, params = _slot_case(dict(n_patches=4, patch_dim=16))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 5))
+    patches = np.random.default_rng(2).standard_normal((2, 4, 16)).astype(np.float32)
+    _, cache = spmd.prefill(params, cfg, toks[:, :4], 12, patches=patches)
+    _, ref = T.prefill(model, cfg, toks[:, :4], 12, patches=patches)
+    got, _ = spmd.decode_step(params, cfg, toks[:, 4], cache, 8)
+    want, _ = T.decode_step(model, cfg, toks[:, 4], ref, 8)
+    np.testing.assert_allclose(got.gather().numpy(), want.numpy(), rtol=RTOL_LOGIT,
+                               atol=ATOL_LOGIT)
+
+
+def _build_prefill_with_patches():
+    cfg = dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4)
+    _, (p_specs, b_specs), (p_sh, b_sh) = steps.build_prefill(
+        cfg, C.SHAPES["prefill_32k"], make_host_mesh(2, slots=4, device="cpu"))
+    assert tuple(b_specs["patches"].shape) == (32, 4, cfg.patch_dim)
+    assert tuple(b_specs["tokens"].shape) == (32, 32768 - 4)
+    assert b_sh["patches"].spec[0] == "data" and "mm_projector" in p_sh
+
+
 UNPORTED = {
-    "spmd loss_fn frames": lambda: spmd.loss_fn(
-        None, C.get_smoke_config("olmo_1b"), {"tokens": np.zeros((1, 4), np.int32), "frames": 1}),
-    "spmd prefill encoder": lambda: spmd.prefill(
-        None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_encoder_layers=2),
-        np.zeros((1, 4), np.int32), 8),
-    "spmd decode_step vlm": lambda: spmd.decode_step(
-        None, dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
-        np.zeros(1, np.int32), None, 0),
+    "spmd loss_fn frames": _loss_ignores_frames,
+    "spmd prefill encoder": _prefill_with_encoder,
+    "spmd decode_step vlm": _decode_after_patches,
     "spmd check_supported vlm": lambda: spmd.check_supported(
         dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4)),
-    "build_prefill vlm": lambda: steps.build_prefill(
-        dataclasses.replace(C.get_smoke_config("olmo_1b"), n_patches=4),
-        C.SHAPES["prefill_32k"], make_host_mesh(2, slots=4, device="cpu")),
+    "build_prefill vlm": _build_prefill_with_patches,
 }
 
 
 @pytest.mark.parametrize("what", list(UNPORTED))
 def test_unported_features_name_queue_a17(what):
-    """Every refusal names the queue A item that brings the feature: 21c
-    (the encoder, frames, the VLM projector and patches in the slot
-    program; the one-device model runs them all)."""
-    with pytest.raises(NotImplementedError, match="queue A item 21c"):
-        UNPORTED[what]()
+    """The calls that refused frames, an encoder and patches until the slot
+    program carried them (ROADMAP queue A item 21c) run: frames on a config
+    without an encoder are ignored, as the reference ignores them; a
+    prefill with an encoder and a decode step after patches match the
+    one-device functions (1e-4); ``build_prefill`` places the patches by
+    ``act_batch`` beside the projector."""
+    UNPORTED[what]()
 
 
 def test_unknown_arch_raises():

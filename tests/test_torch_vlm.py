@@ -451,31 +451,96 @@ def test_serving_loop_with_patches_matches_jax():
 
 
 # --------------------------------------------------------------------------
-# the slot program refuses a VLM
+# the calls the slot program refused until it carried the projector
 # --------------------------------------------------------------------------
+
+def _placed(mesh):
+    jcfg, tcfg = _cfgs()
+    params, model = _model(jcfg, tcfg)
+    _, _, (st_sh, _) = S.build_train(tcfg, C.SHAPES["train_4k"], mesh)
+    return tcfg, model, S.place(model.tree(), st_sh["params"])
+
+
+def _built_train(cfg, mesh):
+    _, (st, b), (st_sh, b_sh) = S.build_train(cfg, C.SHAPES["train_4k"], mesh)
+    assert tuple(b["patches"].shape) == (256, cfg.n_patches, cfg.patch_dim)
+    assert tuple(b["tokens"].shape) == (256, 4096 - cfg.n_patches)
+    assert b_sh["patches"].spec[0] == "data"
+    assert st_sh["params"]["mm_projector"]["w1"].spec[1] == "model"
+    assert st_sh["opt"]["nu"]["mm_projector"]["w2"].spec[0] == "model"
+
+
+def _built_prefill(cfg, mesh):
+    _, (p, b), (_, b_sh) = S.build_prefill(cfg, C.SHAPES["prefill_32k"], mesh)
+    assert tuple(b["patches"].shape) == (32, cfg.n_patches, cfg.patch_dim)
+    assert b_sh["patches"].spec[0] == "data" and "mm_projector" in p
+
+
+def _built_decode(cfg, mesh):
+    _, (p, _, cache, _), _ = S.build_decode(cfg, C.SHAPES["decode_32k"], mesh)
+    assert tuple(cache[0]["kv"]["k"].shape)[1] == 32768 and "mm_projector" in p
+
+
+def _prefill_without_patches(cfg, mesh):
+    tcfg, model, params = _placed(mesh)
+    toks = np.zeros((1, 4), np.int32)
+    got, _ = spmd.prefill(params, tcfg, toks, 8)
+    _close(got.gather(), T.prefill(model, tcfg, toks, 8)[0], TOL_M)
+
+
+def _loss_with_patches(cfg, mesh):
+    tcfg, model, params = _placed(mesh)
+    toks = np.random.default_rng(3).integers(0, tcfg.vocab_size, (2, 9))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:], "patches": _patches(tcfg)}
+    _close(spmd.loss_fn(params, tcfg, batch)[0], T.loss_fn(model, tcfg, batch)[0], TOL_M)
+
 
 REFUSALS = {
     "check_supported": lambda cfg, mesh: spmd.check_supported(cfg),
-    "build_train": lambda cfg, mesh: S.build_train(cfg, C.SHAPES["train_4k"], mesh),
-    "build_prefill": lambda cfg, mesh: S.build_prefill(cfg, C.SHAPES["prefill_32k"], mesh),
-    "build_decode": lambda cfg, mesh: S.build_decode(cfg, C.SHAPES["decode_32k"], mesh),
-    "spmd.prefill": lambda cfg, mesh: spmd.prefill(None, cfg, np.zeros((1, 4), np.int32), 8),
-    "spmd.loss_fn": lambda cfg, mesh: spmd.loss_fn(
-        None, cfg, {"tokens": np.zeros((1, 4), np.int32), "patches": 1}),
+    "build_train": _built_train,
+    "build_prefill": _built_prefill,
+    "build_decode": _built_decode,
+    "spmd.prefill": _prefill_without_patches,
+    "spmd.loss_fn": _loss_with_patches,
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSALS))
 def test_slot_program_refuses_llava(what):
-    """The one-device model runs llava; the slot program refuses it up
-    front, naming the queue A item that brings it (21c), rather than run
-    it without its projector."""
-    mesh = make_host_mesh(2, slots=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A item 21c"):
-        REFUSALS[what](C.get_smoke_config(ARCH), mesh)
+    """The calls the slot program refused until it carried the projector
+    (ROADMAP queue A item 21c) run on 2 × 2 CPU slots: the builders place
+    the patches by ``act_batch`` and the projector's d_model over "model";
+    a prefill without patches and ``loss_fn`` with them match the
+    one-device functions; ``tests/test_torch_vlm_sharded.py`` holds the
+    slot program to JAX."""
+    REFUSALS[what](C.get_smoke_config(ARCH), make_host_mesh(2, slots=4, device="cpu"))
+
+
+def _weight_bytes(cfg, model=16):
+    """llava's float32 weights a slot of the (16, 16) pod: split 16 ways but
+    the norm scales and the 8 KV heads' ``wk`` / ``wv``, which do not
+    divide 16."""
+    d, f, v, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.hd
+    layer = 2 * d + (2 * d * cfg.n_heads * hd + 3 * d * f) // model + 2 * d * cfg.n_kv_heads * hd
+    proj = (cfg.patch_dim * d + d * d) // model
+    return 4 * (2 * v * d // model + cfg.n_layers * layer + d + proj)
 
 
 def test_dryrun_records_llava_as_refused_by_the_slot_program():
+    """llava's decode and prefill cells on the (16, 16) pod trace; the
+    per-slot argument bytes equal a hand count: the weights (the projector
+    included), in decode the KV cache by position (8 KV heads do not split
+    16 ways: 2,048 positions a slot) and the tokens, in prefill the slot's
+    2 rows of text tokens (int64) and of patches (float32)."""
+    cfg = C.get_config(ARCH)
     rec = dryrun.run_cell(ARCH, "decode_32k", multi_pod=False, verbose=False)
-    assert not rec["ok"] and "NotImplementedError" in rec["error"] and \
-        "queue A item 21c" in rec["error"] and "projector" in rec["error"]
+    assert rec["ok"], rec.get("traceback")
+    rows = 128 // 16
+    kv = cfg.n_layers * 2 * rows * (32768 // 16) * cfg.n_kv_heads * cfg.hd * 2
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == \
+        _weight_bytes(cfg) + kv + rows * 8 + 4
+    rec = dryrun.run_cell(ARCH, "prefill_32k", multi_pod=False, verbose=False)
+    assert rec["ok"], rec.get("traceback")
+    rows = 32 // 16
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == _weight_bytes(cfg) + \
+        rows * (32768 - cfg.n_patches) * 8 + rows * cfg.n_patches * cfg.patch_dim * 4
