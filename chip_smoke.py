@@ -16,7 +16,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          float64 oracle computed on the card;
   (c)    R≠S serving: a 65,536-query foreign batch against the same
          index, twice; a sample is held against float64 and the second
-         call must add no engine bucket;
+         call must add no engine bucket.  Then the index's engine records
+         (``cache_info()``, ``memory_analysis()``): each kind that ran
+         holds the four fields with temp > 0; a first-bucket query of 100
+         rows leaves the peak memory counter as it was, its records'
+         argument and output bytes equal the hand count, their code bytes
+         those of the libraries each record's call launched;
   (d)    the brute baseline (GPU-JOINLINEAR) on 4096 sampled queries over
          the full corpus, through the ``knn_topk`` kernel;
   (e)    the cell-tiled ``pallas`` backend at full width: a second index on
@@ -173,8 +178,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
          d_model 2,048, vocab 50,304, ``attn_chunk`` 1,024, remat "full", bf16
          activations, float32 masters and moments; 1,176,764,416 parameters
          from seed 0 on the card): ``TokenPipeline(cfg, SHAPES["train_4k"],
-         batch_override=4)``, 16,384 tokens a step, 8 steps of
-         ``make_train_step`` under ``OptConfig(total_steps=8,
+         batch_override=4)``, 16,384 tokens a step, 6 steps of
+         ``make_train_step`` under ``OptConfig(total_steps=6,
          warmup_steps=1)``: every loss finite, the last three's mean below
          the first three's, ``grad_norm`` > 0, step 1 within
          ``TRAIN_LOSS_TOL`` / ``TRAIN_GNORM_RTOL`` of a float32 step of the
@@ -450,6 +455,7 @@ K_BF16 = 16                         # k + 8 ≤ 32: the bf16 streaming kernel ru
 ORACLE_ROWS = 2048
 FOREIGN_QUERIES = 65_536
 BRUTE_QUERIES = 4096
+RECORD_PROBE = 100                  # (c): a first-bucket query, one query block
 K_PAST = 40                         # > MAX_UNROLLED_K: the brute lane's streamed route
 PAST_QUERIES = 1024
 PAST_CHUNK = 4096                   # the reference's corpus_chunk
@@ -494,8 +500,8 @@ LM_SEED = 7                        # weights and corpus
 LM_CHECK_STEPS = 4                 # decode steps held against the forward
 TRAIN_SEED = 0                     # (s): launch/train.py's init seed
 TRAIN_BATCH = 4                    # (s1): 4 × train_4k's 4,096 tokens a step
-TRAIN_STEPS = 8                    # (s1): steps at the published config (12 before the script
-                                   # neared its time limit)
+TRAIN_STEPS = 6                    # (s1): steps at the published config, cut twice for the
+                                   # script's time limit (12, then 8)
 # (s1) step 1 in bf16 activations against a float32 step of the same masters
 # and batch: |Δloss| ≤ TRAIN_LOSS_TOL (0.2 % of the ~10.8 nats at init) and a
 # relative grad_norm gap ≤ TRAIN_GNORM_RTOL.  The bf16 path rounds the
@@ -3885,6 +3891,7 @@ def main(argv=None) -> int:
                                      Rejected, ScriptedFaults, Served, ServerConfig,
                                      ServingConfig, ShardedKNNIndex, VirtualClock,
                                      open_loop_trace)
+    from repro_torch.runtime import knn_index as knn_index_mod
     from repro_torch.runtime.knn_index import select_epsilon
     from repro_torch.runtime import mutation as mut_lib
     from repro_torch.utils import pow2_bucket
@@ -3917,6 +3924,92 @@ def main(argv=None) -> int:
         want = {"knn_stream": stream_reroutes, "knn_topk": topk_reroutes}
         assert reroutes == want, f"{what}: oversized-k reroutes {reroutes}, expected {want}"
         return counts
+
+    def lib_launches():
+        """Kernel launches so far per CUDA library (``csrc/<name>.cu``)."""
+        return {"knn_stream": sum(stream_kernel.launches.values()),
+                "knn_topk": sum(topk_kernel.launches.values()),
+                "pairwise_l2": sum(pair_kernel.launches.values()),
+                "bin_hist": hist_kernel.launches}
+
+    def kinds_ran(*stats):
+        """The engine kinds that queries with these stats ran."""
+        return {kind for s in stats for kind, n in (
+            ("dense", s.n_dense), ("sparse", s.n_sparse + s.n_failed),
+            ("brute", s.n_uncertified)) if n}
+
+    def hold_records(index, ran, queries):
+        """The engine buckets' memory records of a clean l2 index
+        (``cache_info`` / ``memory_analysis``): each kind that ran holds all
+        four fields with temp > 0 and the code bytes of some of the built
+        libraries (none for the sparse engine's plain tensor code); then a
+        first-bucket query of RECORD_PROBE rows (every operand padded to one
+        query block) must leave the caller's peak counter as it was, and
+        its records must equal the hand count, their code bytes those of
+        the libraries each record's call launched, counted around it."""
+        lib = {name: _build._lib_path(name).stat().st_size for name in _build.SOURCES}
+        sums = {sum(lib[n] for i, n in enumerate(sorted(lib)) if mask >> i & 1)
+                for mask in range(1 << len(lib))}
+
+        def held(mem, kinds):
+            assert set(mem) <= ran, f"records {sorted(mem)} for kinds {sorted(ran)} ran"
+            for kind in kinds:
+                rec = mem[kind]
+                assert set(rec) == {"temp_size_in_bytes", "argument_size_in_bytes",
+                                    "output_size_in_bytes",
+                                    "generated_code_size_in_bytes"}, (kind, rec)
+                assert rec["temp_size_in_bytes"] > 0, (kind, rec)
+                assert rec["generated_code_size_in_bytes"] in sums, (kind, rec)
+
+        mem = index.memory_analysis()
+        log(f"[c] cache_info {json.dumps(index.cache_info())}")
+        log(f"[c] memory_analysis {json.dumps(mem)}")
+        log(f"[c] seconds the records took, by kind: {json.dumps(index.t_record)}")
+        held(mem, set(mem))
+
+        launched_by = {}                 # id(record) -> libraries its call launched
+        real_record = knn_index_mod._recorded_call
+
+        def spy(fn, args, kwargs):
+            before = lib_launches()
+            out, rec, seconds = real_record(fn, args, kwargs)
+            after = lib_launches()
+            launched_by[id(rec)] = sorted(n for n in after if after[n] != before[n])
+            return out, rec, seconds
+
+        qb = index.config.query_block
+        peak = torch.cuda.max_memory_allocated()
+        knn_index_mod._recorded_call = spy
+        try:
+            rp = index.query(queries[:RECORD_PROBE])
+        finally:
+            knn_index_mod._recorded_call = real_record
+        assert rp.stats.n_engine_compiles > 0, "the probe opened no engine bucket"
+        assert torch.cuda.max_memory_allocated() == peak, \
+            "a first-bucket query moved the caller's peak memory counter"
+        probe = kinds_ran(rp.stats)
+        ran = ran | probe
+        mem = index.memory_analysis()
+        libs = {kind: launched_by[id(index.executables[kind])] for kind in probe}
+        log(f"[c] first-bucket probe ({RECORD_PROBE} rows, libraries by kind {libs}): peak "
+            f"counter {peak} B unchanged; records {json.dumps(mem)}")
+        held(mem, probe)
+        for kind in probe:
+            assert mem[kind]["generated_code_size_in_bytes"] == sum(lib[n] for n in libs[kind]), \
+                (kind, mem[kind], libs[kind])
+        n, d = index.points_r.shape
+        m, levels = index.grid.m, len(index.pyramid.levels)
+        # A GridIndex holds 2 scalars, 4 (m,), 5 (n,) and one (n, m) 4-byte
+        # arrays, the dense grid also the (n, d) sorted points; every engine
+        # reads the padded query rows and ids.
+        grid = 4 * (2 + 4 * m + 5 * n + n * m)
+        rows = qb * d * 4 + qb * 4
+        want = {"dense": (grid + n * d * 4 + n * d * 4 + rows + 4, qb * (K * 8 + 9)),
+                "sparse": (levels * grid + 4 * levels + n * d * 4 + rows, qb * (K * 8 + 9)),
+                "brute": (n * d * 4 + rows, rp.stats.n_uncertified * K * 8)}
+        for kind in probe:
+            got = (mem[kind]["argument_size_in_bytes"], mem[kind]["output_size_in_bytes"])
+            assert got == want[kind], f"{kind} record {got}, hand count {want[kind]}"
 
     def past_k_calls():
         """Spies that note the k of every knn_topk and gathered-route call:
@@ -4066,6 +4159,7 @@ def main(argv=None) -> int:
     res = index.query(exclude_self=True)
     log(f"[b] self-join: {stats_line(res, len(pts))} sources={np.bincount(res.source, minlength=3).tolist()}")
     check_exact(pts_d, pts_d[rows], rows, res.dists[rows_np], res.ids[rows_np], "self-join")
+    self_stats = res.stats
     del res
 
     r1 = index.query(foreign)
@@ -4074,6 +4168,7 @@ def main(argv=None) -> int:
     log(f"[c] R≠S #2: {stats_line(r2, FOREIGN_QUERIES)}")
     assert r2.stats.n_engine_compiles == 0, "steady-state R≠S query added engine buckets"
     check_exact(pts_d, fq[sub], None, r2.dists[sub], r2.ids[sub], "R≠S")
+    hold_records(index, kinds_ran(self_stats, r1.stats, r2.stats), foreign)
 
     brute_rows = torch.cat([rows, torch.as_tensor(
         rng.choice(len(pts), BRUTE_QUERIES - ORACLE_ROWS), device=dev)])

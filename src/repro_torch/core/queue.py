@@ -31,10 +31,13 @@ class AsyncEngineCall:
     engine returned (tensors, or numpy arrays for stub engines);
     ``finalize`` converts it into the scheduler-facing result tuple.
     With ``device`` a CUDA device, an event recorded on its current stream
-    marks when the dispatched work is done."""
+    marks when the dispatched work is done.  ``untimed``, read at harvest,
+    gives the host seconds to leave out of ``elapsed`` (the engine bucket
+    records taken while the call was in flight)."""
 
     def __init__(self, raw, finalize: Optional[Callable] = None, device=None,
-                 t_dispatch: Optional[float] = None):
+                 t_dispatch: Optional[float] = None,
+                 untimed: Optional[Callable[[], float]] = None):
         self._raw = raw
         self._finalize = finalize or (lambda x: x)
         self._event = None
@@ -44,6 +47,7 @@ class AsyncEngineCall:
         # An eager engine spends host time enqueuing its kernels before it
         # returns; a caller passes the time it started so T₁ covers that.
         self.t_dispatch = time.perf_counter() if t_dispatch is None else t_dispatch
+        self._untimed = untimed
         self.elapsed: Optional[float] = None
 
     def ready(self) -> bool:
@@ -54,7 +58,8 @@ class AsyncEngineCall:
         if self._event is not None:
             self._event.synchronize()
         if self.elapsed is None:
-            self.elapsed = time.perf_counter() - self.t_dispatch
+            self.elapsed = time.perf_counter() - self.t_dispatch - (
+                0.0 if self._untimed is None else self._untimed())
         return self._finalize(self._raw)
 
 

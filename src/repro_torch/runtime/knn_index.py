@@ -30,15 +30,20 @@ exact answers on a held-out sample of corpus rows.
 
 Engine "compiles": the JAX package caches AOT executables per shape
 bucket.  PyTorch runs eagerly and the CUDA sources build once per
-process, so the port keeps only the bookkeeping — a process-global set of
-(engine, argument shapes, static parameters) keys with the same pow2
-query buckets — so ``compile_counts`` and ``JoinStats.n_engine_compiles``
-keep their meaning: a steady-state query in a seen bucket counts zero.
+process, so the port keeps the bookkeeping — a process-global map from
+(engine, argument shapes, static parameters) keys, with the same pow2
+query buckets, to each bucket's memory record — so ``compile_counts`` and
+``JoinStats.n_engine_compiles`` keep their meaning (a steady-state query
+in a seen bucket counts zero) and ``memory_analysis()`` reports what the
+compiler's analysis reports there: the bucket's argument, output,
+temporary and kernel-code bytes, as the device states them on the first
+call of the bucket (``run_engine``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from typing import Dict, Optional, Tuple
 
@@ -53,15 +58,30 @@ from repro_torch.core import grid as grid_lib
 from repro_torch.core import queue as queue_lib
 from repro_torch.core import sparse_knn as sparse_lib
 from repro_torch.core import splitter as split_lib
+from repro_torch.kernels import _build
+from repro_torch.kernels.bin_hist import kernel as hist_kernel
+from repro_torch.kernels.knn_stream import kernel as stream_kernel
+from repro_torch.kernels.knn_topk import kernel as topk_kernel
+from repro_torch.kernels.pairwise_l2 import kernel as pairwise_kernel
 from repro_torch.retrieval import calibrate as cal_lib
 from repro_torch.retrieval import metrics as met_lib
 from repro_torch.retrieval import projection as proj_lib
 from repro_torch.runtime import mutation as mut_lib
 from repro_torch.launch.mesh import check_mesh
-from repro_torch.utils import pad_to, pow2_bucket, resolve_device
+from repro_torch.utils import pad_to, pow2_bucket, resolve_device, tensor_leaves, tree_bytes
 
-# Process-global engine shape-bucket keys (the JAX AOT cache's keys).
-_ENGINE_CACHE: set = set()
+# Process-global engine buckets: key (the JAX AOT cache's key) -> the
+# bucket's memory record (``run_engine``).
+_ENGINE_CACHE: Dict[tuple, Dict[str, int]] = {}
+
+# The CUDA library of each kernel module (``csrc/<name>.cu``) whose
+# ``launches`` counter says whether an engine call ran its kernels.
+_KERNEL_MODULES = {"knn_stream": stream_kernel, "knn_topk": topk_kernel,
+                   "bin_hist": hist_kernel, "pairwise_l2": pairwise_kernel}
+
+# The allocator's trace is one per process: two threads taking records at
+# once would each switch it off under the other.
+_TRACE_LOCK = threading.Lock()
 
 # Bytes of gathered candidate rows the rescore engine holds at once: the
 # reference gathers every (query, candidate, dim) at once, 21.7 GB for an
@@ -70,7 +90,7 @@ RESCORE_CHUNK_BYTES = 1 << 28
 
 
 def clear_engine_cache() -> None:
-    """Forget every seen engine shape bucket (tests)."""
+    """Forget every seen engine shape bucket and its record (tests)."""
     _ENGINE_CACHE.clear()
 
 
@@ -87,13 +107,150 @@ def _aval(x):
     return type(x).__name__
 
 
-def run_engine(owner, kind: str, args: tuple, kwargs: dict) -> None:
-    """Charge a first-seen (engine, shapes, parameters) bucket to
-    ``owner.compile_counts[kind]``."""
+def _launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, per CUDA library."""
+    out = {}
+    for name, mod in _KERNEL_MODULES.items():
+        n = mod.launches
+        out[name] = n if isinstance(n, int) else sum(n.values())
+    return out
+
+
+def _allocator_peak(devs, call):
+    """``(call(), bytes)``: the peak, summed over the CUDA devices
+    ``devs``, of the bytes that live tensors requested from the caching
+    allocator during the call, above what they held at entry.
+
+    Read from the allocator's own event trace
+    (``torch.cuda.memory._record_memory_history``, a private API), never
+    from its peak counter, which stays the caller's:
+    ``reset_peak_memory_stats`` here would lower a peak that the caller is
+    reading across the call.  A trace the caller is already recording is
+    read from a marker on, and left on; otherwise one is switched on for
+    the call and off after it (a history recorded with
+    ``enabled="state"`` keeps no trace and cannot be told from none).
+    The trace's sizes are the requested bytes, the allocator's
+    ``requested_bytes`` statistic, not its 512-byte-rounded blocks."""
+    mem = torch.cuda.memory
+    if not (hasattr(mem, "_record_memory_history") and hasattr(mem, "_snapshot")):
+        raise RuntimeError(
+            "this torch has no allocator event trace (torch.cuda.memory."
+            "_record_memory_history / _snapshot): an engine bucket's "
+            "temp_size_in_bytes cannot be taken")
+    with _TRACE_LOCK:
+        # A probe allocation leaves a trace entry only while one is recorded.
+        probe = torch.empty(1, device=devs[0])
+        addr = probe.data_ptr()
+        del probe
+        before = mem._snapshot()["device_traces"]
+        last = before[devs[0].index][-1] if before[devs[0].index] else None
+        ours = last is None or last["addr"] != addr
+        if ours:
+            # Only allocs and free requests are read: the trace of a large
+            # engine call runs to 10^5 entries, each copied out by _snapshot.
+            mem._record_memory_history("all", context=None, stacks="python",
+                                       clear_history=True, skip_actions=[
+                                           "free_completed", "segment_alloc",
+                                           "segment_free"])
+        try:
+            out = call()
+        finally:
+            after = mem._snapshot()["device_traces"]
+            if ours:
+                mem._record_memory_history(None)
+    total = 0
+    for d in devs:
+        events = after[d.index]
+        if not ours and before[d.index]:
+            marker = before[d.index][-1]
+            at = next((j for j in range(len(events) - 1, -1, -1) if events[j] == marker),
+                      None)
+            if at is None:
+                raise RuntimeError("the allocator trace wrapped during an engine "
+                                   "call: its max_entries is too small to read")
+            events = events[at + 1:]
+        cur = peak = 0
+        for e in events:
+            if e["action"] == "alloc":
+                cur += e["size"]
+                peak = max(peak, cur)
+            elif e["action"] == "free_requested":
+                cur -= e["size"]
+        total += peak
+    return out, total
+
+
+def _recorded_call(fn, args: tuple, kwargs: dict):
+    """Run a new bucket's first call; return ``(result, record, seconds
+    the record itself took)``.  The record uses the field names of XLA's
+    ``CompiledMemoryStats``:
+
+      * ``argument_size_in_bytes`` — the bucket's signature, every tensor
+        of ``args`` (meta tensors by shape);
+      * ``output_size_in_bytes`` — every tensor of the result;
+      * ``temp_size_in_bytes`` — on a CUDA device only: the peak of the
+        bytes the call requested from the caching allocator above entry
+        (``_allocator_peak``), less the output;
+      * ``generated_code_size_in_bytes`` — the file bytes of the CUDA
+        libraries whose kernels the call launched (0 where it ran the plain
+        versions, as JAX's CPU backend reports 0)."""
+    t_start = time.perf_counter()
+    devs = sorted({t.device for t in tensor_leaves(args) if t.device.type == "cuda"},
+                  key=str)
+    launched = _launch_counts()
+    t_call = []
+
+    def call():
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        t_call.append(time.perf_counter() - t0)
+        return out
+
+    out, peak = _allocator_peak(devs, call) if devs else (call(), 0)
+    after = _launch_counts()
+    rec = {"argument_size_in_bytes": tree_bytes(args),
+           "output_size_in_bytes": tree_bytes(out),
+           "generated_code_size_in_bytes": sum(
+               _build._lib_path(name).stat().st_size
+               for name in after if after[name] != launched[name])}
+    if devs:
+        rec["temp_size_in_bytes"] = max(peak - rec["output_size_in_bytes"], 0)
+    return out, rec, time.perf_counter() - t_start - t_call[0]
+
+
+def run_engine(owner, kind: str, fn, args: tuple, kwargs: dict):
+    """Run engine ``fn(*args, **kwargs)`` and return its result — the one
+    engine-dispatch path of ``KNNIndex`` and ``ShardedKNNIndex``.
+
+    A first-seen (engine, shapes, parameters) bucket is charged to
+    ``owner.compile_counts[kind]`` and its call takes the bucket's memory
+    record (``_recorded_call``); every call, hits included, sets
+    ``owner.executables[kind]`` to the bucket's record.  A hit costs a
+    dict lookup: no synchronisation and no allocator query.  The seconds
+    a record took go to ``owner.t_record[kind]``, which the engine timers
+    leave out, as the JAX package leaves the compile out.  ``args`` are
+    the arguments that key the bucket; an engine that reads only part of
+    them (the brute lane scores only the live rows) keeps the record of
+    the bucket's first call."""
     key = (kind, tuple(_aval(a) for a in args), tuple(sorted(kwargs.items())))
-    if key not in _ENGINE_CACHE:
-        _ENGINE_CACHE.add(key)
-        owner.compile_counts[kind] = owner.compile_counts.get(kind, 0) + 1
+    rec = _ENGINE_CACHE.get(key)
+    if rec is not None:
+        owner.executables[kind] = rec
+        return fn(*args, **kwargs)
+    out, rec, seconds = _recorded_call(fn, args, kwargs)
+    _ENGINE_CACHE[key] = rec
+    owner.compile_counts[kind] = owner.compile_counts.get(kind, 0) + 1
+    owner.executables[kind] = rec
+    owner.t_record[kind] = owner.t_record.get(kind, 0.0) + seconds
+    return out
+
+
+def executable_memory_analysis(executables: Dict[str, Dict[str, int]]):
+    """Memory analysis per engine kind (bytes), for a benchmark's
+    peak-memory trajectory: a copy of the record of the bucket each kind
+    last ran in (see ``_recorded_call`` for the fields), ``None`` for a
+    record that states no field."""
+    return {kind: (dict(rec) if rec else None) for kind, rec in executables.items()}
 
 
 def validate_points(arr, n_dims: Optional[int], what: str = "queries"):
@@ -261,6 +418,7 @@ class KNNIndex:
                  generation: _Generation, t_select_eps: float = 0.0,
                  t_build: float = 0.0, t_project: float = 0.0,
                  compile_counts: Optional[Dict[str, int]] = None,
+                 executables: Optional[Dict[str, Dict[str, int]]] = None,
                  epsilon_arg: Optional[float] = None):
         self.config = config
         self.backend = backend
@@ -282,13 +440,21 @@ class KNNIndex:
         self.compile_counts = (
             compile_counts if compile_counts is not None
             else {"dense": 0, "sparse": 0, "brute": 0})
+        # The record of the bucket each engine kind last ran in, cache hits
+        # included (``run_engine``) — the JAX package's last executable per
+        # kind; a benchmark reads memory_analysis() off it.
+        self.executables = executables if executables is not None else {}
+        # Seconds spent taking bucket records, per kind: left out of the
+        # engine timers.
+        self.t_record: Dict[str, float] = {}
 
     # -- construction ------------------------------------------------------
 
     @classmethod
     def build(cls, points, config, epsilon: Optional[float] = None, *,
               device="cuda", backend: Optional[str] = None,
-              compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+              compile_counts: Optional[Dict[str, int]] = None,
+              executables: Optional[Dict[str, Dict[str, int]]] = None, mesh=None,
               mesh_axis=None, merge: str = "auto", _prebuilt: Optional[tuple] = None):
         """Steps 1–3 of Algorithm 1, once per database: REORDER, ε
         selection (skipped when ``epsilon`` is pinned), grid + pyramid.
@@ -307,6 +473,11 @@ class KNNIndex:
         ``core.distributed.merge_strategy``).  The mesh's slots decide the
         devices; ``device`` is not used then.
 
+        ``compile_counts`` and ``executables`` are dicts to share with other
+        indexes (a ``JoinSession`` shares its own): the buckets each engine
+        kind opened, and the memory record of the bucket each kind last ran
+        in — a record, not a compiled program, under the JAX package's name.
+
         ``_prebuilt`` is internal (``load``): a ``(points_r, dim_perm, eps,
         eps_beta[, projection])`` tuple replaying a saved generation's
         REORDER, ε and fitted projection verbatim, so a load never
@@ -323,7 +494,7 @@ class KNNIndex:
             return ShardedKNNIndex.build(
                 points, config, epsilon, mesh=check_mesh(mesh), mesh_axis=mesh_axis,
                 merge=merge, backend=backend, compile_counts=compile_counts,
-                _prebuilt=_prebuilt)
+                executables=executables, _prebuilt=_prebuilt)
         dev = resolve_device(device)
         cfg = config
         pts_np = met_lib.prepare_rows(
@@ -383,7 +554,8 @@ class KNNIndex:
                        backend if backend is not None else cfg.backend, dev),
                    device=dev, generation=gen, t_select_eps=t_select,
                    t_build=t_build, t_project=t_project,
-                   compile_counts=compile_counts, epsilon_arg=epsilon)
+                   compile_counts=compile_counts, executables=executables,
+                   epsilon_arg=epsilon)
 
 
     # -- introspection -----------------------------------------------------
@@ -467,6 +639,14 @@ class KNNIndex:
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
 
+    def cache_info(self) -> Dict[str, int]:
+        return {"global_entries": len(_ENGINE_CACHE), **self.compile_counts}
+
+    def memory_analysis(self) -> Dict[str, Optional[Dict[str, int]]]:
+        """Memory record per engine kind (bytes) — see
+        ``executable_memory_analysis``."""
+        return executable_memory_analysis(self.executables)
+
     # -- persistence (DESIGN.md §7) ----------------------------------------
 
     def save(self, directory: str, *, manager=None) -> int:
@@ -479,7 +659,8 @@ class KNNIndex:
     @classmethod
     def load(cls, directory: str, *, step: Optional[int] = None, device="cuda",
              backend: Optional[str] = None,
-             compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+             compile_counts: Optional[Dict[str, int]] = None,
+             executables: Optional[Dict[str, Dict[str, int]]] = None, mesh=None,
              mesh_axis=None, merge: str = "auto"):
         """Rebuild a served index from a saved generation on ``device`` —
         or, with ``mesh``, onto any mesh shape (a ``ShardedKNNIndex``):
@@ -487,7 +668,8 @@ class KNNIndex:
         from repro_torch.runtime import persistence
         return persistence.load_index(directory, step=step, device=device,
                                       backend=backend, compile_counts=compile_counts,
-                                      mesh=mesh, mesh_axis=mesh_axis, merge=merge)
+                                      executables=executables, mesh=mesh,
+                                      mesh_axis=mesh_axis, merge=merge)
 
     # -- mutations (DESIGN.md §6) ------------------------------------------
 
@@ -554,7 +736,8 @@ class KNNIndex:
                              f"{len(net)} live points")
         remap = mut.remap_after_compact(gen.n_base)
         fresh = KNNIndex.build(net, self.config, self._epsilon_arg, device=self.device,
-                               backend=self.backend, compile_counts=self.compile_counts)
+                               backend=self.backend, compile_counts=self.compile_counts,
+                               executables=self.executables)
         self._live = (fresh._live[0], mut_lib.MutationState.empty(self.n_dims))
         self.generation += 1
         self.t_select_eps = fresh.t_select_eps
@@ -592,14 +775,14 @@ class KNNIndex:
                 exclude_self=exclude_self, metric=self._grid_metric(gen),
                 distance_dtype=cfg.distance_dtype,
             )
-            run_engine(self, "dense", args, kwargs)
             _sync(self.device)
-            t0 = time.perf_counter()
-            res = dense_lib.dense_join(*args, **kwargs)
+            t0, rec0 = time.perf_counter(), self.t_record.get("dense", 0.0)
+            res = run_engine(self, "dense", dense_lib.dense_join, args, kwargs)
             n = len(ids)
             out = (res.dists[:n].cpu().numpy(), res.ids[:n].cpu().numpy(),
                    res.failed[:n].cpu().numpy())
-            return out + (time.perf_counter() - t0,)
+            return out + (time.perf_counter() - t0
+                          - (self.t_record.get("dense", 0.0) - rec0),)
 
         return dense_fn
 
@@ -617,17 +800,19 @@ class KNNIndex:
                 exclude_self=exclude_self, metric=self._grid_metric(gen),
                 distance_dtype=cfg.distance_dtype,
             )
-            run_engine(self, "sparse", args, kwargs)
-            t0 = time.perf_counter()
-            raw = sparse_lib.sparse_knn(*args, **kwargs)
+            t0, rec0 = time.perf_counter(), sum(self.t_record.values())
+            raw = run_engine(self, "sparse", sparse_lib.sparse_knn, args, kwargs)
             n = len(ids)
 
             def finalize(r):
                 return (r.dists[:n].cpu().numpy(), r.ids[:n].cpu().numpy(),
                         r.certified[:n].cpu().numpy())
 
-            return queue_lib.AsyncEngineCall(raw, finalize, device=self.device,
-                                             t_dispatch=t0)
+            # Every record taken while the call is in flight (its own, a
+            # dense batch's) stays out of its time.
+            return queue_lib.AsyncEngineCall(
+                raw, finalize, device=self.device, t_dispatch=t0,
+                untimed=lambda: sum(self.t_record.values()) - rec0)
 
         return sparse_fn
 
@@ -639,18 +824,21 @@ class KNNIndex:
 
         def brute_fn(ids: np.ndarray):
             qp = hybrid_lib._pad_ids(ids, cfg.query_block, self.device)
-            queries = corpus if queries_p is None else queries_p
             args = (corpus, qp) + (() if queries_p is None else (queries_p,))
             kwargs = dict(k=k, corpus_chunk=cfg.brute_chunk,
                           exclude_self=exclude_self, metric=metric)
-            run_engine(self, "brute", args, kwargs)
-            # Only the real rows are scored: the pow2 padding keys the
-            # bucket, and brute work grows with every padding row.
-            live = qp[: len(ids)]
-            safe = torch.clamp(live, 0, queries.shape[0] - 1).long()
-            d, i = brute_lib.brute_knn(
-                corpus, queries[safe], dense_lib._exclusion_ids(live, exclude_self),
-                k=k, corpus_chunk=cfg.brute_chunk, metric=metric)
+
+            def engine(corpus, qp, queries=None, *, k, corpus_chunk, exclude_self, metric):
+                # Only the real rows are scored: the pow2 padding keys the
+                # bucket, and brute work grows with every padding row.
+                queries = corpus if queries is None else queries
+                live = qp[: len(ids)]
+                safe = torch.clamp(live, 0, queries.shape[0] - 1).long()
+                return brute_lib.brute_knn(
+                    corpus, queries[safe], dense_lib._exclusion_ids(live, exclude_self),
+                    k=k, corpus_chunk=corpus_chunk, metric=metric)
+
+            d, i = run_engine(self, "brute", engine, args, kwargs)
             return d.cpu().numpy(), i.cpu().numpy()
 
         return brute_fn
@@ -717,7 +905,8 @@ class KNNIndex:
         floor."""
         cfg = self.config
         rho = cfg.rho if rho is None else rho
-        return queue_lib.run_work_queue(
+        rec0 = self.t_record.get("brute", 0.0)
+        out = queue_lib.run_work_queue(
             npts=n_q, k=kq, dense_ids=dense_ids, sparse_ids=sparse_ids,
             home_counts=home_counts,
             dense_fn=self._dense_fn(gen, kq, queries_rp, exclude_self),
@@ -727,6 +916,8 @@ class KNNIndex:
             sync_t1_after=cfg.rebalance_sync_batches,
             min_sparse=int(math.ceil(rho * n_q)), demote_quantum=cfg.query_block,
         )
+        out[3].t_brute -= self.t_record.get("brute", 0.0) - rec0
+        return out
 
     def _stats(self, gen: _Generation, n_dense: int, n_sparse: int, threshold: float,
                report, compiles_before: int, t_delta: float = 0.0):
@@ -830,6 +1021,13 @@ class KNNIndex:
             dists=met_lib.finalize(final_d, cfg.metric), ids=final_i,
             source=source, stats=stats)
 
+    def _timed_brute(self, brute_fn, n_q: int):
+        """``(dists, ids, seconds)`` of one brute engine call over ``n_q``
+        rows, its bucket record's own time left out."""
+        t0, rec0 = time.perf_counter(), self.t_record.get("brute", 0.0)
+        d, i = brute_fn(np.arange(n_q, dtype=np.int32))
+        return d, i, time.perf_counter() - t0 - (self.t_record.get("brute", 0.0) - rec0)
+
     def _brute_result(self, gen: _Generation, n_q: int, d, i, dt: float,
                       compiles_before: int) -> "hybrid_lib.KNNResult":
         """A result served whole by one brute engine call, source 2."""
@@ -846,11 +1044,8 @@ class KNNIndex:
         sparse certificates bound ip, so every query serves through the
         exact brute lane (one padded batch).  Approximate ip wants the
         projection front stage."""
-        t0 = time.perf_counter()
-        d, i = self._brute_fn(gen, kq, queries_rp, exclude_self)(
-            np.arange(n_q, dtype=np.int32))
-        return self._brute_result(gen, n_q, d, i, time.perf_counter() - t0,
-                                  compiles_before)
+        d, i, dt = self._timed_brute(self._brute_fn(gen, kq, queries_rp, exclude_self), n_q)
+        return self._brute_result(gen, n_q, d, i, dt, compiles_before)
 
     def _query_full_brute(self, gen: _Generation, kq: int, n_q: int, q_np,
                           exclude_self: bool, compiles_before: int):
@@ -860,11 +1055,8 @@ class KNNIndex:
         for its reference."""
         qfp = (None if q_np is None else pad_rows_pow2(
             torch.as_tensor(q_np, device=self.device), self.config.query_block).contiguous())
-        t0 = time.perf_counter()
-        d, i = self._full_brute_fn(gen, kq, qfp, exclude_self)(
-            np.arange(n_q, dtype=np.int32))
-        return self._brute_result(gen, n_q, d, i, time.perf_counter() - t0,
-                                  compiles_before)
+        d, i, dt = self._timed_brute(self._full_brute_fn(gen, kq, qfp, exclude_self), n_q)
+        return self._brute_result(gen, n_q, d, i, dt, compiles_before)
 
     def _lean_pass(self, gen: _Generation, kq: int, n_q: int, queries_rp,
                    dense_ids: np.ndarray, sparse_ids: np.ndarray, exclude_self: bool,
@@ -955,16 +1147,19 @@ class KNNIndex:
         def meta(*shape, dtype=torch.float32):
             return torch.empty(shape, dtype=dtype, device="meta")
 
-        # The bucket is keyed on the padded batch, as the reference's
-        # engine is; only the real rows are rescored.
-        run_engine(self, "rescore", (gen.points_full, meta(qb, gen.n_dims),
-                                     meta(qb, k_cand, dtype=torch.int32),
-                                     meta(qb, dtype=torch.int32)),
-                   dict(k=kq, metric=metric))
         excl = (torch.arange(n_q, dtype=torch.int32, device=dev) if exclude_self
                 else torch.full((n_q,), -2, dtype=torch.int32, device=dev))
-        rd, ri = rescore_topk(gen.points_full, qf, torch.as_tensor(ci, device=dev), excl,
-                              k=kq, metric=metric)
+
+        def engine(points_full, *padded, k, metric):
+            return rescore_topk(points_full, qf, torch.as_tensor(ci, device=dev), excl,
+                                k=k, metric=metric)
+
+        # The bucket is keyed on the padded batch, as the reference's
+        # engine is; only the real rows are rescored.
+        rd, ri = run_engine(self, "rescore", engine,
+                            (gen.points_full, meta(qb, gen.n_dims),
+                             meta(qb, k_cand, dtype=torch.int32), meta(qb, dtype=torch.int32)),
+                            dict(k=kq, metric=metric))
         rd, ri = rd.cpu().numpy(), ri.cpu().numpy()
         t_rescore = time.perf_counter() - t0
         return (rd, ri, source, report, threshold, len(dense_ids), len(sparse_ids),
@@ -1040,10 +1235,8 @@ class KNNIndex:
             # No triangle inequality: the widened main pipeline IS the brute lane.
             dense_ids = sparse_ids = np.empty((0,), np.int32)
             threshold = 0.0
-            t0 = time.perf_counter()
-            final_d, final_i = self._brute_fn(gen, k_main, queries_rp, False)(
-                np.arange(n_q, dtype=np.int32))
-            dt = time.perf_counter() - t0
+            final_d, final_i, dt = self._timed_brute(
+                self._brute_fn(gen, k_main, queries_rp, False), n_q)
             source = np.full((n_q,), 2, np.int32)
             report = queue_lib.QueueReport(t_brute=dt, t_wall=dt)
         else:
@@ -1069,8 +1262,7 @@ class KNNIndex:
         dargs = (queries_rp, torch.as_tensor(delta_pts_p, device=dev), excl_t,
                  torch.as_tensor(delta_gids, device=dev))
         dkw = dict(k=k_delta, metric=self._grid_metric(gen))
-        run_engine(self, "delta", dargs, dkw)
-        dd, di = mut_lib.delta_topk(*dargs, **dkw)
+        dd, di = run_engine(self, "delta", mut_lib.delta_topk, dargs, dkw)
 
         md = np.full((qb, k_main), np.inf, np.float32)
         mi = np.full((qb, k_main), -1, np.int32)
@@ -1079,8 +1271,7 @@ class KNNIndex:
         fargs = (torch.as_tensor(md, device=dev), torch.as_tensor(mi, device=dev), dd, di,
                  torch.as_tensor(mut.tombstone_table(), device=dev), excl_t)
         fkw = dict(k=kq)
-        run_engine(self, "merge", fargs, fkw)
-        fd, fi = mut_lib.fold_topk(*fargs, **fkw)
+        fd, fi = run_engine(self, "merge", mut_lib.fold_topk, fargs, fkw)
         fd, fi = fd[:n_q].cpu().numpy(), fi[:n_q].cpu().numpy()
         t_delta = time.perf_counter() - t0
 

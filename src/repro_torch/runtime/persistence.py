@@ -100,7 +100,8 @@ def save_index(index, directory: str, *, manager=None) -> int:
 
 def load_index(directory: str, *, step: Optional[int] = None, device="cuda",
                backend: Optional[str] = None,
-               compile_counts: Optional[Dict[str, int]] = None, mesh=None,
+               compile_counts: Optional[Dict[str, int]] = None,
+               executables: Optional[Dict[str, Dict[str, int]]] = None, mesh=None,
                mesh_axis=None, merge: str = "auto"):
     """Rebuild a served index from a saved generation on ``device``, or
     onto ``mesh`` (routed like ``KNNIndex.build``).  On the saver's
@@ -134,8 +135,9 @@ def load_index(directory: str, *, step: Optional[int] = None, device="cuda",
             mean=np.asarray(tree["proj_mean"], np.float32),
             mips_m=float(extra.get("projection_mips_m", 0.0))),)
     index = KNNIndex.build(tree["points_ref"], cfg, extra["epsilon_arg"], device=device,
-                           backend=backend, compile_counts=compile_counts, mesh=mesh,
-                           mesh_axis=mesh_axis, merge=merge, _prebuilt=prebuilt)
+                           backend=backend, compile_counts=compile_counts,
+                           executables=executables, mesh=mesh, mesh_axis=mesh_axis,
+                           merge=merge, _prebuilt=prebuilt)
     index.generation = int(extra["generation"])
     mut = mut_lib.MutationState(
         delta_points=np.asarray(tree["delta_points"], np.float32),

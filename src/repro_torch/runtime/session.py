@@ -3,9 +3,10 @@ in PyTorch (port of ``repro/runtime/session.py``).
 
 Each ``join(points)`` builds — or reuses, when the same array object is
 joined again with an unchanged ε argument — a ``KNNIndex`` and runs the
-self-join as ``index.query(exclude_self=True)``.  ``compile_counts`` is
-shared with every index the session builds.  Callers must not mutate a
-joined array in place (reuse is keyed on object identity).
+self-join as ``index.query(exclude_self=True)``.  ``compile_counts`` and
+``executables`` (each engine kind's last bucket record) are shared with
+every index the session builds.  Callers must not mutate a joined array
+in place (reuse is keyed on object identity).
 
 Placement (DESIGN.md §5): a session constructed with ``mesh=`` owns
 sharded indexes instead — ``index_for`` / ``join`` build a
@@ -19,7 +20,7 @@ import torch
 
 import repro_torch.core.hybrid as hybrid_lib
 from repro_torch.core import dense_join as dense_lib
-from repro_torch.runtime.knn_index import KNNIndex
+from repro_torch.runtime.knn_index import _ENGINE_CACHE, KNNIndex, clear_engine_cache  # noqa: F401
 from repro_torch.launch.mesh import check_mesh
 from repro_torch.utils import resolve_device
 
@@ -46,12 +47,26 @@ class JoinSession:
         self.compile_counts: Dict[str, int] = {"dense": 0, "sparse": 0, "brute": 0}
         if mesh is not None:
             self.compile_counts["merge"] = 0
+        # The record of the bucket each engine kind last ran in, cache hits
+        # included — a benchmark reads memory_analysis() off it.
+        self.executables: Dict[str, Dict[str, int]] = {}
         self._index: Optional[KNNIndex] = None
         self._index_eps_arg: Optional[float] = None
 
     @property
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
+
+    def cache_info(self) -> Dict[str, int]:
+        # KNNIndex.cache_info's shape, over the session-shared counters.
+        return {"global_entries": len(_ENGINE_CACHE), **self.compile_counts}
+
+    def memory_analysis(self):
+        """Memory record per engine kind (bytes) of the current index (see
+        ``KNNIndex``); ``{}`` before the first join."""
+        if self._index is None:
+            return {}
+        return self._index.memory_analysis()
 
     def index_for(self, points, epsilon: Optional[float] = None) -> KNNIndex:
         """The session's ``KNNIndex`` for this point cloud — the serving
@@ -68,7 +83,8 @@ class JoinSession:
             return idx, False
         idx = KNNIndex.build(points, self.config, epsilon, device=self.device,
                              backend=self.backend, compile_counts=self.compile_counts,
-                             mesh=self.mesh, mesh_axis=self.mesh_axis, merge=self.merge)
+                             executables=self.executables, mesh=self.mesh,
+                             mesh_axis=self.mesh_axis, merge=self.merge)
         self._index = idx
         self._index_eps_arg = epsilon
         return idx, True

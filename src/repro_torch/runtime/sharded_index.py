@@ -50,7 +50,8 @@ from repro_torch.retrieval import metrics as met_lib
 from repro_torch.runtime import mutation as mut_lib
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.knn_index import (
-    KNNIndex, _Generation, _sync, pad_rows_pow2, run_engine, select_epsilon, validate_k,
+    _ENGINE_CACHE, KNNIndex, _Generation, _sync, executable_memory_analysis, pad_rows_pow2,
+    run_engine, select_epsilon, validate_k,
     validate_points,
 )
 from repro_torch.runtime.serving import ServingConfig, ServingSupervisor
@@ -119,6 +120,7 @@ class ShardedKNNIndex:
     def __init__(self, config, *, backend: str, mesh: Mesh, axes: Tuple[str, ...],
                  merge: str, generation: _ShardedGeneration, t_select_eps: float = 0.0,
                  t_build: float = 0.0, compile_counts: Optional[Dict[str, int]] = None,
+                 executables: Optional[Dict[str, Dict[str, int]]] = None,
                  epsilon_arg: Optional[float] = None):
         self.config = config
         self.backend = backend
@@ -149,6 +151,9 @@ class ShardedKNNIndex:
             compile_counts = {"dense": 0, "sparse": 0, "brute": 0}
         compile_counts.setdefault("merge", 0)
         self.compile_counts = compile_counts
+        # Shared with every shard, as the counters are (KNNIndex).
+        self.executables = executables if executables is not None else {}
+        self.t_record: Dict[str, float] = {}
         # Keyed (k_out, dedup): dedup depends on the live generation's
         # n_pad, which compaction may change.
         self._merge_fns: Dict[Tuple[int, bool], object] = {}
@@ -159,6 +164,7 @@ class ShardedKNNIndex:
     def build(cls, points, config, epsilon: Optional[float] = None, *, mesh: Mesh,
               mesh_axis: Union[str, Sequence[str], None] = None, merge: str = "auto",
               backend: Optional[str] = None, compile_counts: Optional[Dict[str, int]] = None,
+              executables: Optional[Dict[str, Dict[str, int]]] = None,
               _prebuilt: Optional[tuple] = None) -> "ShardedKNNIndex":
         """Per-database steps, placement-aware: global REORDER + ε selection
         (one geometry for every shard), cell-sorted row-range partition, then
@@ -240,10 +246,11 @@ class ShardedKNNIndex:
         bk = dense_lib.resolve_backend(backend if backend is not None else cfg.backend, dev0)
         counts = (compile_counts if compile_counts is not None
                   else {"dense": 0, "sparse": 0, "brute": 0})
+        execs = executables if executables is not None else {}
 
         # (5) each shard is a plain KNNIndex over its sub-cloud: REORDER
-        # already applied, ε pinned, grid/pyramid prebuilt, counters shared
-        # so P shards look like one serving engine.
+        # already applied, ε pinned, grid/pyramid prebuilt, counters and
+        # records shared so P shards look like one serving engine.
         shard_cfg = dataclasses.replace(cfg, reorder=False)
         shards = []
         for p in range(n_shards):
@@ -252,7 +259,7 @@ class ShardedKNNIndex:
                               eps=eps, eps_beta=eps_beta, grid=g, pyramid=pyramids[p],
                               home_counts=g.cell_counts[g.point_cell_pos.long()].cpu().numpy())
             shards.append(KNNIndex(shard_cfg, backend=bk, device=devs[p], generation=gen,
-                                   compile_counts=counts))
+                                   compile_counts=counts, executables=execs))
         t_build = time.perf_counter() - t0
 
         gen = _ShardedGeneration(
@@ -261,7 +268,7 @@ class ShardedKNNIndex:
             gids_dev=gids_dev, n_pad=n_pad)
         return cls(cfg, backend=bk, mesh=mesh, axes=axes, merge=merge, generation=gen,
                    t_select_eps=t_select, t_build=t_build, compile_counts=counts,
-                   epsilon_arg=epsilon)
+                   executables=execs, epsilon_arg=epsilon)
 
     # -- introspection -----------------------------------------------------
     # Generation-owned state reads the LIVE generation; compact() swaps it.
@@ -340,6 +347,12 @@ class ShardedKNNIndex:
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
 
+    def cache_info(self) -> Dict[str, int]:
+        return {"global_entries": len(_ENGINE_CACHE), **self.compile_counts}
+
+    def memory_analysis(self) -> Dict[str, Optional[Dict[str, int]]]:
+        return executable_memory_analysis(self.executables)
+
     @property
     def placement_shape(self) -> Tuple[int, int]:
         """(replicas, shards) — the serving placement, independent of how the
@@ -406,10 +419,10 @@ class ShardedKNNIndex:
             fn = dist_lib.collective_topk_merge(self.mesh, self.axes, k=k_out,
                                                 strategy=self.merge, dedup=dedup)
             self._merge_fns[(k_out, dedup)] = fn
-        run_engine(self, "merge", (dists, ids, excl),
-                   dict(k=k_out, strategy=self.merge, dedup=dedup, axes=self.axes,
-                        mesh=self.mesh))
-        return fn(dists, ids, excl)
+        return run_engine(self, "merge", lambda dists, ids, excl, **kw: fn(dists, ids, excl),
+                          (dists, ids, excl),
+                          dict(k=k_out, strategy=self.merge, dedup=dedup, axes=self.axes,
+                               mesh=self.mesh))
 
     # -- mutations (DESIGN.md §6) ------------------------------------------
     # Mutations live at the sharded level: shards stay clean single-device
@@ -469,7 +482,8 @@ class ShardedKNNIndex:
         remap = mut.remap_after_compact(gen.n_base)
         fresh = ShardedKNNIndex.build(
             net, self.config, self._epsilon_arg, mesh=self.mesh, mesh_axis=self.axes,
-            merge=self.merge, backend=self.backend, compile_counts=self.compile_counts)
+            merge=self.merge, backend=self.backend, compile_counts=self.compile_counts,
+            executables=self.executables)
         self._live = (fresh._live[0], mut_lib.MutationState.empty(self.n_dims))
         self.generation += 1
         self.t_select_eps = fresh.t_select_eps
@@ -601,16 +615,14 @@ class ShardedKNNIndex:
         dargs = (queries_rp, torch.as_tensor(delta_pts_p, device=dev), excl_t,
                  torch.as_tensor(delta_gids, device=dev))
         dkw = dict(k=k_delta, metric=met_lib.kernel_metric(cfg.metric))
-        run_engine(self, "delta", dargs, dkw)
-        dd, di = mut_lib.delta_topk(*dargs, **dkw)
+        dd, di = run_engine(self, "delta", mut_lib.delta_topk, dargs, dkw)
         # Shard distances are FINALIZED while the delta engine returns raw
         # scores: bring the delta block into the merged space before folding
         # (finalize is monotone per metric).
         dd = torch.as_tensor(met_lib.finalize(dd.cpu().numpy(), cfg.metric), device=dev)
         fargs = (md, mi, dd, di, torch.as_tensor(mut.tombstone_table(), device=dev), excl_t)
         fkw = dict(k=kq)
-        run_engine(self, "merge", fargs, fkw)
-        fd, fi = mut_lib.fold_topk(*fargs, **fkw)
+        fd, fi = run_engine(self, "merge", mut_lib.fold_topk, fargs, fkw)
         fd, fi = fd[:n_q].cpu().numpy(), fi[:n_q].cpu().numpy()
         t_delta = time.perf_counter() - t0
 

@@ -1,6 +1,10 @@
 """Small shared utilities of the PyTorch port: padding, shape buckets,
-device resolution, and the error raised for features outside this slice."""
+device resolution, nested-container helpers, byte counts and timers."""
 from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -90,3 +94,78 @@ def tree_unflatten(template, leaves):
         return None if t is None else next(it)
 
     return build(template)
+
+
+def tensor_leaves(tree):
+    """Every ``torch.Tensor`` leaf of ``tree``, descending into dicts,
+    lists, tuples and dataclass fields (``GridIndex``, ``Pyramid``, a
+    ``_Generation``)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from tensor_leaves(getattr(tree, f.name))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes of every tensor leaf of ``tree`` (``meta`` tensors
+    included: only shape and dtype count)."""
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(tree))
+
+
+def human_bytes(n: float) -> str:
+    for unit in ["B", "KiB", "MiB", "GiB", "TiB"]:
+        if abs(n) < 1024:
+            return f"{n:.2f}{unit}"
+        n /= 1024
+    return f"{n:.2f}PiB"
+
+
+def _sync_tree(tree) -> None:
+    """Wait for the work that produces ``tree``'s tensors: synchronise each
+    CUDA device a tensor leaf lives on (the ``block_until_ready`` of the
+    JAX package's timers)."""
+    for dev in {t.device for t in tensor_leaves(tree) if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+class Timer:
+    """Wall-clock timer; with ``device`` a CUDA device, ``__exit__`` waits
+    for that device's queued work first, so the time is the work's and not
+    its enqueueing's."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.elapsed = time.perf_counter() - self._t0
+        return False
+
+
+def timed(fn: Callable, *args, repeats: int = 1, warmup: int = 1, **kw):
+    """Run ``fn`` repeatedly, each time waiting for the devices its result
+    lives on; return ``(best_seconds, result)``."""
+    result = None
+    for _ in range(max(warmup, 0)):
+        result = fn(*args, **kw)
+        _sync_tree(result)
+    best = float("inf")
+    for _ in range(max(repeats, 1)):
+        t0 = time.perf_counter()
+        result = fn(*args, **kw)
+        _sync_tree(result)
+        best = min(best, time.perf_counter() - t0)
+    return best, result

@@ -14,6 +14,8 @@ float64 scores lie within that bound of each other, and a found count only
 where a pair lies within it of ε².  On small-integer data every score is
 exact in both forms, and there ids must agree exactly: that checks the tie
 rule (equal scores, lowest candidate column first)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -748,3 +750,95 @@ def test_params_from_jax_full_olmo_layout_on_card(card):
                 assert tuple(w.shape) == shape and w.is_cuda
                 assert bool((w == i).all()), f"layer {i} {sub}.{name} is not group {i}"
 
+
+
+RECORD_FIELDS = {"temp_size_in_bytes", "argument_size_in_bytes", "output_size_in_bytes",
+                 "generated_code_size_in_bytes"}
+
+
+def _record_index(card):
+    """A clean fused l2 index on the card (ε pinned) and foreign queries in
+    the dense cluster and the sparse background."""
+    from conftest import make_mixture
+    from repro_torch.core import HybridConfig
+    from repro_torch.runtime import KNNIndex, clear_engine_cache
+    clear_engine_cache()
+    db = make_mixture(30_000, 10_000, dim=8, seed=0)
+    q = make_mixture(600, 400, dim=8, seed=5)
+    index = KNNIndex.build(db, HybridConfig(k=8, m=4, n_batches=2, online_rebalance=False),
+                           0.3, device=card)
+    return index, q
+
+
+def test_first_bucket_query_leaves_peak_counter(card):
+    """The records never reset the caller's peak counter: with the peak
+    raised above what a first-bucket query needs, the query leaves
+    ``max_memory_allocated()`` exactly as it was."""
+    index, q = _record_index(card)
+    spike = torch.empty(1 << 30, dtype=torch.uint8, device=card)
+    del spike
+    peak = torch.cuda.max_memory_allocated()
+    res = index.query(q)
+    assert res.stats.n_engine_compiles > 0
+    assert torch.cuda.max_memory_allocated() == peak
+    assert index.query(q.copy()).stats.n_engine_compiles == 0
+    assert torch.cuda.max_memory_allocated() == peak
+
+
+def test_brute_record_matches_allocator_peak(card):
+    """The brute record's temp + output against the allocator's own peak of
+    requested bytes above entry, read by the test around the same isolated
+    engine call (the test owns the counter and resets it): within 1 %.  Its
+    code bytes are the ``knn_topk`` library's."""
+    from repro_torch.core import brute as brute_lib
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import knn_index
+    knn_index.clear_engine_cache()
+    g = torch.Generator(device=card).manual_seed(3)
+    corpus = torch.randn(400_000, 16, device=card, generator=g)
+    queries = torch.randn(4096, 16, device=card, generator=g)
+    qids = torch.full((4096,), -1, dtype=torch.int32, device=card)
+    owner = type("Owner", (), {})()
+    owner.compile_counts, owner.executables, owner.t_record = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entry = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    d, i = knn_index.run_engine(owner, "brute", brute_lib.brute_knn, (corpus, queries, qids),
+                                dict(k=16, corpus_chunk=4096, metric="l2"))
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"] - entry
+    rec = knn_index.executable_memory_analysis(owner.executables)["brute"]
+    assert set(rec) == RECORD_FIELDS and owner.compile_counts == {"brute": 1}
+    assert rec["output_size_in_bytes"] == d.numel() * 4 + i.numel() * 4
+    assert rec["temp_size_in_bytes"] > 0
+    got = rec["temp_size_in_bytes"] + rec["output_size_in_bytes"]
+    assert abs(got - peak) <= 0.01 * peak, (got, peak)
+    assert rec["generated_code_size_in_bytes"] == _build._lib_path("knn_topk").stat().st_size
+
+
+def test_every_kind_that_ran_has_four_fields(card):
+    """Dense, sparse, brute, delta and merge on the card: each kind that
+    ran holds all four fields and code bytes that are a sum of the built
+    libraries'; the three grid-side engines allocate beyond their outputs
+    (temp > 0), where the delta engine's one kernel may write only its
+    output."""
+    from repro_torch.kernels import _build
+    index, q = _record_index(card)
+    res = index.query(q)
+    index.insert(q[:40])
+    index.delete([0, 1, 2])
+    index.query(q)
+    ip_index = type(index).build(index.points, dataclasses.replace(index.config, metric="ip"),
+                                 0.3, device=card)
+    ip_index.query(q[:64])
+    mem = {**index.memory_analysis(), **ip_index.memory_analysis()}
+    ran = {"delta", "merge", "brute"} | {k for k, n in (("dense", res.stats.n_dense),
+                                                         ("sparse", res.stats.n_sparse)) if n}
+    assert ran <= set(mem), (ran, set(mem))
+    libs = [_build._lib_path(n).stat().st_size for n in _build.SOURCES]
+    sums = {sum(s for j, s in enumerate(libs) if mask >> j & 1) for mask in range(1 << len(libs))}
+    for kind in ran:
+        rec = mem[kind]
+        assert set(rec) == RECORD_FIELDS, (kind, rec)
+        assert rec["temp_size_in_bytes"] >= 0 and rec["argument_size_in_bytes"] > 0, (kind, rec)
+        assert kind not in ("dense", "sparse", "brute") or rec["temp_size_in_bytes"] > 0, kind
+        assert rec["generated_code_size_in_bytes"] in sums, (kind, rec)
